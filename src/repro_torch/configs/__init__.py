@@ -1,0 +1,1 @@
+"""configs layer of the PyTorch port (see the package docstring)."""

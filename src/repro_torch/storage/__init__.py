@@ -1,0 +1,1 @@
+"""storage layer of the PyTorch port (see the package docstring)."""
