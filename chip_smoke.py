@@ -8,27 +8,37 @@ Phases, each ended by ``torch.cuda.synchronize()`` so a kernel fault shows in
 the phase that caused it; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (``nvidia-smi``); build every CUDA kernel
-   of the port from the checkout's sources;
+   of the port from the checkout's sources, one ``nvcc`` each, in parallel;
 2. every kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it, exact equality (GF(2^8) arithmetic is exact);
-   kernel and plain version timed in turns with CUDA events beside the
-   byte bound;
-3. the main path at production size: a (10,6) Clay / 10 MiB-chunkset
+   the main paths give it: ``gf_matmul`` and ``sample_hash`` with exact
+   equality (their arithmetic is exact), ``flash_attention`` within the
+   tolerance stated at ``ATTN_TOL``; kernel and plain version timed in turns
+   with CUDA events beside the least time the card could take (and, for
+   attention, ``scaled_dot_product_attention`` as a yardstick);
+3. the storage path at production size: a (10,6) Clay / 10 MiB-chunkset
    cluster of 24 SPs in 5 DCs, put a seeded blob, read it whole and at 3
    ranges across chunksets, crash 2 SPs and read again, mark one SP
    corrupt and read again, settle; bytes compared with the input, kernel
    launches counted per phase (each must be > 0);
-4. a device encode/decode against the CPU plain path on one chunkset;
-5. the put's and a read's steps timed alone (partition, device encode,
+4. the audit path: the bulk digests of every 1 KiB sample of every chunk
+   the put stored, checked against the plain version on the CPU;
+5. a device encode/decode against the CPU plain path on one chunkset;
+6. the put's and a read's steps timed alone (partition, device encode,
    device-to-host copy, host SHA-256 Merkle commitments, decode);
-6. the device's busy and idle share over a put and a whole read of the same
+7. the device's busy and idle share over a put and a whole read of the same
    blob on a fresh cluster, from a ``torch.profiler`` trace of the card
    (kernels, copies and memsets, overlaps merged);
-7. the card again, one JSON line per kernel, then the result line.
+8. the serving path at yi-9b's published widths, depth cut to 2 layers:
+   publish the weights through Shelby, crash an SP, restore them by paid
+   k-of-n reads, serve batch 4 x (prompt 8 + 16 generated tokens); the
+   served model teacher-forced for two steps on the card and on the CPU
+   plain path; decode tok/s as the median of three warm generations;
+9. the card again, one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import pathlib
@@ -36,13 +46,26 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, the nearest listed integer rate
-REPLACES = "src/repro/kernels/gf_matmul.py:68"
-SOURCE = "src/repro_torch/kernels/csrc/gf_matmul.cu"
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+H100_FP32_OPS_PER_S = 67e12  # 32-bit CUDA-core peak (fp32), the rate of sample_hash's u32 ops
+KERNELS = {  # name -> (source, the Pallas kernel it replaces)
+    "gf_matmul": ("src/repro_torch/kernels/csrc/gf_matmul.cu",
+                  "src/repro/kernels/gf_matmul.py:68"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:73"),
+    "sample_hash": ("src/repro_torch/kernels/csrc/sample_hash.cu",
+                    "src/repro/kernels/sample_hash.py:49"),
+}
+# flash_attention against its plain version: f32 to summation order; bf16
+# outputs are the same f32 result rounded, so within one rounding step
+ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2**-7, 2**-7)}  # (atol, rtol)
+SERVE_ARCH, SERVE_LAYERS = "yi-9b", 2  # published widths; depth cut from 48 (host-bound publish)
 
 
 def _phase(name: str) -> None:
@@ -142,6 +165,181 @@ def check_gf_matmul(shapes, gen, timed: set) -> list[dict]:
     return rows
 
 
+def sample_hash_bound_ms(leaves: int, words: int) -> tuple[float, str]:
+    """Least time for the digests: each word read once, each digest written
+    once, or 4 u32 operations per word plus 8 per digest at the 32-bit rate."""
+    bytes_ms = 4 * leaves * (words + 1) / H100_BYTES_PER_S * 1e3
+    ops_ms = leaves * (4 * words + 8) / H100_FP32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_sample_hash(cases, gen, timed: set) -> list[dict]:
+    import torch
+
+    from repro_torch.kernels import sample_hash as sh
+
+    rows = []
+    for leaves, words, seed in cases:
+        w = torch.randint(-2**31, 2**31, (leaves, words), dtype=torch.int32, device="cuda",
+                          generator=gen).view(torch.uint32)
+        out = sh.sample_hash(w, seed=seed).view(torch.int32)
+        ref = sh.sample_hash_ref(w, seed=seed).view(torch.int32)
+        torch.cuda.synchronize()
+        mismatches = int((out != ref).sum())
+        row = {"leaves": leaves, "words": words, "seed": seed, "mismatches": mismatches,
+               "max_abs_err": int((out.long() - ref.long()).abs().max())}
+        if (leaves, words, seed) in timed:
+            plain_a = _time_ms(lambda: sh.sample_hash_ref(w, seed=seed), 2)
+            kern_a = _time_ms(lambda: sh.sample_hash(w, seed=seed), 20)
+            kern_b = _time_ms(lambda: sh.sample_hash(w, seed=seed), 20)
+            plain_b = _time_ms(lambda: sh.sample_hash_ref(w, seed=seed), 2)
+            bound, by = sample_hash_bound_ms(leaves, words)
+            row.update(ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
+                       bound_ms=bound, bound_by=by, library_ms=None)
+        print(json.dumps({"sample_hash_check": row}), flush=True)
+        if mismatches:
+            raise SystemExit(f"sample_hash disagrees with its plain version at {(leaves, words)}")
+        rows.append(row)
+        del w, out, ref
+    torch.cuda.synchronize()
+    return rows
+
+
+def attention_bound_ms(q, k, vis) -> tuple[float, str]:
+    """Least time for attention with the (Sq, Sk) visibility ``vis``: 4 * hd
+    operations per visible (query, key) pair and query head at the bf16 peak,
+    or Q and O moved once, K and V once for each slot some query sees (a
+    slot no query sees need not be read) and both position arrays once."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    ops_ms = 4.0 * hd * int(vis.sum()) * b * h / H100_BF16_FLOPS * 1e3
+    kv_bytes = 2 * b * int(vis.any(0).sum()) * hkv * hd * k.element_size()
+    nbytes = 2 * q.numel() * q.element_size() + kv_bytes + 4 * (sq + sk)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_flash_attention(cases, gen) -> list[dict]:
+    """cases: (name, b, sq, sk, h, hkv, hd, causal, window, q_positions, k_positions)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    for name, b, sq, sk, h, hkv, hd, causal, window, qpos, kpos in cases:
+        q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
+        kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
+        out = fa.flash_attention(q, k, v, **kw)
+        ref = fa.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        atol, rtol = ATTN_TOL["bfloat16"]
+        bad = int((err > atol + rtol * ref.float().abs()).sum())
+        vis = fa.visible(qpos, kpos, causal, window)
+        # the library yardstick: SDPA on (B, H, S, hd) views; its boolean mask is "may attend"
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        arange = torch.equal(qpos, torch.arange(sk, device="cuda")[:sq]) and sq == sk
+        mask = None if (causal and not window and arange) else vis
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=mask is None, enable_gqa=True)
+
+        lib_err = float((lib().transpose(1, 2).float() - ref.float()).abs().max())
+        iters = 20 if sq * sk < 10**6 else 5
+        plain_a = _time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), 3)
+        kern_a = _time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters)
+        lib_ms = _time_ms(lib, iters)
+        kern_b = _time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters)
+        plain_b = _time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), 3)
+        bound, by = attention_bound_ms(q, k, vis)
+        row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "causal": causal,
+               "window": window, "dtype": "bfloat16", "violations": bad,
+               "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
+               "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
+               "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+        print(json.dumps({"flash_attention_check": row}), flush=True)
+        if bad:
+            raise SystemExit(f"flash_attention disagrees with its plain version in case {name}")
+        rows.append(row)
+        del q, k, v, out, ref
+    # f32 inputs too, at one shape of each kind
+    for b, sq, sk, h, hkv, hd, causal, window in [(2, 300, 300, 32, 4, 128, True, 0),
+                                                   (4, 1, 25, 32, 4, 128, True, 0),
+                                                   (2, 37, 91, 6, 3, 64, False, 7)]:
+        q = torch.randn((b, sq, h, hd), generator=gen, device="cuda")
+        k = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda")
+        v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda")
+        kw = dict(q_positions=torch.arange(sk - sq, sk, device="cuda"), causal=causal,
+                  window=window)
+        out, ref = fa.flash_attention(q, k, v, **kw), fa.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL["float32"]
+        bad = int(((out - ref).abs() > atol + rtol * ref.abs()).sum())
+        print(json.dumps({"flash_attention_check": {
+            "shape": [b, sq, sk, h, hkv, hd], "causal": causal, "window": window,
+            "dtype": "float32", "violations": bad, "max_abs_err": float((out - ref).abs().max())}}),
+            flush=True)
+        if bad:
+            raise SystemExit(f"flash_attention disagrees with its plain version in f32 at {b, sq, sk}")
+    torch.cuda.synchronize()
+    return rows
+
+
+def audit_samples(sps, meta, chunk_bytes: int) -> np.ndarray:
+    """Every 1 KiB sample of every chunk the put stored, as (L, 1024) uint8,
+    each chunk zero-padded to whole samples as ``commitments.chunk_samples`` does."""
+    from repro_torch.core.commitments import SAMPLE_BYTES
+
+    per = -(-chunk_bytes // SAMPLE_BYTES)
+    keys = sorted(meta.placement)
+    out = np.zeros((len(keys), per * SAMPLE_BYTES), np.uint8)
+    for row, (cs, c) in enumerate(keys):
+        chunk, _ = sps[meta.placement[(cs, c)]].serve_chunk(meta.blob_id, cs, c)
+        out[row, :chunk_bytes] = chunk.reshape(-1)
+    return out.reshape(-1, SAMPLE_BYTES)
+
+
+SERVE_LOGIT_ATOL = 0.15  # bf16 logits, card vs CPU: the two round products differently
+
+
+def serve_card_vs_cpu(cfg, run, steps: int = 2) -> dict:
+    """The served model, teacher-forced on the first ``steps`` tokens of its
+    own outputs, decoded on the card and on the CPU plain path from the same
+    restored weights: bf16 logits within ``SERVE_LOGIT_ATOL``."""
+    import torch
+
+    from repro_torch.models.model import build
+
+    model = build(cfg)
+    weights = {"cuda": run.served, "cpu": {k: t.cpu() for k, t in run.served.items()}}
+    caches = {dev: {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                    for k, s in model.cache_specs(run.outputs.shape[0], steps).items()}
+              for dev in weights}
+    toks = torch.as_tensor(run.outputs[:, :steps], dtype=torch.int64)
+    worst = scale = 0.0
+    with torch.inference_mode():
+        for pos in range(steps):
+            logits = {}
+            for dev, params in weights.items():
+                out, caches[dev] = model.decode_step(params, caches[dev],
+                                                     toks[:, pos:pos + 1].to(dev), pos)
+                logits[dev] = out.float().cpu()
+            if not torch.isfinite(logits["cuda"]).all():
+                raise SystemExit("non-finite logits on the card")
+            worst = max(worst, float((logits["cuda"] - logits["cpu"]).abs().max()))
+            scale = max(scale, float(logits["cpu"].abs().max()))
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "steps": steps,
+           "max_abs_logit_err": worst, "max_abs_logit": scale, "atol": SERVE_LOGIT_ATOL}
+    print(json.dumps({"serve_card_vs_cpu": row}), flush=True)
+    if worst > SERVE_LOGIT_ATOL:
+        raise SystemExit("the served model's decode on the card disagrees with the CPU plain path")
+    del weights
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blob-mib", type=int, default=1024, help="blob size in MiB (default 1024)")
@@ -157,8 +355,24 @@ def main(argv=None) -> int:
     from repro_torch.configs.shelby import CONFIG
     from repro_torch.core import commitments as cm
     from repro_torch.core.clay import ClayCode
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gf_matmul as gk
+    from repro_torch.kernels import sample_hash as sh
     from repro_torch.launch.cluster import build_cluster
+    from repro_torch.models.attention import ring_positions
+
+    wrappers = {"gf_matmul": gk.gf_matmul, "flash_attention": fa.flash_attention,
+                "sample_hash": sh.sample_hash}
+    path_launches: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
+
+    def zero_counts() -> None:
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts(path: str) -> dict[str, int]:
+        path_launches[path] = {name: fn.launches for name, fn in wrappers.items()}
+        print(json.dumps({"path": path, "launches": path_launches[path]}), flush=True)
+        return path_launches[path]
 
     # -- 1. card, build ------------------------------------------------------------
     _phase("card")
@@ -171,8 +385,11 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
     t0 = time.perf_counter()
-    gk._lib()  # compiles csrc/gf_matmul.cu with nvcc, then loads it
-    print(f"kernel build+load: {time.perf_counter() - t0:.3f} s", flush=True)
+    # one nvcc per csrc/<name>.cu, all started together (each waits in its own thread)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(lambda lib: lib(), (gk._lib, sh._lib, fa._lib)))
+    print(f"kernel build+load ({', '.join(KERNELS)}): {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     # -- 2. kernels against their plain versions --------------------------------------
     _phase("gf_matmul vs plain")
@@ -191,6 +408,30 @@ def main(argv=None) -> int:
     max_err = max(r["max_abs_err"] for r in checks)
     mismatches = sum(r["mismatches"] for r in checks)
 
+    _phase("sample_hash vs plain")
+    chunk_samples = -(-lay.chunk_bytes // cm.SAMPLE_BYTES)
+    audit_shape = (n_cs * lay.n * chunk_samples, cm.SAMPLE_BYTES // 4, 0)  # the audit path's
+    sh_checks = check_sample_hash(
+        [audit_shape, audit_shape[:2] + (1,), (1_000_003, 256, 0), (4097, 3, 1), (1, 4, 0)],
+        gen, timed={audit_shape})
+
+    _phase("flash_attention vs plain (bf16, yi-9b widths: H 32, Hkv 4, hd 128)")
+    serve_batch, serve_prompt, serve_gen = 4, 8, 16
+    serve_slots = serve_prompt + serve_gen + 1
+    def ar(n, start=0):
+        return torch.arange(start, start + n, device="cuda")
+
+    attn_cases = [
+        ("pallas_contract_causal", 1, 2048, 2048, 32, 4, 128, True, 0, ar(2048), ar(2048)),
+        ("decode_4096_slots", 16, 1, 4096, 32, 4, 128, True, 0, ar(1, 2047), ar(4096)),
+        ("serve_decode", serve_batch, 1, serve_slots, 32, 4, 128, True, 0,
+         ar(1, serve_prompt + serve_gen - 2), ar(serve_slots)),
+        ("ragged_noncausal_mha", 2, 1000, 1537, 8, 8, 128, False, 0, ar(1000), ar(1537)),
+        ("ring_buffer_window", 8, 1, 1024, 32, 4, 128, True, 1024, ar(1, 5000),
+         ring_positions(5000, 1024, "cuda")),
+    ]
+    attn_checks = check_flash_attention(attn_cases, gen)
+
     # -- 3. the main path at production size -------------------------------------------
     _phase(f"slice: put/read a {args.blob_mib} MiB blob at (10,6), 10 MiB chunksets")
     contract, sps, rpc, client = build_cluster(
@@ -202,7 +443,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     phases: dict[str, dict] = {}
-    gk.gf_matmul.launches = 0  # count the main path only
+    zero_counts()  # count the storage path only
     seen = 0
 
     def run_phase(name, fn, nbytes):
@@ -249,7 +490,7 @@ def main(argv=None) -> int:
     got = run_phase("read_corrupt", lambda: client.get(meta.blob_id), len(data))
     assert got == data, "read with a corrupt SP differs from the blob"
     assert rpc.stats.chunks_bad > bad0, "corrupt chunks were not detected"
-    main_launches = gk.gf_matmul.launches
+    read_counts("storage")
     settlement = client.settle()
     dep = settlement.total_deposited
     out = settlement.total_refunded + settlement.total_node_income
@@ -262,7 +503,28 @@ def main(argv=None) -> int:
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }), flush=True)
 
-    # -- 4. device against the CPU plain path on one chunkset -------------------------
+    # -- 4. the audit path: bulk digests of every stored sample ----------------------
+    _phase("audit: bulk digests of every 1 KiB sample the put stored")
+    for sp_id in crashed:
+        sps[sp_id].recover()
+    sps[corrupt].behavior.corrupt = False
+    samples = audit_samples(sps, meta, lay.chunk_bytes)
+    zero_counts()  # count the audit path only
+    t = time.perf_counter()
+    digests = cm.bulk_sample_digests(samples, seed=args.seed, device="cuda")
+    audit_s = time.perf_counter() - t
+    read_counts("audit")
+    head = 50_000  # the CPU plain version on the first samples
+    assert np.array_equal(digests[:head], cm.bulk_sample_digests(samples[:head], seed=args.seed,
+                                                                 device="cpu")), \
+        "audit digests on the card differ from the CPU plain path"
+    assert digests.shape == (samples.shape[0],) and digests.dtype == np.uint32
+    print(json.dumps({"audit": {"samples": samples.shape[0], "bytes": samples.nbytes,
+                                "s": audit_s, "GB/s": samples.nbytes / audit_s / 1e9,
+                                "distinct_digests": int(np.unique(digests).size)}}), flush=True)
+    del samples, digests
+
+    # -- 5. device against the CPU plain path on one chunkset -------------------------
     _phase("encode/decode: card vs CPU plain path, one production chunkset")
     plain = np.frombuffer(data[:cs_bytes], np.uint8).reshape(k, alpha, w).copy()
     dev_code, cpu_code = ClayCode(k, m, device="cuda"), ClayCode(k, m, device="cpu")
@@ -273,7 +535,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print("card == CPU plain path: ok", flush=True)
 
-    # -- 5. where the put's and a read's time goes: each step timed alone ------------
+    # -- 6. where the put's and a read's time goes: each step timed alone ------------
     _phase("breakdown: steps of the put and of a read, timed alone")
 
     def timed_step(fn):
@@ -297,7 +559,7 @@ def main(argv=None) -> int:
     }}), flush=True)
     del coded_host, first_k
 
-    # -- 6. how much of a put and a read the card is busy ----------------------------
+    # -- 7. how much of a put and a read the card is busy ----------------------------
     _phase("device busy share: put and whole read on a fresh cluster, profiled")
     _, _, _, client2 = build_cluster(
         num_sps=CONFIG.num_sps, layout=CONFIG.layout, device="cuda",
@@ -311,14 +573,78 @@ def main(argv=None) -> int:
     print(json.dumps({"device_busy": busy}), flush=True)
     del client2, held
 
-    timed = next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob)
+    # -- 8. the serving path at yi-9b width ---------------------------------------------
+    _phase(f"serve: {SERVE_ARCH} at published widths, {SERVE_LAYERS} layers, through Shelby")
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get(SERVE_ARCH), num_layers=SERVE_LAYERS)
+    print(json.dumps({"serve_config": {
+        "arch": cfg.name, "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab, "norm": cfg.norm, "mlp": cfg.mlp,
+        "layers": f"{cfg.num_layers} (cut from {get(SERVE_ARCH).num_layers}: host-bound publish)",
+        "params": build(cfg).param_count()}}), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # count the serving path only
+    run = serve(cfg, batch=serve_batch, prompt_len=serve_prompt, gen=serve_gen, kill_sp=True,
+                device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    counts = read_counts("serve")
+    steps = serve_prompt + serve_gen - 1
+    if counts["gf_matmul"] == 0 or counts["flash_attention"] != steps * SERVE_LAYERS:
+        raise SystemExit(f"the serving path's launches are off: {counts}")
+    if not all(torch.equal(run.served[k_], run.published[k_]) for k_ in run.published):
+        raise SystemExit("restored weights differ from the published ones")
+    if not ((run.outputs >= 0) & (run.outputs < cfg.vocab)).all():
+        raise SystemExit("generated token ids out of the vocabulary")
+    mem = torch.cuda.max_memory_allocated()
+    serve_card_vs_cpu(cfg, run)
+    # decode again on the same weights, warm: the counted run's decode pays one-time costs
+    engine = ServeEngine(cfg, run.served, max_len=serve_prompt + serve_gen + 1)
+    warm_s = []
+    for _ in range(3):
+        t = time.perf_counter()
+        engine.generate(run.prompts, num_tokens=serve_gen)  # ends with a copy to the host
+        warm_s.append(time.perf_counter() - t)
+    warm_median = sorted(warm_s)[1]
+    nbytes = run.record.total_bytes
+    print(json.dumps({"serve": {
+        "weight_bytes": nbytes, "publish_s": run.publish_s, "publish_GB/s": nbytes / run.publish_s / 1e9,
+        "restore_s": run.restore_s, "restore_GB/s": nbytes / run.restore_s / 1e9,
+        "restored_equal": True, "outputs_shape": list(run.outputs.shape),
+        "decoded_tokens": run.decoded_tokens, "first_decode_s": run.decode_s,
+        "warm_decode_s": warm_s, "decode_tok/s": run.decoded_tokens / warm_median,
+        "gf_matmul_launches": counts["gf_matmul"], "attention_launches": counts["flash_attention"],
+        "max_memory_allocated": mem,
+    }}), flush=True)
+    del run, engine
+
+    # -- 9. the kernels line and the result ----------------------------------------------
+    timed = {
+        "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
+        "sample_hash": next(r for r in sh_checks if "ms" in r),
+        "flash_attention": next(r for r in attn_checks if r["case"] == "serve_decode"),
+    }
+    errs = {"gf_matmul": max_err, "sample_hash": max(r["max_abs_err"] for r in sh_checks),
+            "flash_attention": max(r["max_abs_err"] for r in attn_checks)}
+    line = []
+    for name, (source, replaces) in KERNELS.items():
+        row = timed[name]
+        line.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(c[name] for c in path_launches.values()),
+            "launches_by_path": {path: c[name] for path, c in path_launches.items()},
+            "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms"),
+        })
+        if line[-1]["launches"] == 0:
+            raise SystemExit(f"{name} was launched on no path")
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "gf_matmul", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": main_launches, "max_abs_err": max_err, "mismatches": mismatches,
-        "shape": list(enc_blob), "ms": timed["ms"], "plain_ms": timed["plain_ms"],
-        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"], "library_ms": None,
-    }]}), flush=True)
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

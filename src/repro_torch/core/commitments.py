@@ -1,9 +1,11 @@
 """Vector commitments (§3.4): Merkle trees over erasure-coded chunks.
 
-The protocol-grade path only: SHA-256 (hashlib), used for everything whose
-digest is bound on-chain — chunk roots, blob roots, audit-proof verification
-by the smart contract.  (The bulk xxhash32-style sample digests of the JAX
-package's ``bulk_sample_digests`` come with the ``sample_hash`` kernel.)
+* Protocol-grade path: SHA-256 (hashlib), used for everything whose digest
+  is bound on-chain — chunk roots, blob roots, audit-proof verification by
+  the smart contract.
+* Bulk path: ``bulk_sample_digests``, xxhash32-style digests of many 1 KiB
+  samples at once through the ``sample_hash`` kernel, for high-volume
+  off-chain sample checks.
 
 Layout (paper §2.1 + Figure 2):
   Chunk  = alpha x w bytes  ->  SAMPLE_BYTES samples  ->  Merkle root_chunk
@@ -18,6 +20,10 @@ import dataclasses
 import hashlib
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 
 SAMPLE_BYTES = 1024  # "around 1 KiB" (§2.1)
 
@@ -111,3 +117,19 @@ def commit_chunk(chunk: np.ndarray) -> tuple[ChunkCommitment, MerkleTree]:
 def commit_roots(roots: list[bytes]) -> tuple[bytes, MerkleTree]:
     tree = MerkleTree(list(roots))
     return tree.root, tree
+
+
+# -- bulk (vectorized) sample digests ----------------------------------------
+def bulk_sample_digests(samples: np.ndarray, seed: int = 0, device=None) -> np.ndarray:
+    """samples: (L, SAMPLE_BYTES) uint8 -> (L,) uint32 through the ``sample_hash`` kernel.
+
+    Each sample is read as little-endian uint32 words.  ``device=None``
+    means the card (and raises without one); ``"cpu"`` runs the plain version.
+    """
+    samples = np.asarray(samples)
+    if samples.dtype != np.uint8 or samples.ndim != 2 or samples.shape[1] % 4:
+        raise ValueError("bulk_sample_digests: samples must be (L, 4*W) uint8, "
+                         f"got {samples.dtype} {samples.shape}")
+    words = np.ascontiguousarray(samples).view("<u4").astype(np.uint32, copy=False)
+    digests = ops.sample_hash(torch.from_numpy(words).to(resolve_device(device)), seed=seed)
+    return digests.cpu().numpy()

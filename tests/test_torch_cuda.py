@@ -1,20 +1,26 @@
-"""The port's CUDA kernel and its callers on the card.
+"""The port's CUDA kernels and their callers on the card.
 
-These need an NVIDIA GPU and skip without one (the kernel has no CPU mode).
+These need an NVIDIA GPU and skip without one (the kernels have no CPU mode).
 On a GPU machine, which need not have jax:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held to its plain PyTorch version, and the device Clay path
-to the CPU plain path, with exact equality (GF(2^8) arithmetic is exact).
+Each kernel is held to its plain PyTorch version on the same inputs:
+``gf_matmul`` (and the device Clay path against the CPU plain path) and
+``sample_hash`` with exact equality (their arithmetic is exact);
+``flash_attention`` in f32 to summation order (atol = rtol = 1e-4 on O(1)
+outputs), in bf16 to one rounding step of the output (2^-7 relative and
+absolute), since both round the same f32 result to bf16.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.clay import ClayCode
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gf_matmul as gk
 from repro_torch.kernels import ops
+from repro_torch.kernels import sample_hash as sh
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +86,102 @@ def test_put_and_read_go_through_the_kernel(cuda):
     assert gk.gf_matmul.launches > launches
     assert rpc._cache  # decoded chunksets stay on the card
     assert all(t.device.type == "cuda" for t, _version in rpc._cache.values())
+
+
+@pytest.mark.parametrize("leaves,words,seed", [
+    (1, 4, 0), (7, 256, 0), (1000, 16, 1), (257, 64, 2**32 + 9), (5, 3, 0), (1_000_003, 256, 1),
+])
+def test_sample_hash_matches_plain_version(cuda, leaves, words, seed):
+    gen = torch.Generator(device=cuda).manual_seed(leaves + words)
+    w = torch.randint(-2**31, 2**31, (leaves, words), dtype=torch.int32, device=cuda,
+                      generator=gen).view(torch.uint32)
+    launches = sh.sample_hash.launches
+    out = ops.sample_hash(w, seed=seed)
+    torch.cuda.synchronize()
+    assert sh.sample_hash.launches == launches + 1
+    assert torch.equal(out.view(torch.int32), sh.sample_hash_ref(w, seed=seed).view(torch.int32))
+
+
+def test_bulk_sample_digests_on_the_card_match_the_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from repro_torch.core.commitments import bulk_sample_digests
+
+    samples = np.random.default_rng(4).integers(0, 256, (1025, 1024), dtype=np.uint8)
+    np.testing.assert_array_equal(bulk_sample_digests(samples), bulk_sample_digests(samples,
+                                                                                    device="cpu"))
+
+
+ATTN_CASES = [  # b, sq, sk, h, hkv, hd, causal, window, q_offset
+    (1, 64, 64, 2, 2, 16, True, 0, 0), (2, 128, 128, 4, 2, 32, True, 0, 0),
+    (1, 96, 96, 3, 1, 8, False, 0, 0), (2, 64, 64, 8, 8, 64, True, 0, 0),
+    (1, 300, 300, 32, 4, 128, True, 0, 0), (16, 1, 4096, 32, 4, 128, True, 0, 2047),
+    (4, 1, 25, 32, 4, 128, True, 0, 11), (2, 23, 41, 4, 4, 16, False, 0, 0),
+    (1, 9, 50, 6, 3, 256, True, 12, 41), (3, 70, 130, 8, 2, 96, True, 33, 60),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(cuda, case, dtype):
+    b, sq, sk, h, hkv, hd, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).to(dtype)
+    qpos = torch.arange(q_offset, q_offset + sq, device=cuda)
+    kpos = torch.randperm(sk, generator=gen, device=cuda) if window else torch.arange(sk,
+                                                                                      device=cuda)
+    kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
+    launches = fa.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 1
+    ref = fa.flash_attention_ref(q, k, v, **kw)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=2**-7, rtol=2**-7)
+    torch.testing.assert_close(out, ref, **tol)
+
+
+def test_kernels_raise_instead_of_falling_back(cuda):
+    launches = (sh.sample_hash.launches, fa.flash_attention.launches)
+    with pytest.raises(TypeError):
+        ops.sample_hash(torch.zeros((2, 4), dtype=torch.int32, device=cuda))
+    big = torch.zeros((1, 4, 2, 288), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        x = torch.zeros((1, 4, 8, 2), device=cuda).transpose(2, 3)
+        ops.flash_attention(x, x, x)
+    assert (sh.sample_hash.launches, fa.flash_attention.launches) == launches
+
+
+def test_decode_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+
+    cfg = get_smoke("starcoder2-3b")
+    model = build(cfg)
+    params = init_params(model.param_specs(), torch.Generator().manual_seed(3), device="cpu")
+    on_card = {k: t.to(cuda) for k, t in params.items()}
+    caches = [{k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+               for k, s in model.cache_specs(2, 9).items()} for dev in ("cpu", cuda)]
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(4))
+    launches = fa.flash_attention.launches
+    for pos in range(8):
+        want, caches[0] = model.decode_step(params, caches[0], toks[:, pos:pos + 1], pos)
+        got, caches[1] = model.decode_step(on_card, caches[1], toks[:, pos:pos + 1].to(cuda), pos)
+        # bf16 compute on both: rounding differs between CPU and card kernels
+        torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.15, rtol=0)
+    assert fa.flash_attention.launches == launches + 8 * cfg.num_layers
+
+
+def test_serve_goes_through_both_kernels(cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import serve
+
+    launches = (gk.gf_matmul.launches, fa.flash_attention.launches)
+    run = serve(get_smoke("yi-9b"), kill_sp=True, device=cuda)
+    assert gk.gf_matmul.launches > launches[0]
+    assert fa.flash_attention.launches == launches[1] + 23 * get_smoke("yi-9b").num_layers
+    assert all(torch.equal(run.served[k], run.published[k]) for k in run.published)

@@ -27,7 +27,10 @@ def _imports(path: pathlib.Path) -> list[str]:
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for rel in ("src/repro_torch/kernels/gf_matmul.py", "src/repro_torch/core/clay.py",
-                "src/repro_torch/storage/sdk.py", "chip_smoke.py"):
+                "src/repro_torch/storage/sdk.py", "src/repro_torch/kernels/sample_hash.py",
+                "src/repro_torch/kernels/flash_attention.py", "src/repro_torch/models/model.py",
+                "src/repro_torch/serve/engine.py", "src/repro_torch/launch/serve.py",
+                "chip_smoke.py"):
         assert rel in names
 
 
@@ -52,6 +55,21 @@ def test_round_trip_with_jax_and_reference_blocked():
         assert client.get(meta.blob_id) == data
         assert client.get(meta.blob_id, 250_000, 70_000) == data[250_000:320_000]
         client.settle()
+
+        import torch
+        import repro_torch.models, repro_torch.serve, repro_torch.launch.serve
+        from repro_torch.configs import get_smoke
+        from repro_torch.core.commitments import bulk_sample_digests
+        from repro_torch.models.model import build
+        from repro_torch.sharding import init_params
+        cfg = get_smoke("yi-9b")
+        model = build(cfg)
+        params = init_params(model.param_specs(), torch.Generator().manual_seed(0), device="cpu")
+        cache = {k: torch.zeros(s.shape, dtype=s.dtype) for k, s in model.cache_specs(2, 4).items()}
+        logits, _ = model.decode_step(params, cache, torch.tensor([[1], [2]]), 0)
+        assert logits.shape == (2, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+        samples = np.random.default_rng(2).integers(0, 256, (3, 1024), dtype=np.uint8)
+        assert bulk_sample_digests(samples, device="cpu").shape == (3,)
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
