@@ -13,8 +13,10 @@ the phase that caused it; any failure exits non-zero and prints no result:
    the main paths give it: ``gf_matmul`` and ``sample_hash`` with exact
    equality (their arithmetic is exact), ``flash_attention`` within the
    tolerance stated at ``ATTN_TOL``; kernel and plain version timed in turns
-   with CUDA events beside the least time the card could take (and, for
-   attention, ``scaled_dot_product_attention`` as a yardstick);
+   with CUDA events beside the least time the card could take; attention
+   also by its device time from a ``torch.profiler`` trace, in turns with
+   its earlier CUDA-core kernel and ``scaled_dot_product_attention`` (a
+   yardstick the port never calls), with the kernel the dispatch rule picked;
 3. the storage path at production size: a (10,6) Clay / 10 MiB-chunkset
    cluster of 24 SPs in 5 DCs, put a seeded blob, read it whole and at 3
    ranges across chunksets, crash 2 SPs and read again, mark one SP
@@ -32,7 +34,7 @@ the phase that caused it; any failure exits non-zero and prints no result:
    publish the weights through Shelby, crash an SP, restore them by paid
    k-of-n reads, serve batch 4 x (prompt 8 + 16 generated tokens); the
    served model teacher-forced for two steps on the card and on the CPU
-   plain path; decode tok/s as the median of three warm generations;
+   plain path; decode tok/s as the median of nine warm generations;
 9. the card again, one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
@@ -66,6 +68,8 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
 # outputs are the same f32 result rounded, so within one rounding step
 ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2**-7, 2**-7)}  # (atol, rtol)
 SERVE_ARCH, SERVE_LAYERS = "yi-9b", 2  # published widths; depth cut from 48 (host-bound publish)
+# warm decode is host-bound and single generations swing by a third: the median of nine
+WARM_GENERATIONS = 9
 
 
 def _phase(name: str) -> None:
@@ -92,10 +96,9 @@ def gf_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def device_busy(fn) -> dict:
+def _traced(fn) -> tuple[float, list[dict]]:
     """Run ``fn`` under ``torch.profiler`` with CUDA activity only; return
-    its wall seconds and the seconds the card spent in kernels, copies or
-    memsets (the union of their intervals from the trace)."""
+    its wall seconds and the trace's events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -108,7 +111,36 @@ def device_busy(fn) -> dict:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return wall, json.load(f)["traceEvents"]
+
+
+PROFILER_TRIES = 3  # a trace now and then comes back without its kernel events
+
+
+def _device_ms(fn, iters: int) -> tuple[float, int]:
+    """Device time per call of ``fn``: the durations of the CUDA kernels in a
+    ``torch.profiler`` trace of ``iters`` calls (after one untraced call),
+    summed and divided by ``iters``; and the number of traces it took.  Host
+    time between launches is left out.  A trace without kernel events is
+    taken again, up to ``PROFILER_TRIES`` times."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for tries in range(1, PROFILER_TRIES + 1):
+        _, events = _traced(lambda: [fn() for _ in range(iters)])
+        kernels = [float(e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        if kernels:
+            return sum(kernels) / iters / 1e3, tries  # trace times are microseconds
+    raise SystemExit(f"{PROFILER_TRIES} profiler traces show no kernel on the card")
+
+
+def device_busy(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler``; return its wall seconds and the
+    seconds the card spent in kernels, copies or memsets (the union of their
+    intervals from the trace)."""
+    wall, events = _traced(fn)
     spans = {"kernel": [], "gpu_memcpy": [], "gpu_memset": []}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in spans:
@@ -220,7 +252,14 @@ def attention_bound_ms(q, k, vis) -> tuple[float, str]:
 
 
 def check_flash_attention(cases, gen) -> list[dict]:
-    """cases: (name, b, sq, sk, h, hkv, hd, causal, window, q_positions, k_positions)."""
+    """cases: (name, b, sq, sk, h, hkv, hd, causal, window, q_positions, k_positions).
+
+    Each case: the kernel the wrapper's rule picks against the plain version
+    within ``ATTN_TOL``; then timed in turns with the earlier CUDA-core
+    kernel (the "general" kernel, ``previous``) and with ``scaled_dot_product_attention``
+    (``library``): CUDA events around a loop of calls give the host-inclusive
+    time per call (``*host_ms``); a ``torch.profiler`` trace of the same calls
+    gives the device time per call (``ms``, ``previous_ms``, ``library_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -232,7 +271,9 @@ def check_flash_attention(cases, gen) -> list[dict]:
         k = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
         v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
         kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
+        before = dict(fa.flash_attention.variant_launches)
         out = fa.flash_attention(q, k, v, **kw)
+        variant = next(n for n, c in fa.flash_attention.variant_launches.items() if c > before[n])
         ref = fa.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
@@ -241,31 +282,46 @@ def check_flash_attention(cases, gen) -> list[dict]:
         vis = fa.visible(qpos, kpos, causal, window)
         # the library yardstick: SDPA on (B, H, S, hd) views; its boolean mask is "may attend"
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        arange = torch.equal(qpos, torch.arange(sk, device="cuda")[:sq]) and sq == sk
+        arange = sq == sk and torch.equal(qpos, torch.arange(sk, dtype=qpos.dtype, device="cuda"))
         mask = None if (causal and not window and arange) else vis
         def lib():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   is_causal=mask is None, enable_gqa=True)
 
-        lib_err = float((lib().transpose(1, 2).float() - ref.float()).abs().max())
+        seen = vis.any(1)  # SDPA gives NaN for a row that sees no key
+        lib_err = float((lib().transpose(1, 2).float() - ref.float())[:, seen].abs().max())
+        def kern():
+            return fa.flash_attention(q, k, v, **kw)
+
+        def prev():
+            return fa.flash_attention_variant("general", q, k, v, **kw)
+
         iters = 20 if sq * sk < 10**6 else 5
         plain_a = _time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), 3)
-        kern_a = _time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters)
-        lib_ms = _time_ms(lib, iters)
-        kern_b = _time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters)
+        host = {"previous": [_time_ms(prev, iters)], "kernel": [_time_ms(kern, iters)]}
+        host["library"] = [_time_ms(lib, iters)]
+        host["kernel"].append(_time_ms(kern, iters))
+        host["previous"].append(_time_ms(prev, iters))
         plain_b = _time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), 3)
+        dev, traces = {}, 0
+        for what, fn in (("kernel", kern), ("previous", prev), ("library", lib)):
+            dev[what], tries = _device_ms(fn, iters)
+            traces += tries
         bound, by = attention_bound_ms(q, k, vis)
         row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "causal": causal,
-               "window": window, "dtype": "bfloat16", "violations": bad,
+               "window": window, "dtype": "bfloat16", "variant": variant, "violations": bad,
                "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
-               "ms": min(kern_a, kern_b), "plain_ms": min(plain_a, plain_b),
-               "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+               "ms": dev["kernel"], "host_ms": min(host["kernel"]),
+               "previous_ms": dev["previous"], "previous_host_ms": min(host["previous"]),
+               "library_ms": dev["library"], "library_host_ms": host["library"][0],
+               "plain_ms": min(plain_a, plain_b), "bound_ms": bound, "bound_by": by,
+               "faster_than_previous": dev["kernel"] < dev["previous"], "traces": traces}
         print(json.dumps({"flash_attention_check": row}), flush=True)
         if bad:
             raise SystemExit(f"flash_attention disagrees with its plain version in case {name}")
         rows.append(row)
         del q, k, v, out, ref
-    # f32 inputs too, at one shape of each kind
+    # f32 inputs too, at one shape of each kind: the "general" kernel
     for b, sq, sk, h, hkv, hd, causal, window in [(2, 300, 300, 32, 4, 128, True, 0),
                                                    (4, 1, 25, 32, 4, 128, True, 0),
                                                    (2, 37, 91, 6, 3, 64, False, 7)]:
@@ -274,16 +330,19 @@ def check_flash_attention(cases, gen) -> list[dict]:
         v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda")
         kw = dict(q_positions=torch.arange(sk - sq, sk, device="cuda"), causal=causal,
                   window=window)
+        general = fa.flash_attention.variant_launches["general"]
         out, ref = fa.flash_attention(q, k, v, **kw), fa.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         atol, rtol = ATTN_TOL["float32"]
         bad = int(((out - ref).abs() > atol + rtol * ref.abs()).sum())
         print(json.dumps({"flash_attention_check": {
             "shape": [b, sq, sk, h, hkv, hd], "causal": causal, "window": window,
-            "dtype": "float32", "violations": bad, "max_abs_err": float((out - ref).abs().max())}}),
-            flush=True)
+            "dtype": "float32", "variant": "general", "violations": bad,
+            "max_abs_err": float((out - ref).abs().max())}}), flush=True)
         if bad:
             raise SystemExit(f"flash_attention disagrees with its plain version in f32 at {b, sq, sk}")
+        if fa.flash_attention.variant_launches["general"] != general + 1:
+            raise SystemExit("f32 attention did not go to the general kernel")
     torch.cuda.synchronize()
     return rows
 
@@ -365,13 +424,18 @@ def main(argv=None) -> int:
                 "sample_hash": sh.sample_hash}
     path_launches: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
 
+    variant_launches: dict[str, dict[str, int]] = {}  # path -> attention kernel -> launches
+
     def zero_counts() -> None:
         for fn in wrappers.values():
             fn.launches = 0
+        fa.reset_launches()
 
     def read_counts(path: str) -> dict[str, int]:
         path_launches[path] = {name: fn.launches for name, fn in wrappers.items()}
-        print(json.dumps({"path": path, "launches": path_launches[path]}), flush=True)
+        variant_launches[path] = dict(fa.flash_attention.variant_launches)
+        print(json.dumps({"path": path, "launches": path_launches[path],
+                          "flash_attention_variants": variant_launches[path]}), flush=True)
         return path_launches[path]
 
     # -- 1. card, build ------------------------------------------------------------
@@ -390,6 +454,10 @@ def main(argv=None) -> int:
         list(pool.map(lambda lib: lib(), (gk._lib, sh._lib, fa._lib)))
     print(f"kernel build+load ({', '.join(KERNELS)}): {time.perf_counter() - t0:.3f} s",
           flush=True)
+    from repro_torch.kernels import _build
+
+    for line in _build.ptxas_report("flash_attention"):  # registers, spills, shared memory
+        print(f"ptxas flash_attention: {line}", flush=True)
 
     # -- 2. kernels against their plain versions --------------------------------------
     _phase("gf_matmul vs plain")
@@ -418,8 +486,8 @@ def main(argv=None) -> int:
     _phase("flash_attention vs plain (bf16, yi-9b widths: H 32, Hkv 4, hd 128)")
     serve_batch, serve_prompt, serve_gen = 4, 8, 16
     serve_slots = serve_prompt + serve_gen + 1
-    def ar(n, start=0):
-        return torch.arange(start, start + n, device="cuda")
+    def ar(n, start=0):  # int32, as the serving path passes positions: no cast in the call
+        return torch.arange(start, start + n, dtype=torch.int32, device="cuda")
 
     attn_cases = [
         ("pallas_contract_causal", 1, 2048, 2048, 32, 4, 128, True, 0, ar(2048), ar(2048)),
@@ -429,6 +497,10 @@ def main(argv=None) -> int:
         ("ragged_noncausal_mha", 2, 1000, 1537, 8, 8, 128, False, 0, ar(1000), ar(1537)),
         ("ring_buffer_window", 8, 1, 1024, 32, 4, 128, True, 1024, ar(1, 5000),
          ring_positions(5000, 1024, "cuda")),
+        # split decode whose last splits are wholly hidden (slots past pos 1000)
+        ("decode_4096_pos1000", 16, 1, 4096, 32, 4, 128, True, 0, ar(1, 1000), ar(4096)),
+        # queries -128..127: the first 128 see no key while tiles past 127 are skipped
+        ("row_sees_no_key", 1, 256, 512, 32, 4, 128, True, 0, ar(256, -128), ar(512)),
     ]
     attn_checks = check_flash_attention(attn_cases, gen)
 
@@ -594,8 +666,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     counts = read_counts("serve")
     steps = serve_prompt + serve_gen - 1
-    if counts["gf_matmul"] == 0 or counts["flash_attention"] != steps * SERVE_LAYERS:
-        raise SystemExit(f"the serving path's launches are off: {counts}")
+    if (counts["gf_matmul"] == 0 or counts["flash_attention"] != steps * SERVE_LAYERS
+            or variant_launches["serve"]["split"] != steps * SERVE_LAYERS):
+        raise SystemExit(f"the serving path's launches are off: {counts}, "
+                         f"attention {variant_launches['serve']}")
     if not all(torch.equal(run.served[k_], run.published[k_]) for k_ in run.published):
         raise SystemExit("restored weights differ from the published ones")
     if not ((run.outputs >= 0) & (run.outputs < cfg.vocab)).all():
@@ -605,11 +679,11 @@ def main(argv=None) -> int:
     # decode again on the same weights, warm: the counted run's decode pays one-time costs
     engine = ServeEngine(cfg, run.served, max_len=serve_prompt + serve_gen + 1)
     warm_s = []
-    for _ in range(3):
+    for _ in range(WARM_GENERATIONS):
         t = time.perf_counter()
         engine.generate(run.prompts, num_tokens=serve_gen)  # ends with a copy to the host
         warm_s.append(time.perf_counter() - t)
-    warm_median = sorted(warm_s)[1]
+    warm_median = sorted(warm_s)[WARM_GENERATIONS // 2]
     nbytes = run.record.total_bytes
     print(json.dumps({"serve": {
         "weight_bytes": nbytes, "publish_s": run.publish_s, "publish_GB/s": nbytes / run.publish_s / 1e9,
@@ -641,6 +715,15 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
         })
+        if name == "flash_attention":  # device ms above; its kernels and the other cases
+            line[-1].update(
+                host_ms=row["host_ms"], previous_ms=row["previous_ms"],
+                previous_host_ms=row["previous_host_ms"],
+                library_host_ms=row["library_host_ms"], variant=row["variant"],
+                variant_launches_by_path=variant_launches,
+                cases={r["case"]: {key: r[key] for key in (
+                    "variant", "ms", "host_ms", "previous_ms", "library_ms", "bound_ms",
+                    "bound_by")} for r in attn_checks})
         if line[-1]["launches"] == 0:
             raise SystemExit(f"{name} was launched on no path")
     print(card, flush=True)

@@ -50,11 +50,23 @@ def load(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        # -Xptxas -v: each kernel's registers, spills and shared memory, kept beside the library
+        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
                 f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
+        out.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return ctypes.CDLL(str(out))
+
+
+def ptxas_report(name: str) -> list[str]:
+    """The ptxas lines of kernel ``name``'s last build (registers, spills,
+    shared memory per kernel); empty if it was not built here."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if "Compiling entry" in ln or "Used" in ln or "spill" in ln]

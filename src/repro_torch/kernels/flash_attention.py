@@ -9,9 +9,13 @@ package.  Positions default to ``arange``: then ``causal=True`` is the
 Pallas kernel's causal mask, and a one-token decode against a cache is
 ``Sq = 1`` with ``q_positions = [pos]``.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` (CUDA C++ for
-``sm_90a``, built by ``kernels/_build.py`` and bound with ``ctypes``) on
-PyTorch's current stream; it replaces the JAX package's Pallas kernel
+``flash_attention`` launches one of the kernels of ``csrc/flash_attention.cu``
+(CUDA C++ for ``sm_90a``, built by ``kernels/_build.py`` and bound with
+``ctypes``) on PyTorch's current stream, as :func:`choose_variant` rules:
+``"tile"`` (tensor-core tiles of 64 (query, head) rows: prefill-shaped
+calls), ``"split"`` (split over keys with a combine: decode) or
+``"general"`` (the CUDA-core kernel: f32, other head dims).  It replaces
+the JAX package's Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention_fused`` and computes the
 attention of ``repro/models/layers.py::flash_attention`` and
 ``::decode_attention``.  ``flash_attention_ref`` is the plain PyTorch version
@@ -67,15 +71,62 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: head_dim must be in [1, {MAX_HEAD_DIM}], got {hd}")
 
 
+# The dispatch rule between the hand-written kernels (csrc/flash_attention.cu)
+VARIANTS = ("tile", "split", "general")
+KV_TILE = 64      # keys per K/V tile of "tile" and "split"
+TILE_ROWS = 64    # (query, head) rows of a "tile" block; fewer rows per kv head go to "split"
+SPLIT_ROWS = 16   # rows of a "split" block
+BLOCKS_PER_SM = 2  # "split" aims at this many blocks on each SM ...
+MAX_TILES_PER_SPLIT = 4  # ... and at most this many tiles per block: one per warp, whose skip
+                         # states the split kernel works out up front (it refuses more)
+
+
+def tensor_cores_take(dtype: torch.dtype, hd: int, aligned: bool = True) -> bool:
+    """Whether the tensor-core kernels ("tile", "split") take such inputs:
+    bf16, head_dim a multiple of 16, 16-byte aligned tensors."""
+    return dtype == torch.bfloat16 and hd % 16 == 0 and hd <= MAX_HEAD_DIM and aligned
+
+
+def choose_variant(dtype: torch.dtype, sq: int, h: int, hkv: int, hd: int,
+                   aligned: bool = True) -> str:
+    """Which kernel takes the call: ``"tile"`` (tensor cores, many queries),
+    ``"split"`` (tensor cores, split over keys: fewer than ``TILE_ROWS``
+    (query, head) rows per kv head, as in decode) or ``"general"`` (the
+    CUDA-core kernel, for what the tensor-core kernels do not take)."""
+    if not tensor_cores_take(dtype, hd, aligned):
+        return "general"
+    return "split" if sq * (h // hkv) < TILE_ROWS else "tile"
+
+
+def split_plan(sk: int, b: int, hkv: int, rows: int, sms: int) -> tuple[int, int]:
+    """(splits, tiles per split) of a "split" call: enough splits that the
+    grid puts ``BLOCKS_PER_SM`` blocks on every SM and no block walks more
+    than ``MAX_TILES_PER_SPLIT`` tiles (a block keeps one tile in flight, so
+    a long walk is latency-bound), no more splits than tiles; each split a
+    contiguous run of ``KV_TILE``-key tiles."""
+    tiles = -(-sk // KV_TILE)
+    blocks = b * hkv * -(-rows // SPLIT_ROWS)
+    want = min(tiles, max(-(-BLOCKS_PER_SM * sms // blocks), -(-tiles // MAX_TILES_PER_SPLIT)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache  # the one cache of the loaded library
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.flash_attention_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    shape = [i, i, i, i, i, i, ctypes.c_float, i, i]  # b sq sk h hkv hd scale causal window
+    lib.flash_attention_launch.argtypes = [p] * 6 + shape + [i, p]
+    lib.flash_attention_tile_launch.argtypes = [p] * 6 + shape + [p]
+    lib.flash_attention_split_launch.argtypes = [p] * 9 + shape + [i, i, p]
+    for fn in (lib.flash_attention_launch, lib.flash_attention_tile_launch,
+               lib.flash_attention_split_launch):
+        fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,9 +137,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0, scale: float | None = None) -> torch.Tensor:
     """Attention on the card: contiguous bf16 or f32 CUDA tensors, any Sq and Sk.
 
-    Launches on the current stream without synchronising; raises on any
-    input the kernel does not take (never falls back).
+    Launches the kernel that :func:`choose_variant` names on the current
+    stream without synchronising; raises on any input the kernels do not
+    take (never falls back).
     """
+    return _launch(None, q, k, v, q_positions, k_positions, causal, window, scale)
+
+
+def flash_attention_variant(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            q_positions=None, k_positions=None, causal: bool = True,
+                            window: int = 0, scale: float | None = None) -> torch.Tensor:
+    """:func:`flash_attention` through the named kernel, one of ``VARIANTS``;
+    raises if that kernel does not take the input."""
+    if variant not in VARIANTS:
+        raise ValueError(f"flash_attention: variant must be one of {VARIANTS}, got {variant!r}")
+    return _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale)
+
+
+def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale) -> torch.Tensor:
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention launches a CUDA kernel; got tensors on {q.device}")
@@ -97,25 +163,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name} must be contiguous")
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    aligned = (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0
+    if variant is None:
+        variant = choose_variant(q.dtype, sq, h, hkv, hd, aligned)
+    elif variant != "general" and not tensor_cores_take(q.dtype, hd, aligned):
+        raise ValueError(f"flash_attention: the {variant!r} kernel takes 16-byte aligned bf16 "
+                         f"with head_dim a multiple of 16; got {q.dtype}, head_dim {hd}")
     qp = _positions(q_positions, sq, q.device)
     kp = _positions(k_positions, sk, q.device)
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     lib = _lib()
     out = torch.empty_like(q)
+    args = (*ptrs, qp.data_ptr(), kp.data_ptr(), out.data_ptr())
+    shape = (b, sq, sk, h, hkv, hd, scale, int(causal), int(window))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-            out.data_ptr(), b, sq, sk, h, hkv, hd, scale, int(causal), int(window),
-            int(q.dtype == torch.bfloat16), stream)
+        if variant == "tile":
+            err = lib.flash_attention_tile_launch(*args, *shape, stream)
+        elif variant == "split":
+            rows = sq * (h // hkv)
+            splits, per = split_plan(sk, b, hkv, rows, _sm_count(q.device.index or 0))
+            part = (0, 0, 0)
+            if splits > 1:  # (m, l, acc) of every split, merged by the combine kernel
+                ml = torch.empty((2, b, hkv, splits, rows), dtype=torch.float32, device=q.device)
+                acc = torch.empty((b, hkv, splits, rows, hd), dtype=torch.float32,
+                                  device=q.device)
+                part = (ml[0].data_ptr(), ml[1].data_ptr(), acc.data_ptr())
+            err = lib.flash_attention_split_launch(*args, *part, *shape, splits, per, stream)
+        else:
+            err = lib.flash_attention_launch(*args, *shape, int(q.dtype == torch.bfloat16),
+                                             stream)
     if err:
         raise RuntimeError(
             f"flash_attention launch failed: {lib.flash_attention_error_string(err).decode()}")
     flash_attention.launches += 1
+    flash_attention.variant_launches[variant] += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # every launch; the sum of variant_launches
+flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def reset_launches() -> None:
+    """Set every launch count of the attention kernels to 0."""
+    flash_attention.launches = 0
+    flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def visible(q_positions: torch.Tensor, k_positions: torch.Tensor, causal: bool,

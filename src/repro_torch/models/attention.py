@@ -65,7 +65,7 @@ def init_cache_shape(cfg, batch: int, cache_len: int) -> tuple[int, int, int, in
 def ring_positions(pos: int, s_cache: int, device) -> torch.Tensor:
     """Absolute position held in each slot of a ring buffer after writing
     ``pos`` at slot ``pos % s_cache``; ``UNWRITTEN`` for a slot not written yet."""
-    idx = torch.arange(s_cache, device=device)
+    idx = torch.arange(s_cache, dtype=torch.int32, device=device)  # int32: the kernel's type
     k_positions = idx + s_cache * ((pos - idx + s_cache) // s_cache) - s_cache
     return torch.where(k_positions < 0, UNWRITTEN, k_positions)
 
@@ -87,6 +87,6 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg, *, window: int = 
     if window:
         k_positions = ring_positions(pos, s_cache, x.device)
     else:
-        k_positions = torch.arange(s_cache, device=x.device)
+        k_positions = torch.arange(s_cache, dtype=torch.int32, device=x.device)
     o = decode_attention(q, k_new, v_new, k_positions, pos, window=window)
     return _out(params, o), {"k": k_new, "v": v_new}

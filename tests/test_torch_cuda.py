@@ -10,7 +10,8 @@ Each kernel is held to its plain PyTorch version on the same inputs:
 ``sample_hash`` with exact equality (their arithmetic is exact);
 ``flash_attention`` in f32 to summation order (atol = rtol = 1e-4 on O(1)
 outputs), in bf16 to one rounding step of the output (2^-7 relative and
-absolute), since both round the same f32 result to bf16.
+absolute): both round an f32 result to bf16, and the tensor-core kernels
+also round P to bf16 before the P V product (2^-9 relative per term).
 """
 import numpy as np
 import pytest
@@ -118,6 +119,15 @@ ATTN_CASES = [  # b, sq, sk, h, hkv, hd, causal, window, q_offset
     (1, 300, 300, 32, 4, 128, True, 0, 0), (16, 1, 4096, 32, 4, 128, True, 0, 2047),
     (4, 1, 25, 32, 4, 128, True, 0, 11), (2, 23, 41, 4, 4, 16, False, 0, 0),
     (1, 9, 50, 6, 3, 256, True, 12, 41), (3, 70, 130, 8, 2, 96, True, 33, 60),
+    # head dims 64 / 96 / 128 / 256 at Sq 1, 17, 64, 300 and 2048, both variants
+    (2, 1, 300, 8, 2, 64, True, 0, 299), (1, 17, 200, 8, 2, 64, True, 0, 100),
+    (2, 64, 512, 16, 2, 64, True, 0, 448), (1, 64, 64, 4, 4, 96, True, 0, 0),
+    (3, 17, 130, 8, 8, 96, False, 0, 0), (2, 1, 77, 12, 4, 96, True, 16, 70),
+    (1, 2048, 2048, 8, 1, 128, True, 0, 0), (1, 17, 1000, 32, 4, 128, True, 0, 983),
+    (1, 17, 77, 4, 2, 256, True, 20, 60), (1, 300, 333, 4, 4, 256, False, 0, 0),
+    (2, 1, 2048, 16, 2, 256, True, 0, 2047), (1, 64, 200, 2, 2, 256, True, 0, 136),
+    # decode split over keys with whole splits hidden (slots past pos 1000)
+    (16, 1, 4096, 32, 4, 128, True, 0, 1000),
 ]
 
 
@@ -133,13 +143,90 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype):
     kpos = torch.randperm(sk, generator=gen, device=cuda) if window else torch.arange(sk,
                                                                                       device=cuda)
     kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
-    launches = fa.flash_attention.launches
+    variant = fa.choose_variant(dtype, sq, h, hkv, hd)
+    launches, by_variant = fa.flash_attention.launches, dict(fa.flash_attention.variant_launches)
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == launches + 1
+    by_variant[variant] += 1
+    assert fa.flash_attention.variant_launches == by_variant
     ref = fa.flash_attention_ref(q, k, v, **kw)
     tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=2**-7, rtol=2**-7)
     torch.testing.assert_close(out, ref, **tol)
+
+
+@pytest.mark.parametrize("case,variant", [
+    ((1, 2048, 2048, 32, 4, 128, True), "tile"), ((16, 1, 4096, 32, 4, 128, True), "split"),
+    ((4, 1, 25, 32, 4, 128, True), "split"), ((2, 1000, 1537, 8, 8, 128, False), "tile"),
+    ((1, 7, 64, 8, 1, 128, True), "split"), ((1, 8, 64, 8, 1, 128, True), "tile"),
+    ((1, 7, 64, 8, 1, 64, True), "split"),
+])
+def test_dispatch_rule_on_the_card(cuda, case, variant):
+    """Each variant's counter moves where the rule sends the case."""
+    b, sq, sk, h, hkv, hd, causal = case
+    if sq * (h // hkv) < fa.TILE_ROWS:
+        assert variant == "split"
+    q = torch.randn((b, sq, h, hd), device=cuda).bfloat16()
+    k = torch.randn((b, sk, hkv, hd), device=cuda).bfloat16()
+    before = dict(fa.flash_attention.variant_launches)
+    ops.flash_attention(q, k, k, q_positions=torch.arange(sk - sq, sk, device=cuda),
+                        causal=causal)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.flash_attention.variant_launches.items()} == {
+        n: int(n == variant) for n in fa.VARIANTS}
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 128), (torch.float32, 64),
+                                      (torch.bfloat16, 8), (torch.bfloat16, 24)])
+def test_f32_and_odd_head_dims_keep_the_general_kernel(cuda, dtype, hd):
+    for sq, sk in [(1, 300), (300, 300)]:
+        q = torch.randn((2, sq, 8, hd), device=cuda).to(dtype)
+        k = torch.randn((2, sk, 2, hd), device=cuda).to(dtype)
+        before = dict(fa.flash_attention.variant_launches)
+        out = ops.flash_attention(q, k, k, q_positions=torch.arange(sk - sq, sk, device=cuda))
+        torch.cuda.synchronize()
+        assert fa.flash_attention.variant_launches["general"] == before["general"] + 1
+        assert fa.flash_attention.variant_launches["tile"] == before["tile"]
+        assert fa.flash_attention.variant_launches["split"] == before["split"]
+        tol = 1e-4 if dtype == torch.float32 else 2**-7
+        ref = fa.flash_attention_ref(q, k, k, q_positions=torch.arange(sk - sq, sk, device=cuda))
+        torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,qpos", [
+    (1, 128, 256, 8, 1, 64, list(range(-64, 64))),  # tile: half the rows see no key
+    (2, 1, 25, 8, 1, 128, [-1]),                    # split, one split
+    (2, 1, 700, 8, 1, 128, [-5]),                   # split, every split hidden
+    (1, 3, 700, 8, 2, 128, [-5, 3, 650]),           # split: some rows see keys
+])
+def test_row_that_sees_no_key_averages_v_on_the_card(cuda, b, sq, sk, h, hkv, hd, qpos):
+    """Tile skipping keeps the JAX semantics: a row that sees no key averages V."""
+    gen = torch.Generator(device=cuda).manual_seed(sk)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).bfloat16()
+    qp = torch.tensor(qpos, dtype=torch.int32, device=cuda)
+    out = ops.flash_attention(q, k, v, q_positions=qp)
+    ref = fa.flash_attention_ref(q, k, v, q_positions=qp)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=2**-7, rtol=2**-7)
+    blind = qp < 0
+    mean = v.float().mean(1).repeat_interleave(h // hkv, dim=1)  # (b, h, hd)
+    torch.testing.assert_close(out[:, blind].float(),
+                               mean[:, None].expand(b, int(blind.sum()), h, hd),
+                               atol=2**-7, rtol=2**-7)
+
+
+def test_split_decode_is_the_same_from_run_to_run(cuda):
+    q = torch.randn((16, 1, 32, 128), device=cuda).bfloat16()
+    k = torch.randn((16, 4096, 4, 128), device=cuda).bfloat16()
+    v = torch.randn((16, 4096, 4, 128), device=cuda).bfloat16()
+    qp = torch.tensor([3000], dtype=torch.int32, device=cuda)
+    assert fa.split_plan(4096, 16, 4, 8, torch.cuda.get_device_properties(0)
+                         .multi_processor_count)[0] > 1
+    first = ops.flash_attention(q, k, v, q_positions=qp)
+    for _ in range(3):
+        assert torch.equal(ops.flash_attention(q, k, v, q_positions=qp), first)
 
 
 def test_kernels_raise_instead_of_falling_back(cuda):
@@ -152,6 +239,9 @@ def test_kernels_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         x = torch.zeros((1, 4, 8, 2), device=cuda).transpose(2, 3)
         ops.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="tile"):
+        x = torch.zeros((1, 64, 2, 128), device=cuda)  # f32: not for the tensor-core kernels
+        fa.flash_attention_variant("tile", x, x, x)
     assert (sh.sample_hash.launches, fa.flash_attention.launches) == launches
 
 
@@ -167,13 +257,15 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda):
     caches = [{k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
                for k, s in model.cache_specs(2, 9).items()} for dev in ("cpu", cuda)]
     toks = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(4))
-    launches = fa.flash_attention.launches
+    launches, split = fa.flash_attention.launches, fa.flash_attention.variant_launches["split"]
     for pos in range(8):
         want, caches[0] = model.decode_step(params, caches[0], toks[:, pos:pos + 1], pos)
         got, caches[1] = model.decode_step(on_card, caches[1], toks[:, pos:pos + 1].to(cuda), pos)
         # bf16 compute on both: rounding differs between CPU and card kernels
         torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.15, rtol=0)
     assert fa.flash_attention.launches == launches + 8 * cfg.num_layers
+    if cfg.head_dim_ % 16 == 0:  # bf16 decode: the split kernel on every layer of every step
+        assert fa.flash_attention.variant_launches["split"] == split + 8 * cfg.num_layers
 
 
 def test_serve_goes_through_both_kernels(cuda):
