@@ -10,11 +10,14 @@ the phase that caused it; any failure exits non-zero and prints no result:
 1. the card's name and power limit (``nvidia-smi``); build every CUDA kernel
    of the port from the checkout's sources, one ``nvcc`` each, in parallel;
 2. every kernel against its plain PyTorch version on the card, at the shapes
-   the main paths give it: ``gf_matmul`` and ``sample_hash`` with exact
+   the main paths give it (``gf_matmul`` also at the serving path's Clay (4,2)
+   encode and at an N = 8 (mod 16) decode, with its ptxas lines printed in
+   phase 1): ``gf_matmul`` and ``sample_hash`` with exact
    equality (their arithmetic is exact), ``flash_attention`` within the
    tolerance stated at ``ATTN_TOL``; kernel and plain version timed in turns
-   with CUDA events beside the least time the card could take; attention
-   also by its device time from a ``torch.profiler`` trace, in turns with
+   with CUDA events beside the least time the card could take; ``gf_matmul``
+   and attention also by their device time from a ``torch.profiler`` trace
+   (the ``ms`` they report), attention in turns with
    its earlier CUDA-core kernel and ``scaled_dot_product_attention`` (a
    yardstick the port never calls), with the kernel the dispatch rule picked;
 3. the storage path at production size: a (10,6) Clay / 10 MiB-chunkset
@@ -29,7 +32,8 @@ the phase that caused it; any failure exits non-zero and prints no result:
    device-to-host copy, host SHA-256 Merkle commitments, decode);
 7. the device's busy and idle share over a put and a whole read of the same
    blob on a fresh cluster, from a ``torch.profiler`` trace of the card
-   (kernels, copies and memsets, overlaps merged);
+   (kernels, copies and memsets, overlaps merged), and the device ms of all
+   ``gf_matmul`` launches in each (kernel events by name);
 8. the serving path at yi-9b's published widths, depth cut to 2 layers:
    publish the weights through Shelby, crash an SP, restore them by paid
    k-of-n reads, serve batch 4 x (prompt 8 + 16 generated tokens); the
@@ -44,6 +48,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,6 +99,31 @@ def gf_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
     bytes_ms = (m * k + k * n + m * n) / H100_BYTES_PER_S * 1e3
     ops_ms = 2.0 * m * k * n / H100_INT8_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def gf_shapes(blob_mib: int) -> dict[str, tuple[int, int, int]]:
+    """The (M, K, N) shapes at which phase 2 times ``gf_matmul``, by name:
+    Clay (10,6) at the production layout (M 6; K 12 known flats per plane,
+    10 data + 2 virtual) for a blob of ``blob_mib`` MiB, and the serving
+    path's Clay (4,2) encode."""
+    from repro_torch.configs.shelby import CONFIG
+    from repro_torch.launch.cluster import build_cluster
+
+    lay = CONFIG.layout
+    alpha, w, m, kk = lay.code.alpha, lay.w, lay.m, lay.code.N - lay.m
+    n_cs = -(-blob_mib * 2**20 // lay.chunkset_bytes)
+    serve = build_cluster(device="cuda")[2].layout
+    shapes = {"encode_one_chunkset": (m, kk, alpha * w),
+              "ragged_byte_path": (m, kk, 3 * alpha * w + 17)}
+    shapes.update({f"decode_{g}_planes": (m, kk, g * w * n_cs) for g in (6, 48, 60, 102)})
+    shapes["encode_blob"] = (m, kk, alpha * w * n_cs)  # the put's encode of the whole blob
+    # an odd plane group x an odd chunkset count: N = 8 (mod 16), the 8-byte path
+    shapes["decode_5_planes_8byte_path"] = (m, kk, 5 * w * (n_cs | 1))
+    # as many chunksets as one solve stacks
+    shapes["serve_encode_clay_4_2"] = (
+        serve.m, serve.code.N - serve.m,
+        serve.code.alpha * serve.w * serve.code.stack_limit(serve.w))
+    return shapes
 
 
 def _traced(fn) -> tuple[float, list[dict]]:
@@ -156,10 +186,13 @@ def device_busy(fn) -> dict:
 
     every = [iv for ivs in spans.values() for iv in ivs]
     busy = union_s(every)
+    gf = [float(e["dur"]) for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+          and "gf_matmul" in e.get("name", "")]
     return {"wall_s": wall, "device_busy_s": busy if every else None,
             "kernel_s": union_s(spans["kernel"]), "copy_s": union_s(spans["gpu_memcpy"]),
             "device_events": len(every),
-            "idle_share": 1.0 - busy / wall if every else None}
+            "idle_share": 1.0 - busy / wall if every else None,
+            "gf_matmul_kernels": len(gf), "gf_matmul_device_ms": sum(gf) / 1e3}
 
 
 def check_gf_matmul(shapes, gen, timed: set) -> list[dict]:
@@ -185,9 +218,13 @@ def check_gf_matmul(shapes, gen, timed: set) -> list[dict]:
             kern_a = _time_ms(lambda: gk.gf_matmul(a, b), iters)
             kern_b = _time_ms(lambda: gk.gf_matmul(a, b), iters)
             plain_b = _time_ms(lambda: gk.gf_matmul_ref(a, b), 2)
+            # device time from a profiler trace: at small N the wrapper's host
+            # time per call exceeds the kernel's, and CUDA events around a
+            # loop of calls measure the host
+            dev, traces = _device_ms(lambda: gk.gf_matmul(a, b), iters)
             bound, by = gf_bound_ms(m, k, n)
-            row.update(ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
-                       bound_ms=bound, bound_by=by)
+            row.update(ms=dev, host_ms=min(kern_a, kern_b), plain_ms=min(plain_a, plain_b),
+                       bound_ms=bound, bound_by=by, traces=traces)
         print(json.dumps({"gf_matmul_check": row}), flush=True)
         if mismatches:
             raise SystemExit(f"gf_matmul disagrees with its plain version at {(m, k, n)}")
@@ -456,23 +493,27 @@ def main(argv=None) -> int:
           flush=True)
     from repro_torch.kernels import _build
 
-    for line in _build.ptxas_report("flash_attention"):  # registers, spills, shared memory
-        print(f"ptxas flash_attention: {line}", flush=True)
+    ptxas = {name: _build.ptxas_report(name) for name in ("gf_matmul", "flash_attention")}
+    for name, lines in ptxas.items():  # registers, spills, shared memory
+        for line in lines:
+            print(f"ptxas {name}: {line}", flush=True)
+    print(json.dumps({"gf_matmul_ptxas": {
+        "kernels": sum("Compiling entry" in ln for ln in ptxas["gf_matmul"]),
+        "spill_bytes": sum(int(x) for ln in ptxas["gf_matmul"]
+                           for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))}}),
+          flush=True)
 
     # -- 2. kernels against their plain versions --------------------------------------
     _phase("gf_matmul vs plain")
     lay = CONFIG.layout
     alpha, w, k, m = ClayCode(lay.k, lay.m, device="cuda").alpha, lay.w, lay.k, lay.m
     n_cs = -(-args.blob_mib * 2**20 // lay.chunkset_bytes)
-    kk = 12  # N_clay - m: known flats per plane (10 data + 2 virtual)
-    enc_chunk = (m, kk, alpha * w)  # one chunkset's encode
-    enc_blob = (m, kk, alpha * w * n_cs)  # the put's encode of the whole blob
-    shapes = [enc_chunk, (m, kk, 3 * alpha * w + 17)]
-    shapes += [(m, kk, g * w * n_cs) for g in (6, 48, 60, 102)]  # decode plane groups
-    shapes += [enc_blob, (4, 4, 65536), (1, 4, 65536), (1, 1, 1_000_003),
-               (1, 17, alpha * w), (32, 32, 100_003)]
+    timed_shapes = gf_shapes(args.blob_mib)
+    enc_blob = timed_shapes["encode_blob"]
+    shapes = [*timed_shapes.values(), (4, 4, 65536), (1, 4, 65536), (1, 1, 1_000_003),
+              (1, 17, alpha * w), (32, 32, 100_003)]
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    checks = check_gf_matmul(shapes, gen, timed=set(shapes[:7]))
+    checks = check_gf_matmul(shapes, gen, timed=set(timed_shapes.values()))
     max_err = max(r["max_abs_err"] for r in checks)
     mismatches = sum(r["mismatches"] for r in checks)
 

@@ -36,6 +36,12 @@ def cuda():
 @pytest.mark.parametrize("m,k,n", [
     (6, 12, 216 * 4856), (6, 12, 3 * 216 * 4856 + 17), (6, 12, 6 * 4856), (4, 4, 4096),
     (1, 4, 4095), (1, 1, 1), (32, 32, 10_001), (1, 17, 4856), (6, 12, 3),
+    # every access width: N = 0, 8, 4 (mod 16) and odd; N < 16
+    (6, 12, 5 * 4856), (6, 12, 4100), (6, 12, 4097), (2, 4, 15), (3, 5, 8), (5, 13, 12),
+    # the serving path's Clay (4,2): M 2, K 4, plane groups of w = 8192
+    (2, 4, 8 * 8192), (2, 4, 8 * 8192 * 3), (2, 4, 4 * 8192 + 4),
+    # row tiles past 8 and K past one group
+    (9, 31, 4104), (17, 5, 1000),
 ])
 def test_kernel_matches_plain_version(cuda, m, k, n):
     gen = torch.Generator(device=cuda).manual_seed(m * 1000 + k)
@@ -47,6 +53,49 @@ def test_kernel_matches_plain_version(cuda, m, k, n):
     torch.cuda.synchronize()
     assert gk.gf_matmul.launches == launches + 1
     assert torch.equal(out, gk.gf_matmul_ref(a, b))
+
+
+@pytest.mark.parametrize("n", [4096, 3 * 4856, 4100, 4097])
+@pytest.mark.parametrize("offset", [1, 4, 8])
+def test_kernel_takes_misaligned_views(cuda, offset, n):
+    """B a contiguous view whose data starts 1, 4 or 8 bytes into its
+    storage: the kernel drops to the widest access the pointer allows."""
+    gen = torch.Generator(device=cuda).manual_seed(offset * 7 + n)
+    a = torch.randint(0, 256, (6, 12), dtype=torch.uint8, device=cuda, generator=gen)
+    flat = torch.randint(0, 256, (offset + 12 * n,), dtype=torch.uint8, device=cuda,
+                         generator=gen)
+    b = flat[offset:].view(12, n)
+    assert b.is_contiguous() and b.storage_offset() == offset
+    launches = gk.gf_matmul.launches
+    out = ops.gf_matmul(a, b)
+    torch.cuda.synchronize()
+    assert gk.gf_matmul.launches == launches + 1
+    assert torch.equal(out, gk.gf_matmul_ref(a, b))
+
+
+def test_odd_plane_groups_go_through_the_kernel(cuda, monkeypatch):
+    """A Clay (10,6) decode of one chunkset at the production w = 4856
+    (8 mod 16) whose plane groups are odd (erasures 0, 7 and 13: groups of
+    125, 75, 15 and 1 planes): every solve has N = 8 (mod 16), the kernel's
+    8-byte path, and the decode gives back the codeword."""
+    code = ClayCode(10, 6, device=cuda)
+    data = np.random.default_rng(13).integers(0, 256, (1, 10, code.alpha, 4856), dtype=np.uint8)
+    coded = code.encode_batch(data)[0]
+    widths = []
+    real = gk.gf_matmul
+
+    def spy(a, b):
+        widths.append(b.shape[1])
+        return real(a, b)
+
+    spy.launches = 0  # the wrapper counts on the name it is bound to: here, the spy
+    monkeypatch.setattr(gk, "gf_matmul", spy)
+    shards = {i: coded[i].cpu().numpy() for i in range(code.n) if i not in (0, 7, 13)}
+    got = code.decode_batch([shards])[0]
+    torch.cuda.synchronize()
+    assert widths and all(n % 16 == 8 for n in widths)
+    assert spy.launches == len(widths)
+    assert torch.equal(got, coded)
 
 
 def test_kernel_raises_instead_of_falling_back(cuda):
