@@ -11,7 +11,8 @@ the phase that caused it; any failure exits non-zero and prints no result:
    of the port from the checkout's sources, one ``nvcc`` each, in parallel;
 2. every kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it (``gf_matmul`` also at the serving path's Clay (4,2)
-   encode and at an N = 8 (mod 16) decode, with its ptxas lines printed in
+   encode and repair, at the production (10,6) repair and at an N = 8
+   (mod 16) decode, with its ptxas lines printed in
    phase 1): ``gf_matmul`` and ``sample_hash`` with exact
    equality (their arithmetic is exact), ``flash_attention`` within the
    tolerance stated at ``ATTN_TOL``; kernel and plain version timed in turns
@@ -27,19 +28,29 @@ the phase that caused it; any failure exits non-zero and prints no result:
    launches counted per phase (each must be > 0);
 4. the audit path: the bulk digests of every 1 KiB sample of every chunk
    the put stored, checked against the plain version on the CPU;
-5. a device encode/decode against the CPU plain path on one chunkset;
-6. the put's and a read's steps timed alone (partition, device encode,
+5. Clay MSR repair on the same cluster (``RepairCoordinator.repair_all``):
+   an SP that lost every chunk (timed, then wiped and repaired again under
+   the profiler for device ms and idle share), a crashed SP whose chunks move to new SPs, and two chunks of one chunkset
+   (the first through the MDS fallback); every report verified, every MSR repair one
+   ``gf_matmul`` launch reading the MSR optimum of helper bytes; then the
+   whole blob read back from a cold cache;
+6. membership churn on the same cluster (``MembershipPlane``): three epochs
+   of seeded crashes, departures and joins above a floor of 21 live SPs,
+   the re-dispersal backlog repaired on the card while paid Zipf reads
+   replay on the same event loop; no chunkset lost, every read right;
+7. a device encode/decode against the CPU plain path on one chunkset;
+8. the put's and a read's steps timed alone (partition, device encode,
    device-to-host copy, host SHA-256 Merkle commitments, decode);
-7. the device's busy and idle share over a put and a whole read of the same
+9. the device's busy and idle share over a put and a whole read of the same
    blob on a fresh cluster, from a ``torch.profiler`` trace of the card
    (kernels, copies and memsets, overlaps merged), and the device ms of all
    ``gf_matmul`` launches in each (kernel events by name);
-8. the serving path at yi-9b's published widths, depth cut to 2 layers:
+10. the serving path at yi-9b's published widths, depth cut to 2 layers:
    publish the weights through Shelby, crash an SP, restore them by paid
    k-of-n reads, serve batch 4 x (prompt 8 + 16 generated tokens); the
    served model teacher-forced for two steps on the card and on the CPU
    plain path; decode tok/s as the median of nine warm generations;
-9. the card again, one JSON line per kernel, then the result line.
+11. the card again, one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -75,6 +86,8 @@ ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2**-7, 2**-7)}  # (atol, rtol)
 SERVE_ARCH, SERVE_LAYERS = "yi-9b", 2  # published widths; depth cut from 48 (host-bound publish)
 # warm decode is host-bound and single generations swing by a third: the median of nine
 WARM_GENERATIONS = 9
+CHURN_EPOCHS = 3
+CHURN_READS = 300  # paid Zipf reads replayed beside the churned epochs
 
 
 def _phase(name: str) -> None:
@@ -104,8 +117,9 @@ def gf_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
 def gf_shapes(blob_mib: int) -> dict[str, tuple[int, int, int]]:
     """The (M, K, N) shapes at which phase 2 times ``gf_matmul``, by name:
     Clay (10,6) at the production layout (M 6; K 12 known flats per plane,
-    10 data + 2 virtual) for a blob of ``blob_mib`` MiB, and the serving
-    path's Clay (4,2) encode."""
+    10 data + 2 virtual) for a blob of ``blob_mib`` MiB, one MSR repair at
+    (10,6) (6 column nodes from 12 known flats over alpha/q = 36 repair
+    planes), and the serving path's Clay (4,2) encode and repair."""
     from repro_torch.configs.shelby import CONFIG
     from repro_torch.launch.cluster import build_cluster
 
@@ -123,6 +137,10 @@ def gf_shapes(blob_mib: int) -> dict[str, tuple[int, int, int]]:
     shapes["serve_encode_clay_4_2"] = (
         serve.m, serve.code.N - serve.m,
         serve.code.alpha * serve.w * serve.code.stack_limit(serve.w))
+    # one MSR repair: q unknown column nodes from N - q known flats, every repair plane
+    shapes["repair_10_6"] = (m, kk, alpha // m * w)
+    shapes["serve_repair_clay_4_2"] = (serve.m, serve.code.N - serve.m,
+                                       serve.code.alpha // serve.m * serve.w)
     return shapes
 
 
@@ -398,6 +416,146 @@ def audit_samples(sps, meta, chunk_bytes: int) -> np.ndarray:
     return out.reshape(-1, SAMPLE_BYTES)
 
 
+def repair_phase(contract, sps, client, meta, gk) -> dict:
+    """Clay MSR repair at the production layout on the card, three ways:
+    an SP that lost every chunk (restored in place: timed, then wiped again
+    and repaired under the profiler for device ms and idle share), a crashed
+    SP (its chunks move to new SPs), and two chunks of one chunkset gone (the
+    first rebuilt through the MDS fallback, the second by MSR once the first
+    is back).  Every report must be verified, every MSR repair must read the
+    MSR optimum of helper bytes and make exactly one ``gf_matmul`` launch;
+    then the whole blob is read back from a cold cache."""
+    import torch
+
+    from repro_torch.storage.repair import RepairCoordinator
+
+    lay = client.layout
+    msr_bytes = lay.code.repair_bandwidth_bytes(lay.chunk_bytes)
+    rc = RepairCoordinator(contract, sps, lay)
+
+    def step(name, fn, profile=False):
+        seen, first = gk.gf_matmul.launches, len(rc.reports)
+        if profile:  # its wall time carries the profiler's cost: no GB/s from it
+            busy = device_busy(fn)
+        else:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            busy = {"wall_s": time.perf_counter() - t}
+        reports = rc.reports[first:]
+        launches = gk.gf_matmul.launches - seen
+        msr = [r for r in reports if r.mode == "msr"]
+        rebuilt = lay.chunk_bytes * len(reports)
+        row = {"step": name, "profiled": profile, "repairs": len(reports), "msr": len(msr),
+               "mds": len(reports) - len(msr), "bytes_rebuilt": rebuilt,
+               "helper_bytes_read": sum(r.helper_bytes_read for r in reports),
+               "helper_bytes_per_msr_repair": sorted({r.helper_bytes_read for r in msr}),
+               "helper_bytes_per_mds_repair": sorted(
+                   {r.helper_bytes_read for r in reports if r.mode == "mds"}),
+               "gf_matmul_launches": launches,
+               "GB/s": None if profile else rebuilt / busy["wall_s"] / 1e9,
+               "failures": len(rc.failures), **busy}
+        print(json.dumps({"repair": row}), flush=True)
+        if not reports or rc.failures or not all(r.verified for r in reports):
+            raise SystemExit(f"repair step {name!r}: {len(reports)} reports, "
+                             f"failures {rc.failures}")
+        if any(r.helper_bytes_read != msr_bytes for r in msr):
+            raise SystemExit(f"an MSR repair read other than {msr_bytes} helper bytes")
+        return row, reports, launches
+
+    # an SP that lost its disk: recovered, then wiped (examples/quickstart.py step 4)
+    victim = meta.placement[(0, 0)]
+    sps[victim].recover()
+    wiped = []
+    for profile in (False, True):  # timed, then wiped again for the trace
+        sps[victim].wipe()
+        row, reports, launches = step("wipe_one_sp", rc.repair_all, profile=profile)
+        if row["mds"] or launches != row["msr"] or any(r.new_sp != victim for r in reports):
+            raise SystemExit(f"wiped-SP repair: {row['msr']} MSR repairs, {launches} launches")
+        wiped.append(row)
+    # a crashed SP: its chunks are rebuilt on SPs the contract picks
+    crashed = next(sp for sp in meta.placement.values() if sp != victim)
+    sps[crashed].crash()
+    moved, reports, launches = step("crash_one_sp", rc.repair_all)
+    if moved["mds"] or launches != moved["msr"] or any(r.new_sp == crashed for r in reports):
+        raise SystemExit(f"crashed-SP repair: {moved['msr']} MSR repairs, {launches} launches")
+    # two chunks of one chunkset gone: the first has no MSR pattern (k verified
+    # helpers decoded); once it is back, the second is an MSR repair again
+    cs = meta.num_chunksets // 2
+    for ck in (1, 2):
+        sps[meta.placement[(cs, ck)]]._chunks.pop((meta.blob_id, cs, ck))
+    mds, reports, launches = step("two_of_one_chunkset", rc.repair_all)
+    if [r.mode for r in reports] != ["mds", "msr"] or launches <= 1:
+        raise SystemExit(f"MDS fallback: modes {[r.mode for r in reports]}, {launches} launches")
+    return {"steps": [*wiped, moved, mds], "wiped_sp": victim, "crashed_sp": crashed}
+
+
+def churn_phase(contract, sps, client, meta, data, gk, seed: int, reads: int) -> dict:
+    """Three churned epochs (crashes, departures, one join each, a floor of
+    21 live SPs) with their re-dispersal backlog repaired on the card,
+    while paid Zipf reads of the blob replay on the same event loop."""
+    import torch
+
+    from repro_torch.net.workloads import zipf_hotset
+    from repro_torch.storage.membership import ChurnSpec, MembershipPlane
+    from repro_torch.storage.repair import RepairCoordinator
+
+    lay = client.layout
+    rc = RepairCoordinator(contract, sps, lay)
+    plane = MembershipPlane(
+        contract, sps, lay,
+        ChurnSpec(p_crash=0.05, p_leave=0.05, joins_per_epoch=1, min_active=21, seed=seed),
+        repair=rc, fleet=client.fleet, epochs=CHURN_EPOCHS)
+    # the reads spread over the churned epochs (250 ms of simulated time each)
+    reqs = zipf_hotset([meta], clients=["reader"], num_requests=reads,
+                       interarrival_ms=plane.epoch_ms * CHURN_EPOCHS / reads, seed=seed,
+                       arrival="poisson")
+    # every MSR attempt must be taken: a rebuilt chunk that failed its
+    # commitment would fall back to MDS unseen, so count the attempts on
+    # this layout's code (an instance attribute on the frozen dataclass,
+    # removed after the run; other ClayCode objects are untouched)
+    attempts = []
+    code = lay.code
+    object.__setattr__(code, "repair", lambda failed, helpers: (
+        attempts.append(failed) or type(code).repair(code, failed, helpers)))
+    seen = gk.gf_matmul.launches
+    t = time.perf_counter()
+    try:
+        with client.session() as session:
+            receipts, result = session.replay(reqs, background=plane.planes())
+        torch.cuda.synchronize()
+    finally:
+        object.__delattr__(code, "repair")
+    wall = time.perf_counter() - t
+    served = [(q, r) for q, r in zip(reqs, receipts) if r is not None]
+    wrong = sum(r.data != data[q.offset:q.offset + q.length] for q, r in served)
+    msr = sum(r.mode == "msr" for r in rc.reports)
+    row = {
+        "epochs": CHURN_EPOCHS, "wall_s": wall,
+        "events": [[e.kind, e.epoch, e.t_ms, e.sp_id] for e in plane.events],
+        "epoch_stats": [{"epoch": st.epoch, "joins": st.joins, "crashes": st.crashes,
+                         "departures": st.departures, "slashes": st.slashes,
+                         "reassigned": st.reassigned, "backlog": st.enqueued,
+                         "lost_new": st.lost_new, "drain_ms": st.drain_ms()}
+                        for st in plane.epoch_stats],
+        "lost_chunksets": plane.lost_chunksets, "repairs_msr": msr, "msr_attempts": len(attempts),
+        "repairs_mds": len(rc.reports) - msr, "repair_failures": len(plane.repair.failures),
+        "backlog_left": plane.repair.backlog(), "reads": len(reqs),
+        "reads_served": len(served), "reads_failed": result.dropped, "reads_wrong": wrong,
+        "read_p99_ms": result.percentile(99.0), "gf_matmul_launches": gk.gf_matmul.launches - seen,
+        "digest": result.digest(),
+    }
+    print(json.dumps({"churn": row}), flush=True)
+    if plane.lost_chunksets or wrong or result.dropped:
+        raise SystemExit(f"churn: {plane.lost_chunksets} chunksets lost, {wrong} wrong reads, "
+                         f"{result.dropped} failed reads")
+    if len(attempts) != msr:
+        raise SystemExit(f"churn: {len(attempts) - msr} MSR repairs failed their commitment")
+    if plane.repair.failures or plane.repair.backlog() or not plane.events:
+        raise SystemExit("churn: the re-dispersal backlog did not drain, or nothing churned")
+    return row
+
+
 SERVE_LOGIT_ATOL = 0.15  # bf16 logits, card vs CPU: the two round products differently
 
 
@@ -637,7 +795,33 @@ def main(argv=None) -> int:
                                 "distinct_digests": int(np.unique(digests).size)}}), flush=True)
     del samples, digests
 
-    # -- 5. device against the CPU plain path on one chunkset -------------------------
+    # -- 5. Clay MSR repair on the card, on the same cluster ----------------------------
+    _phase("repair: wipe one SP, crash one SP, lose two chunks of one chunkset; repair_all")
+    zero_counts()  # count the repair path only
+    repair_phase(contract, sps, client, meta, gk)
+    counts = read_counts("repair")
+    if counts["gf_matmul"] == 0:
+        raise SystemExit("the repair path made no gf_matmul launch")
+    clear_caches()
+    t = time.perf_counter()
+    got = client.get(meta.blob_id)
+    print(json.dumps({"repair_read_back": {"s": time.perf_counter() - t, "equal": got == data}}),
+          flush=True)
+    if got != data:
+        raise SystemExit("the blob read back after repair differs from what was written")
+    client.settle()
+
+    # -- 6. membership churn with re-dispersal, paid reads alongside ---------------------
+    _phase(f"churn: {CHURN_EPOCHS} epochs of crashes, departures and joins, "
+           f"{CHURN_READS} paid reads replayed alongside")
+    clear_caches()
+    zero_counts()  # count the churn path only
+    churn = churn_phase(contract, sps, client, meta, data, gk, args.seed, CHURN_READS)
+    counts = read_counts("churn")
+    if counts["gf_matmul"] < churn["repairs_msr"] or counts["gf_matmul"] == 0:
+        raise SystemExit(f"the churn path's gf_matmul launches are off: {counts}")
+
+    # -- 7. device against the CPU plain path on one chunkset -------------------------
     _phase("encode/decode: card vs CPU plain path, one production chunkset")
     plain = np.frombuffer(data[:cs_bytes], np.uint8).reshape(k, alpha, w).copy()
     dev_code, cpu_code = ClayCode(k, m, device="cuda"), ClayCode(k, m, device="cpu")
@@ -648,7 +832,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print("card == CPU plain path: ok", flush=True)
 
-    # -- 6. where the put's and a read's time goes: each step timed alone ------------
+    # -- 8. where the put's and a read's time goes: each step timed alone ------------
     _phase("breakdown: steps of the put and of a read, timed alone")
 
     def timed_step(fn):
@@ -672,7 +856,7 @@ def main(argv=None) -> int:
     }}), flush=True)
     del coded_host, first_k
 
-    # -- 7. how much of a put and a read the card is busy ----------------------------
+    # -- 9. how much of a put and a read the card is busy ----------------------------
     _phase("device busy share: put and whole read on a fresh cluster, profiled")
     _, _, _, client2 = build_cluster(
         num_sps=CONFIG.num_sps, layout=CONFIG.layout, device="cuda",
@@ -686,7 +870,7 @@ def main(argv=None) -> int:
     print(json.dumps({"device_busy": busy}), flush=True)
     del client2, held
 
-    # -- 8. the serving path at yi-9b width ---------------------------------------------
+    # -- 10. the serving path at yi-9b width ---------------------------------------------
     _phase(f"serve: {SERVE_ARCH} at published widths, {SERVE_LAYERS} layers, through Shelby")
     from repro_torch.configs import get
     from repro_torch.launch.serve import serve
@@ -737,7 +921,7 @@ def main(argv=None) -> int:
     }}), flush=True)
     del run, engine
 
-    # -- 9. the kernels line and the result ----------------------------------------------
+    # -- 11. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),
@@ -765,6 +949,11 @@ def main(argv=None) -> int:
                 cases={r["case"]: {key: r[key] for key in (
                     "variant", "ms", "host_ms", "previous_ms", "library_ms", "bound_ms",
                     "bound_by")} for r in attn_checks})
+        if name == "gf_matmul":  # the repair shapes beside the put's encode
+            by_shape = {(r["m"], r["k"], r["n"]): r for r in checks}
+            line[-1]["shapes"] = {
+                key: {f: by_shape[shape][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                for key, shape in timed_shapes.items() if key.startswith(("repair", "serve_repair"))}
         if line[-1]["launches"] == 0:
             raise SystemExit(f"{name} was launched on no path")
     print(card, flush=True)

@@ -25,8 +25,9 @@ intersection score:
 
 1. uncouple the known nodes — gathers through index tensors precomputed for
    the erasure pattern (partner flat, partner plane, diagonal or paired);
-   ``_u_from_pair`` and ``_c_from_pair_u`` are symmetric in XOR, so the
-   pair order drops out;
+   the pairwise transform's two members, ``U_a = th*(C_a + g*C_b)`` and
+   ``U_b = th*(g*C_a + C_b)``, are one expression in XOR, so the pair order
+   drops out;
 2. solve the base code for every plane of the group with ONE
    ``gf_matmul`` — the CUDA kernel on the card;
 3. couple the unknown nodes, again by gathers.
@@ -36,7 +37,11 @@ The constant multiplies of steps 1 and 3 are plain shift/xor torch
 ``_solve`` updates its argument in place (the callers pass a fresh
 tensor), which saves a codeword-sized copy.
 
-``repair`` (bandwidth-optimal single-node repair) stays on the numpy path.
+``repair`` (bandwidth-optimal single-node repair) runs the same three steps
+on the repair planes only: the helpers' sub-chunks are copied to the device
+once, uncoupled by gathers, the q column nodes' uncoupled values are solved
+with ONE ``gf_matmul`` over every repair plane, and the lost chunk is
+assembled by gathers over all alpha planes (``_RepairPlan``).
 
 Storage layout: a chunk is ``(alpha, w)`` bytes; a codeword is ``(n, alpha, w)``.
 """
@@ -95,6 +100,31 @@ class _SolvePlan:
     known: torch.Tensor  # (K,) flats the solver reads
     unknown: torch.Tensor  # (e,) flats it solves for, ascending
     groups: tuple[_GroupPlan, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class _RepairPlan:
+    """Index tensors of ``repair`` for one failed node.
+
+    Repair planes are numbered locally (0..alpha/q-1, ``repair_planes``
+    order); ``c`` below is the helpers' (N, alpha/q, w) coupled values.
+    """
+
+    r_mat: torch.Tensor  # (q, N-q) uint8: column nodes' U from the known nodes' U
+    helpers: torch.Tensor  # (n-1,) flats of the helpers, ascending real index
+    known: torch.Tensor  # (N-q,) the non-column flats, ascending
+    # uncouple, over (known flat, repair plane): U = C if diagonal, else
+    # theta*(C ^ g*C_partner); a diagonal vertex is its own "partner"
+    u_flat: torch.Tensor  # (N-q, R) partner flat
+    u_plane: torch.Tensor  # (N-q, R) partner's local plane
+    u_diag: torch.Tensor  # (N-q, R, 1) bool
+    # assembly, over all alpha planes: a repair plane is the failed vertex's
+    # own U (diagonal); any other is paired with column node (z_y0, y0) on
+    # local plane p: C = inv_g*(C_p ^ U_p) ^ g*U_p
+    a_col: torch.Tensor  # (alpha,) column position x of the U read
+    a_plane: torch.Tensor  # (alpha,) local plane of the U (and C) read
+    a_flat: torch.Tensor  # (alpha,) flat of the C read
+    a_rep: torch.Tensor  # (alpha, 1) bool: a repair plane
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,17 +215,6 @@ class ClayCode:
         zp = list(z)
         zp[y] = x
         return z[y], y, tuple(zp)
-
-    def _pair_order(self, x_a: int, x_b: int) -> bool:
-        """True if vertex with x_a is the 'a' (smaller-x) member."""
-        return x_a < x_b
-
-    @staticmethod
-    def _u_from_pair(c_self, c_partner, self_is_a: bool):
-        """Uncoupled value of `self` from both coupled values (numpy)."""
-        if self_is_a:
-            return gf.mul(_THETA, c_self ^ gf.mul(GAMMA, c_partner))
-        return gf.mul(_THETA, gf.mul(GAMMA, c_partner) ^ c_self)
 
     # -- the plane-schedule engine ------------------------------------------------
     def _is_score(self, z: tuple[int, ...], unknown: frozenset[int]) -> int:
@@ -409,7 +428,7 @@ class ClayCode:
                     out[i] = c[:, :, b, :].index_select(0, rows)
         return out
 
-    # -- bandwidth-optimal single-node repair (numpy path) ---------------------------
+    # -- bandwidth-optimal single-node repair (§3.3 MSR) -------------------------------
     def repair_planes(self, failed_real: int) -> list[tuple[int, ...]]:
         x0, y0 = self._xy(self.real_to_flat[failed_real])
         return [z for z in self.planes if z[y0] == x0]
@@ -422,87 +441,80 @@ class ClayCode:
         """Helper bytes read to repair ONE chunk (MSR optimum, d = n-1)."""
         return (self.n - 1) * (chunk_bytes // self.q)
 
-    def repair(
-        self,
-        failed_real: int,
-        helper_subchunks: dict[int, np.ndarray],
-    ) -> np.ndarray:
+    @functools.lru_cache(maxsize=64)
+    def _repair_plan(self, failed_real: int) -> _RepairPlan:
+        """Gather indices and the base-code solver of ``repair`` for one node."""
+        x0, y0 = self._xy(self.real_to_flat[failed_real])
+        rplanes = self.repair_planes(failed_real)
+        rp_index = {z: i for i, z in enumerate(rplanes)}
+        # the base-code solve for the column nodes, row x = node (x, y0)
+        r_mat, known = self._decode_mats(tuple(self._flat(x, y0) for x in range(self.q)))
+        u_flat, u_plane, u_diag = [], [], []
+        for f in known:  # a known node's partner stays on the repair planes
+            x, y = self._xy(f)
+            for ri, z in enumerate(rplanes):
+                p = self._partner(x, y, z)
+                u_diag.append(p is None)
+                u_flat.append(f if p is None else self._flat(p[0], p[1]))
+                u_plane.append(ri if p is None else rp_index[p[2]])
+        a_col, a_plane, a_flat, a_rep = [], [], [], []
+        for z in self.planes:
+            pz = z[:y0] + (x0,) + z[y0 + 1 :]  # z itself on a repair plane
+            a_col.append(z[y0])
+            a_plane.append(rp_index[pz])
+            a_flat.append(self._flat(z[y0], y0))
+            a_rep.append(z[y0] == x0)
+        helpers = [self.real_to_flat[r] for r in range(self.n) if r != failed_real]
+        grid = (len(known), len(rplanes))
+        return _RepairPlan(
+            r_mat=torch.from_numpy(np.ascontiguousarray(r_mat)).to(self.device),
+            helpers=self._index(helpers),
+            known=self._index(known),
+            u_flat=self._index(u_flat).view(grid),
+            u_plane=self._index(u_plane).view(grid),
+            u_diag=torch.tensor(u_diag, device=self.device).view(*grid, 1),
+            a_col=self._index(a_col),
+            a_plane=self._index(a_plane),
+            a_flat=self._index(a_flat),
+            a_rep=torch.tensor(a_rep, device=self.device).view(-1, 1),
+        )
+
+    def repair(self, failed_real: int, helper_subchunks: dict[int, object]) -> torch.Tensor:
         """Repair chunk `failed_real` from helpers' repair-plane sub-chunks.
 
-        helper_subchunks: {real_idx: (alpha/q, w)} — ONLY the sub-chunks whose
-        plane z satisfies z_{y0} == x0, in `repair_subchunk_ids` order.
-        Requires all d = n-1 helpers (optimal-bandwidth regime); for fewer
-        helpers fall back to `decode` (MDS path), as §3.3 prescribes.
+        helper_subchunks: {real_idx: (alpha/q, w)} numpy arrays (as SPs hand
+        them over) or tensors — ONLY the sub-chunks whose plane z satisfies
+        z_{y0} == x0, in `repair_subchunk_ids` order.  Requires all d = n-1
+        helpers (optimal-bandwidth regime); for fewer helpers fall back to
+        `decode` (MDS path), as §3.3 prescribes.  Returns the (alpha, w)
+        chunk on the code's device, after one host-to-device copy of the
+        helpers and ONE ``gf_matmul`` (q x (N-q)) x (N-q, alpha/q * w).
         """
-        f_flat = self.real_to_flat[failed_real]
-        x0, y0 = self._xy(f_flat)
-        rplanes = self.repair_planes(failed_real)
         if set(helper_subchunks) != set(range(self.n)) - {failed_real}:
             raise ValueError("optimal repair needs all n-1 helpers")
-        w = next(iter(helper_subchunks.values())).shape[-1]
-
-        # Coupled values on repair planes, indexed by extended flat id and
-        # *local* repair-plane position (virtual nodes: zeros).
-        rp_index = {z: i for i, z in enumerate(rplanes)}
-        c_rp = np.zeros((self.N, len(rplanes), w), dtype=np.uint8)
-        for real, sub in helper_subchunks.items():
-            assert sub.shape == (len(rplanes), w), sub.shape
-            c_rp[self.real_to_flat[real]] = sub
-
-        # Column-y0 nodes hold the per-plane unknown uncoupled values.
-        col_nodes = [self._flat(x, y0) for x in range(self.q)]
-        col_set = set(col_nodes)
-        known_nodes = [f for f in range(self.N) if f not in col_set]
-
-        # U of non-column nodes: partners stay inside the repair-plane set.
-        u_rp = np.zeros_like(c_rp)
-        for z in rplanes:
-            ri = rp_index[z]
-            for f in known_nodes:
-                x, y = self._xy(f)
-                p = self._partner(x, y, z)
-                if p is None:
-                    u_rp[f, ri] = c_rp[f, ri]
-                else:
-                    px, py, pz = p
-                    u_rp[f, ri] = self._u_from_pair(
-                        c_rp[f, ri],
-                        c_rp[self._flat(px, py), rp_index[pz]],
-                        self._pair_order(x, px),
-                    )
-
-        # Solve the q unknown column-U values per plane with the base code.
-        e = len(col_nodes)
-        h = self.base.parity_check[:e, :]
-        r_mat = gf.matmul_np(gf.mat_inv(h[:, col_nodes]), h[:, known_nodes])
-        kn = u_rp[known_nodes].reshape(len(known_nodes), -1)
-        sol = gf.matmul_np(r_mat, kn).reshape(e, len(rplanes), w)
-        u_col = {f: sol[i] for i, f in enumerate(col_nodes)}
-
-        # Assemble the failed chunk.
-        out = np.zeros((self.alpha, w), dtype=np.uint8)
-        for z in self.planes:
-            zi = self.plane_index[z]
-            if z[y0] == x0:
-                # repair plane: failed vertex is diagonal -> C = U
-                out[zi] = u_col[f_flat][rp_index[z]]
-            else:
-                # paired with helper vertex p in a repair plane
-                x1 = z[y0]
-                pz = list(z)
-                pz[y0] = x0
-                pz = tuple(pz)
-                pf = self._flat(x1, y0)
-                c_p = c_rp[pf, rp_index[pz]]
-                u_p = u_col[pf][rp_index[pz]]
-                if self._pair_order(x1, x0):
-                    # partner p is 'a', failed vertex is 'b':
-                    # U_b = (C_a + U_a)/g ;  C_b = g*U_a + U_b
-                    u_b = gf.mul(_INV_GAMMA, c_p ^ u_p)
-                    out[zi] = gf.mul(GAMMA, u_p) ^ u_b
-                else:
-                    # partner p is 'b', failed vertex is 'a':
-                    # U_a = (C_b + U_b)/g ;  C_a = U_a + g*U_b
-                    u_a = gf.mul(_INV_GAMMA, c_p ^ u_p)
-                    out[zi] = u_a ^ gf.mul(GAMMA, u_p)
-        return out
+        plan = self._repair_plan(failed_real)
+        arrays = [helper_subchunks[r] for r in sorted(helper_subchunks)]
+        if all(isinstance(a, np.ndarray) for a in arrays):
+            fetched = torch.from_numpy(np.stack(arrays).astype(np.uint8, copy=False))
+        else:
+            fetched = torch.stack([self._tensor(a) for a in arrays])
+        fetched = fetched.to(self.device)
+        _, r, w = fetched.shape
+        if r != self.alpha // self.q:
+            raise ValueError(f"each helper sends alpha/q = {self.alpha // self.q} "
+                             f"sub-chunks, got {tuple(fetched.shape[1:])}")
+        # coupled values on the repair planes by flat (virtual nodes and the
+        # failed node: zeros)
+        c = torch.zeros((self.N, r, w), dtype=torch.uint8, device=self.device)
+        c[plan.helpers] = fetched
+        # 1) uncouple the non-column nodes (symmetric in the pair order)
+        c_known = c[plan.known]
+        paired = gf.mul_const(_THETA, c_known ^ gf.mul_const(GAMMA, c[plan.u_flat, plan.u_plane]))
+        u = torch.where(plan.u_diag, c_known, paired)
+        # 2) the q column nodes' U on every repair plane: one GF matmul
+        sol = ops.gf_matmul(plan.r_mat, u.view(len(plan.known), r * w)).view(self.q, r, w)
+        # 3) assemble: C = U on a repair plane, else from the coupled partner
+        u_p = sol[plan.a_col, plan.a_plane]
+        c_p = c[plan.a_flat, plan.a_plane]
+        coupled = gf.mul_const(_INV_GAMMA, c_p ^ u_p) ^ gf.mul_const(GAMMA, u_p)
+        return torch.where(plan.a_rep, u_p, coupled)

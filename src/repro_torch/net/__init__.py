@@ -8,6 +8,8 @@ path runs on, with the simulated clock's float arithmetic kept op for op:
   per-node NIC FIFO transfer accounting on a simulated clock.
 * ``scheduler`` — deadline-based hedged chunk scheduler.
 * ``fleet``     — multi-RPC router with pluggable policies.
+* ``workloads`` — deterministic scenario generators plus the open-loop /
+  closed-loop replay drivers.
 """
 from repro_torch.net.backbone import Backbone, LinkSpec, NICSpec
 from repro_torch.net.events import (
@@ -27,6 +29,17 @@ from repro_torch.net.fleet import (
     RPCFleet,
 )
 from repro_torch.net.scheduler import FetchResult, HedgedScheduler
+from repro_torch.net.workloads import (
+    ReadRequest,
+    ReplayResult,
+    RequestRecord,
+    analytics_scan,
+    replay_closed_loop,
+    replay_open_loop,
+    training_epoch,
+    video_streaming,
+    zipf_hotset,
+)
 
 __all__ = [
     "Backbone",
@@ -46,4 +59,13 @@ __all__ = [
     "LatencyAwarePolicy",
     "CacheAffinityPolicy",
     "PowerOfTwoPolicy",
+    "ReadRequest",
+    "RequestRecord",
+    "ReplayResult",
+    "replay_open_loop",
+    "replay_closed_loop",
+    "video_streaming",
+    "training_epoch",
+    "analytics_scan",
+    "zipf_hotset",
 ]

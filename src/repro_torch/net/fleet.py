@@ -148,6 +148,14 @@ class RPCFleet:
     def node(self, rpc_id: str) -> RPCNode:
         return self.rpcs[self.node_ids.index(rpc_id)]
 
+    def admit_sp(self, sp_id: int, sp, node: str | None = None) -> None:
+        """Fan a mid-run SP join out to every RPC node (membership plane):
+        each opens its payment channel and learns the transport route, so
+        reassigned chunksets are servable fleet-wide the moment the
+        contract's placement points at the newcomer."""
+        for rpc in self.rpcs:
+            rpc.admit_sp(sp_id, sp, node)
+
     # -- serving ------------------------------------------------------------------
     def _route(self, blob_id: int, chunkset: int, client: str | None) -> int:
         i = self.policy.pick((blob_id, chunkset), client, self)

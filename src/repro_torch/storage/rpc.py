@@ -39,7 +39,8 @@ through a per-node :class:`~repro_torch.net.events.SingleFlight` table
 (cache-stampede dedup).
 
 Not here yet: the JAX package's overload control (admission limits and load
-shedding, cache TTL and admit-bytes) and mid-run SP admission.
+shedding, cache TTL and admit-bytes); :class:`Overloaded` exists so the
+replay drivers import, but nothing raises it.
 """
 from __future__ import annotations
 
@@ -76,6 +77,22 @@ NACK_BYTES = 64
 
 class ReadError(Exception):
     pass
+
+
+class Overloaded(ReadError):
+    """Typed load-shed outcome: the node refused this request at admission.
+
+    Subclasses :class:`ReadError` so existing drop paths keep working, but
+    carries enough structure (`rpc_id`, `reason`) for the fleet to retry on
+    a sibling and for replay drivers to account a *shed rate* separately
+    from hard failures.  Nothing in this package raises it yet: admission
+    control is not ported (the replay drivers already handle it).
+    """
+
+    def __init__(self, rpc_id: str, reason: str):
+        self.rpc_id = rpc_id
+        self.reason = reason
+        super().__init__(f"rpc {rpc_id} overloaded ({reason})")
 
 
 @dataclasses.dataclass
@@ -163,6 +180,10 @@ class BackboneTransport:
             + self.sps[sp_id].service_ms()
             + bb.estimate_ms(sp, self.rpc_node, nbytes)
         )
+
+    def admit_sp(self, sp_id: int, node: str | None = None) -> None:
+        """A new SP joined mid-run: route its requests to `node`."""
+        self.sp_node[sp_id] = node or f"sp{sp_id}"
 
     def request_task(self, sp_id: int, blob_id: int, chunkset: int, chunk: int):
         node = self.sp_node[sp_id]
@@ -260,6 +281,19 @@ class RPCNode:
             income[sp_id] = server_gets  # one channel per SP
             self.ledger.open(str(sp_id), self._sp_deposit)  # fresh channel
         return income
+
+    def admit_sp(self, sp_id: int, sp: StorageProvider,
+                 node: str | None = None) -> None:
+        """A new SP joined the contract mid-run (membership plane): make it
+        servable from this node — shared SP table entry, a fresh RPC->SP
+        payment channel (channels open at join time, §2.3), and a transport
+        route when the transport keeps one."""
+        self.sps[sp_id] = sp
+        if str(sp_id) not in self.ledger.channels:
+            self.ledger.open(str(sp_id), self._sp_deposit)
+        admit = getattr(self.transport, "admit_sp", None)
+        if admit is not None:
+            admit(sp_id, node)
 
     def _fetch_chunkset_task(
         self, loop: EventLoop, blob_id: int, chunkset: int, label: str = "fetch"

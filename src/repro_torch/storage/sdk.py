@@ -23,8 +23,11 @@ file-like :class:`BlobReader`; ``client.stream(blob_id, chunk_size)``
 yields successive receipts; ``client.get_many([...])`` routes all ranges
 across the fleet in one pass so wide GF batch-decodes span requests.
 
-Not here yet: open-loop ``replay``, DAS ``sample_availability`` and the DAS
-extension on ``put``.
+``replay`` runs a workload's request list open loop on one shared event
+loop, with background planes (audits, repair, churn) beside it.
+
+Not here yet: the cohort fast-path replay of a ``RequestBatch``, DAS
+``sample_availability`` and the DAS extension on ``put``.
 """
 from __future__ import annotations
 
@@ -203,6 +206,45 @@ class ShelbySession:
             self._resolve(requests), client=client, t_ms=t_ms
         )
         return [self._receipt_for(sr) for sr in served]
+
+    def replay(self, requests, *, background=None, trace: bool = False,
+               engine: str | None = None):
+        """Open-loop replay of a workload's :class:`ReadRequest` list on ONE
+        shared event loop: every request is a concurrent task spawned at its
+        arrival time, so hedge timers, failure recoveries, SP disk queues
+        and NIC transfers of in-flight requests genuinely interleave.
+        ``background`` plane(s) (audits/repair/churn —
+        ``repro_torch.storage.background``, ``storage.membership``) spawn on
+        the same loop and contend with the paid traffic.
+
+        Payments stay pay-on-delivery, applied at each request's completion
+        time in deterministic event order; dropped requests debit nothing.
+        Returns ``(receipts, ReplayResult)`` — ``receipts[i]`` is ``None``
+        when request ``i`` was dropped by a hard failure (the port has no
+        admission control yet, so no request is shed).
+
+        A :class:`~repro_torch.net.workloads.RequestBatch` goes to the cohort
+        fast path in the JAX package; that path is not ported yet, so a
+        batch without ``background`` raises :class:`NotImplementedError`
+        (``batch.to_requests()`` replays the same requests here).
+        """
+        self._settle_check()
+        from repro_torch.net.workloads import RequestBatch, replay_open_loop
+
+        if isinstance(requests, RequestBatch) and background is None:
+            raise NotImplementedError(
+                "the cohort fast-path replay of a RequestBatch (net/fastpath.py) "
+                "is not ported yet; pass batch.to_requests()"
+            )
+
+        receipts: list[ReadReceipt | None] = [None] * len(requests)
+
+        def on_served(i, req, sr):
+            receipts[i] = self._receipt_for(sr)
+
+        result = replay_open_loop(self._fleet, requests, on_served=on_served,
+                                  background=background, trace=trace, engine=engine)
+        return receipts, result
 
     def read(
         self,
@@ -523,6 +565,13 @@ class ShelbyClient:
         t_ms: float = 0.0,
     ) -> list[ReadReceipt]:
         return self.current_session.get_many(requests, client=client, t_ms=t_ms)
+
+    def replay(self, requests, *, background=None, trace: bool = False,
+               engine: str | None = None):
+        """Concurrent open-loop replay through the implicit session (see
+        :meth:`ShelbySession.replay`)."""
+        return self.current_session.replay(requests, background=background,
+                                           trace=trace, engine=engine)
 
     def open(self, blob_id: int, readahead: int = 0) -> BlobReader:
         return self.current_session.open(blob_id, readahead=readahead)

@@ -122,6 +122,66 @@ def test_clay_on_the_card_matches_the_cpu_path(cuda, k, m):
         assert torch.equal(got.cpu(), want)
 
 
+def _repair_case(k, m, w, seed):
+    cpu = ClayCode(k, m, device="cpu")
+    rng = np.random.default_rng(seed)
+    codeword = cpu.encode(rng.integers(0, 256, (k, cpu.alpha, w), dtype=np.uint8)).numpy()
+    return cpu, codeword
+
+
+# (k, m, w) -> the repair product's N = alpha/q * w: (10,6) at the production
+# w = 4856 (N = 36w, 16-byte path); (4,2) with N = 4w = 0, 8, 4 (mod 16);
+# (6,3) with N = 9w odd, the byte path (4w is never odd)
+REPAIR_WIDTHS = [(10, 6, 4856), (4, 2, 8192), (4, 2, 4858), (4, 2, 4857), (6, 3, 4857)]
+
+
+@pytest.mark.parametrize("k,m,w", REPAIR_WIDTHS)
+def test_repair_on_the_card_matches_the_cpu_path(cuda, k, m, w):
+    """``ClayCode.repair`` on the card: one ``gf_matmul`` launch per repair,
+    the chunk equal to the CPU plain path's and to the codeword's."""
+    cpu, codeword = _repair_case(k, m, w, seed=k * 7 + w)
+    dev = ClayCode(k, m, device=cuda)
+    for failed in range(k + m):
+        ids = dev.repair_subchunk_ids(failed)
+        helpers = {i: codeword[i][ids] for i in range(k + m) if i != failed}
+        launches = gk.gf_matmul.launches
+        got = dev.repair(failed, helpers)
+        torch.cuda.synchronize()
+        assert gk.gf_matmul.launches == launches + 1
+        assert got.device.type == "cuda" and got.shape == (dev.alpha, w)
+        assert torch.equal(got.cpu(), cpu.repair(failed, helpers))
+        assert np.array_equal(got.cpu().numpy(), codeword[failed])
+    # helpers already on the card are taken as they are
+    on_card = {i: torch.as_tensor(codeword[i][ids], device=cuda) for i in helpers}
+    assert torch.equal(dev.repair(k + m - 1, on_card).cpu(), torch.as_tensor(codeword[-1]))
+
+
+def test_repair_coordinator_on_the_card(cuda):
+    """Wipe an SP of the serving cluster and repair it: every MSR repair
+    is one kernel launch, every report verified, the blob reads back."""
+    from repro_torch.launch.cluster import build_cluster
+    from repro_torch.storage.repair import RepairCoordinator
+
+    contract, sps, rpc, client = build_cluster(device=cuda)
+    data = np.random.default_rng(5).bytes(1_500_000)
+    meta = client.put(data)
+    sps[meta.placement[(0, 0)]].wipe()
+    sps[meta.placement[(1, 2)]].crash()
+    rc = RepairCoordinator(contract, sps, rpc.layout)
+    launches = gk.gf_matmul.launches
+    reports = rc.repair_all()
+    torch.cuda.synchronize()
+    assert reports and not rc.failures and all(r.verified for r in reports)
+    msr = [r for r in reports if r.mode == "msr"]
+    mds = len(reports) - len(msr)
+    assert msr and all(r.helper_bytes_read ==
+                       rpc.layout.code.repair_bandwidth_bytes(rpc.layout.chunk_bytes) for r in msr)
+    if not mds:
+        assert gk.gf_matmul.launches == launches + len(msr)
+    rpc._cache.clear()
+    assert client.get(meta.blob_id) == data
+
+
 def test_put_and_read_go_through_the_kernel(cuda):
     from repro_torch.launch.cluster import build_cluster
 

@@ -30,7 +30,10 @@ def test_port_files_exist():
                 "src/repro_torch/storage/sdk.py", "src/repro_torch/kernels/sample_hash.py",
                 "src/repro_torch/kernels/flash_attention.py", "src/repro_torch/models/model.py",
                 "src/repro_torch/serve/engine.py", "src/repro_torch/launch/serve.py",
-                "chip_smoke.py"):
+                "src/repro_torch/storage/repair.py", "src/repro_torch/storage/background.py",
+                "src/repro_torch/storage/membership.py", "src/repro_torch/net/workloads.py",
+                "src/repro_torch/core/simulation.py", "src/repro_torch/core/durability.py",
+                "src/repro_torch/core/economics.py", "chip_smoke.py"):
         assert rel in names
 
 
@@ -55,6 +58,27 @@ def test_round_trip_with_jax_and_reference_blocked():
         assert client.get(meta.blob_id) == data
         assert client.get(meta.blob_id, 250_000, 70_000) == data[250_000:320_000]
         client.settle()
+
+        from repro_torch.net.events import EventLoop
+        from repro_torch.storage.membership import ChurnSpec, MembershipPlane
+        from repro_torch.storage.repair import RepairCoordinator
+        victim = meta.placement[(0, 0)]
+        sps[victim].wipe()
+        reports = RepairCoordinator(contract, sps, rpc.layout).repair_all()
+        assert reports and all(r.mode == "msr" and r.verified for r in reports)
+        rpc._cache.clear()
+        assert client.get(meta.blob_id) == data
+        plane = MembershipPlane(contract, sps, rpc.layout,
+                                ChurnSpec(p_crash=0.2, joins_per_epoch=1, min_active=6, seed=1),
+                                repair=RepairCoordinator(contract, sps, rpc.layout),
+                                fleet=client.fleet, epochs=2)
+        loop = EventLoop()
+        for p in plane.planes():
+            p.spawn(loop)
+        loop.run()
+        assert len(plane.epoch_stats) == 2 and plane.lost_chunksets == 0
+        rpc._cache.clear()
+        assert client.get(meta.blob_id) == data
 
         import torch
         import repro_torch.models, repro_torch.serve, repro_torch.launch.serve
