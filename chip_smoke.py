@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # 1 GiB blob at the production layout
     python3 chip_smoke.py --blob-mib 256   # a smaller blob
+    python3 chip_smoke.py --das-blobs 1024 # fewer blobs in the DAS phase
 
 Phases, each ended by ``torch.cuda.synchronize()`` so a kernel fault shows in
 the phase that caused it; any failure exits non-zero and prints no result:
@@ -11,8 +12,10 @@ the phase that caused it; any failure exits non-zero and prints no result:
    of the port from the checkout's sources, one ``nvcc`` each, in parallel;
 2. every kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it (``gf_matmul`` also at the serving path's Clay (4,2)
-   encode and repair, at the production (10,6) repair and at an N = 8
-   (mod 16) decode, with its ptxas lines printed in
+   encode and repair, at the production (10,6) repair, at an N = 8
+   (mod 16) decode and at the DAS extension's small-and-wide shapes (one
+   put's column and row stages, the batched extension of every blob of
+   phase 7, a 1 x k recovery), with its ptxas lines printed in
    phase 1): ``gf_matmul`` and ``sample_hash`` with exact
    equality (their arithmetic is exact), ``flash_attention`` within the
    tolerance stated at ``ATTN_TOL``; kernel and plain version timed in turns
@@ -25,7 +28,8 @@ the phase that caused it; any failure exits non-zero and prints no result:
    cluster of 24 SPs in 5 DCs, put a seeded blob, read it whole and at 3
    ranges across chunksets, crash 2 SPs and read again, mark one SP
    corrupt and read again, settle; bytes compared with the input, kernel
-   launches counted per phase (each must be > 0);
+   launches counted per phase (each must be > 0); the put also extends the
+   blob's DAS square (two more launches) and places its 64 shares;
 4. the audit path: the bulk digests of every 1 KiB sample of every chunk
    the put stored, checked against the plain version on the CPU;
 5. Clay MSR repair on the same cluster (``RepairCoordinator.repair_all``):
@@ -38,19 +42,30 @@ the phase that caused it; any failure exits non-zero and prints no result:
    of seeded crashes, departures and joins above a floor of 21 live SPs,
    the re-dispersal backlog repaired on the card while paid Zipf reads
    replay on the same event loop; no chunkset lost, every read right;
-7. a device encode/decode against the CPU plain path on one chunkset;
-8. the put's and a read's steps timed alone (partition, device encode,
+7. data-availability sampling on a fresh ``build_cluster`` (8 SPs, Clay
+   (4,2), ``CONFIG.das()``): put ``--das-blobs`` seeded blobs of one square
+   each (8 KiB), each put extending its square on the card; one batched
+   extension of every blob in exactly two ``gf_matmul`` launches, equal to
+   the puts' records (timed, then profiled for device ms and idle share);
+   a paid sampling round over every blob (all verified, settlement
+   conserves); 5% of the shares of half the blobs withheld, then a round
+   whose detection rate must lie within 0.05 of ``1-(1-3/64)^16`` with no
+   false detection; a 20,000-sample storm replayed with one SP crashed
+   (detections equal the withheld or crashed coordinates drawn); 64
+   squares rebuilt on the card from k rows and from k columns;
+8. a device encode/decode against the CPU plain path on one chunkset;
+9. the put's and a read's steps timed alone (partition, device encode,
    device-to-host copy, host SHA-256 Merkle commitments, decode);
-9. the device's busy and idle share over a put and a whole read of the same
+10. the device's busy and idle share over a put and a whole read of the same
    blob on a fresh cluster, from a ``torch.profiler`` trace of the card
    (kernels, copies and memsets, overlaps merged), and the device ms of all
    ``gf_matmul`` launches in each (kernel events by name);
-10. the serving path at yi-9b's published widths, depth cut to 2 layers:
+11. the serving path at yi-9b's published widths, depth cut to 2 layers:
    publish the weights through Shelby, crash an SP, restore them by paid
    k-of-n reads, serve batch 4 x (prompt 8 + 16 generated tokens); the
    served model teacher-forced for two steps on the card and on the CPU
    plain path; decode tok/s as the median of nine warm generations;
-11. the card again, one JSON line per kernel, then the result line.
+12. the card again, one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -88,6 +103,13 @@ SERVE_ARCH, SERVE_LAYERS = "yi-9b", 2  # published widths; depth cut from 48 (ho
 WARM_GENERATIONS = 9
 CHURN_EPOCHS = 3
 CHURN_READS = 300  # paid Zipf reads replayed beside the churned epochs
+# the largest batch of the JAX package's DAS sweep (benchmarks/gf_kernel.py)
+DAS_BLOBS = 4096
+DAS_WITHHOLD = 0.05  # of a square's 64 shares: exactly 3 withheld
+DAS_STORM = 20_000  # samples in the replayed storm
+DAS_STORM_GAP_MS = 0.05
+DAS_REBUILT = 64  # squares reconstructed on the card
+DAS_RATE_TOL = 0.05  # detection rate vs 1-(1-q)^s over 2,048 trials: ~4.5 sigma
 
 
 def _phase(name: str) -> None:
@@ -114,12 +136,15 @@ def gf_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def gf_shapes(blob_mib: int) -> dict[str, tuple[int, int, int]]:
+def gf_shapes(blob_mib: int, das_blobs: int) -> dict[str, tuple[int, int, int]]:
     """The (M, K, N) shapes at which phase 2 times ``gf_matmul``, by name:
     Clay (10,6) at the production layout (M 6; K 12 known flats per plane,
     10 data + 2 virtual) for a blob of ``blob_mib`` MiB, one MSR repair at
     (10,6) (6 column nodes from 12 known flats over alpha/q = 36 repair
-    planes), and the serving path's Clay (4,2) encode and repair."""
+    planes), the serving path's Clay (4,2) encode and repair, and the DAS
+    extension (``CONFIG.das()``: k parity lines from k data lines per axis)
+    of one put and of ``das_blobs`` squares at once, and one line of each of
+    ``das_blobs`` squares rebuilt from k."""
     from repro_torch.configs.shelby import CONFIG
     from repro_torch.launch.cluster import build_cluster
 
@@ -141,6 +166,12 @@ def gf_shapes(blob_mib: int) -> dict[str, tuple[int, int, int]]:
     shapes["repair_10_6"] = (m, kk, alpha // m * w)
     shapes["serve_repair_clay_4_2"] = (serve.m, serve.code.N - serve.m,
                                        serve.code.alpha // serve.m * serve.w)
+    dk, ds = CONFIG.das().k, CONFIG.das().share_bytes
+    shapes["das_put_col"] = (dk, dk, dk * ds)  # columns: (k, B*k*S), B = 1
+    shapes["das_put_row"] = (dk, dk, 2 * dk * ds)  # rows: (k, B*2k*S)
+    shapes["das_batch_col"] = (dk, dk, das_blobs * dk * ds)
+    shapes["das_batch_row"] = (dk, dk, das_blobs * 2 * dk * ds)
+    shapes["das_recover_1xk"] = (1, dk, das_blobs * ds)
     return shapes
 
 
@@ -556,6 +587,137 @@ def churn_phase(contract, sps, client, meta, data, gk, seed: int, reads: int) ->
     return row
 
 
+def das_phase(gk, seed: int, num_blobs: int, device: str = "cuda") -> dict:
+    """Data-availability sampling at the JAX package's ``build_cluster``
+    deployment: ``num_blobs`` puts of one DAS square each, one batched
+    extension of them all, a paid sampling round, a withholding adversary
+    on half the blobs and a round that must catch it at the analytic rate,
+    a replayed sample storm, and squares rebuilt on the card."""
+    import torch
+
+    from repro_torch.configs.shelby import CONFIG
+    from repro_torch.core.extend2d import commit_square, detection_probability
+    from repro_torch.launch.cluster import build_cluster
+    from repro_torch.net.workloads import das_storm
+    from repro_torch.storage import das
+
+    spec = CONFIG.das()
+    lay, side = spec.layout(), spec.side
+    contract, sps, rpc, client = build_cluster(device=device)
+    nbytes = spec.k * spec.k * spec.share_bytes  # one square: no byte of a blob outside it
+    bulk = np.random.default_rng(seed).bytes(nbytes * num_blobs)
+    datas = [bulk[i * nbytes:(i + 1) * nbytes] for i in range(num_blobs)]
+    row: dict = {"blobs": num_blobs, "blob_bytes": nbytes, "k": spec.k,
+                 "share_bytes": spec.share_bytes, "samples_per_epoch": spec.samples_per_epoch,
+                 "sps": len(sps), "layout": [rpc.layout.k, rpc.layout.m]}
+
+    def launched(fn):
+        seen = gk.gf_matmul.launches
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, gk.gf_matmul.launches - seen
+
+    # 1. every put extends its own square on the card
+    metas, row["put_s"], row["put_launches"] = launched(lambda: [client.put(d) for d in datas])
+    row["put_ms_per_blob"] = row["put_s"] / num_blobs * 1e3
+    singles = {m.blob_id: contract.das[m.blob_id] for m in metas}
+    if any(len(r.placement) != side * side for r in singles.values()):
+        raise SystemExit("das: a put did not place every share of its square")
+    blobs = [(m.blob_id, d) for m, d in zip(metas, datas)]
+
+    # 2. every blob at once: two launches, the same records as the puts'
+    def batch():
+        return das.extend_and_disperse_many(contract, sps, blobs, spec, device=device)
+
+    def same_as_puts(records):
+        return all((r.das_root, r.placement, r.proof_bytes) == (
+            singles[r.blob_id].das_root, singles[r.blob_id].placement,
+            singles[r.blob_id].proof_bytes) for r in records) and len(records) == num_blobs
+
+    records, row["batch_s"], launches = launched(batch)
+    if launches != 2 or not same_as_puts(records):
+        raise SystemExit(f"das: the batched extension made {launches} launches "
+                         f"or differs from the puts' records")
+    held = {}
+    seen = gk.gf_matmul.launches
+    busy = device_busy(lambda: held.update(records=batch()))
+    if gk.gf_matmul.launches - seen != 2 or not same_as_puts(held["records"]):
+        raise SystemExit("das: the profiled batched extension differs")
+    row["batch_profiled"] = busy
+
+    # 3. a paid sampling round over every blob
+    verdicts, row["round_s"], _ = launched(
+        lambda: client.sample_availability(epoch=0, seed=seed))
+    samples = sum(v.verified + v.failures for v in verdicts)
+    row.update(round_samples=samples, round_samples_per_s=samples / row["round_s"],
+               round_verified=sum(v.verified for v in verdicts),
+               round_failures=sum(v.failures for v in verdicts))
+    if (len(verdicts) != num_blobs or samples != num_blobs * spec.samples_per_epoch
+            or not all(v.available and v.verified == spec.samples_per_epoch for v in verdicts)):
+        raise SystemExit("das: an honest sampling round did not verify every sample")
+    settlement = client.settle()  # raises unless deposits = refunds + income = receipts
+    row["round_paid"] = settlement.total_node_income
+
+    # 4. withhold 3 of 64 shares of half the blobs: caught at 1-(1-q)^s
+    half = {m.blob_id for m in metas[:num_blobs // 2]}
+    withheld = {das.seed_withholding(contract, sps, b, DAS_WITHHOLD, seed=seed * 1013 + b)
+                for b in sorted(half)}
+    q = next(iter(withheld)) / (side * side)
+    verdicts = client.sample_availability(epoch=1, seed=seed)
+    client.settle()
+    caught = sum(not v.available for v in verdicts if v.blob_id in half)
+    false = sum(not v.available for v in verdicts if v.blob_id not in half)
+    rate, analytic = caught / len(half), detection_probability(q, spec.samples_per_epoch)
+    row.update(withheld_per_blob=sorted(withheld), q=q, detected=caught,
+               detection_rate=rate, analytic=analytic, false_detections=false)
+    if withheld != {3} or abs(rate - analytic) > DAS_RATE_TOL or false:
+        raise SystemExit(f"das: detection rate {rate} vs {analytic}, {false} false detections")
+
+    # 5. a storm of single samples replayed, one SP crashed
+    crashed = 3
+    sps[crashed].crash()
+    reqs = das_storm(list(contract.das.values()), clients=["light"], num_requests=DAS_STORM,
+                     interarrival_ms=DAS_STORM_GAP_MS, seed=seed, cache_bypass=True)
+
+    def hit(r):
+        holder = sps[contract.das[r.blob_id].placement[(r.row, r.col)]]
+        return holder.behavior.crashed or (r.blob_id, r.row, r.col) in holder._das_withheld
+
+    expected = sum(hit(r) for r in reqs)
+    (receipts, result), row["storm_s"], _ = launched(lambda: client.replay(reqs))
+    client.settle()
+    sps[crashed].recover()
+    row.update(storm_samples=result.das_samples, storm_detections=result.das_detections,
+               storm_expected=expected, storm_samples_per_s=len(reqs) / row["storm_s"],
+               storm_p99_ms=result.percentile(99.0, kind="das"), storm_digest=result.digest(),
+               storm_paid_receipts=sum(r is not None for r in receipts))
+    if result.das_samples != DAS_STORM or result.das_detections != expected:
+        raise SystemExit(f"das: storm {result.das_samples} samples, "
+                         f"{result.das_detections} detections, {expected} expected")
+
+    # 6. squares rebuilt on the card from k rows and from k columns
+    rng = np.random.default_rng(seed + 1)
+    pick = sorted(int(i) for i in rng.choice(num_blobs, size=min(DAS_REBUILT, num_blobs),
+                                             replace=False))
+    ext = lay.extend_batch([lay.pad_square(datas[i], spec.share_bytes) for i in pick],
+                           device=device)
+    rebuilt = 0
+    for j, i in enumerate(pick):
+        if commit_square(ext[j]).commitment.das_root != contract.das[metas[i].blob_id].das_root:
+            raise SystemExit("das: a square extended on the card has another DAS root")
+        rows = sorted(int(r) for r in rng.choice(side, size=spec.k, replace=False))
+        cols = sorted(int(c) for c in rng.choice(side, size=spec.k, replace=False))
+        by_rows = lay.reconstruct_from_rows({r: ext[j, r] for r in rows}, device=device)
+        by_cols = lay.reconstruct_from_cols({c: ext[j, :, c] for c in cols}, device=device)
+        rebuilt += torch.equal(by_rows, ext[j]) and torch.equal(by_cols, ext[j])
+    row["rebuilt_equal"] = f"{rebuilt}/{len(pick)}"
+    print(json.dumps({"das": row}), flush=True)
+    if rebuilt != len(pick):
+        raise SystemExit(f"das: {len(pick) - rebuilt} squares rebuilt wrong")
+    return row
+
+
 SERVE_LOGIT_ATOL = 0.15  # bf16 logits, card vs CPU: the two round products differently
 
 
@@ -598,6 +760,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blob-mib", type=int, default=1024, help="blob size in MiB (default 1024)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--das-blobs", type=int, default=DAS_BLOBS,
+                    help=f"blobs in the DAS phase (default {DAS_BLOBS})")
     args = ap.parse_args(argv)
 
     import torch
@@ -666,7 +830,7 @@ def main(argv=None) -> int:
     lay = CONFIG.layout
     alpha, w, k, m = ClayCode(lay.k, lay.m, device="cuda").alpha, lay.w, lay.k, lay.m
     n_cs = -(-args.blob_mib * 2**20 // lay.chunkset_bytes)
-    timed_shapes = gf_shapes(args.blob_mib)
+    timed_shapes = gf_shapes(args.blob_mib, args.das_blobs)
     enc_blob = timed_shapes["encode_blob"]
     shapes = [*timed_shapes.values(), (4, 4, 65536), (1, 4, 65536), (1, 1, 1_000_003),
               (1, 17, alpha * w), (32, 32, 100_003)]
@@ -736,6 +900,13 @@ def main(argv=None) -> int:
             node._cache.clear()
 
     meta = run_phase("put", lambda: client.put(data), len(data))
+    # the put also extends the blob's DAS square: two launches beside the encode's one
+    das_rec = contract.das.get(meta.blob_id)
+    if das_rec is None or len(das_rec.placement) != das_rec.side ** 2 or sum(
+            sp.stored_shares() for sp in sps.values()) != das_rec.side ** 2:
+        raise SystemExit("the put registered no DAS square or did not place its shares")
+    if phases["put"]["gf_matmul_launches"] != 3:
+        raise SystemExit(f"the put made {phases['put']['gf_matmul_launches']} launches, not 3")
     got = run_phase("read_whole", lambda: client.get(meta.blob_id), len(data))
     assert got == data, "whole read differs from the blob"
     last = meta.num_chunksets - 1
@@ -821,7 +992,16 @@ def main(argv=None) -> int:
     if counts["gf_matmul"] < churn["repairs_msr"] or counts["gf_matmul"] == 0:
         raise SystemExit(f"the churn path's gf_matmul launches are off: {counts}")
 
-    # -- 7. device against the CPU plain path on one chunkset -------------------------
+    # -- 7. data-availability sampling on the JAX package's build_cluster deployment ----
+    _phase(f"das: {args.das_blobs} blobs of one square each, extended on the card, "
+           f"sampled, withheld, stormed, rebuilt")
+    zero_counts()  # count the DAS path only
+    das_phase(gk, args.seed, args.das_blobs)
+    counts = read_counts("das")
+    if counts["gf_matmul"] < 2 * args.das_blobs + 4:
+        raise SystemExit(f"the DAS path's gf_matmul launches are off: {counts}")
+
+    # -- 8. device against the CPU plain path on one chunkset -------------------------
     _phase("encode/decode: card vs CPU plain path, one production chunkset")
     plain = np.frombuffer(data[:cs_bytes], np.uint8).reshape(k, alpha, w).copy()
     dev_code, cpu_code = ClayCode(k, m, device="cuda"), ClayCode(k, m, device="cpu")
@@ -832,7 +1012,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print("card == CPU plain path: ok", flush=True)
 
-    # -- 8. where the put's and a read's time goes: each step timed alone ------------
+    # -- 9. where the put's and a read's time goes: each step timed alone ------------
     _phase("breakdown: steps of the put and of a read, timed alone")
 
     def timed_step(fn):
@@ -856,7 +1036,7 @@ def main(argv=None) -> int:
     }}), flush=True)
     del coded_host, first_k
 
-    # -- 9. how much of a put and a read the card is busy ----------------------------
+    # -- 10. how much of a put and a read the card is busy ----------------------------
     _phase("device busy share: put and whole read on a fresh cluster, profiled")
     _, _, _, client2 = build_cluster(
         num_sps=CONFIG.num_sps, layout=CONFIG.layout, device="cuda",
@@ -870,7 +1050,7 @@ def main(argv=None) -> int:
     print(json.dumps({"device_busy": busy}), flush=True)
     del client2, held
 
-    # -- 10. the serving path at yi-9b width ---------------------------------------------
+    # -- 11. the serving path at yi-9b width ---------------------------------------------
     _phase(f"serve: {SERVE_ARCH} at published widths, {SERVE_LAYERS} layers, through Shelby")
     from repro_torch.configs import get
     from repro_torch.launch.serve import serve
@@ -921,7 +1101,7 @@ def main(argv=None) -> int:
     }}), flush=True)
     del run, engine
 
-    # -- 11. the kernels line and the result ----------------------------------------------
+    # -- 12. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),
@@ -949,11 +1129,12 @@ def main(argv=None) -> int:
                 cases={r["case"]: {key: r[key] for key in (
                     "variant", "ms", "host_ms", "previous_ms", "library_ms", "bound_ms",
                     "bound_by")} for r in attn_checks})
-        if name == "gf_matmul":  # the repair shapes beside the put's encode
+        if name == "gf_matmul":  # the repair and DAS shapes beside the put's encode
             by_shape = {(r["m"], r["k"], r["n"]): r for r in checks}
             line[-1]["shapes"] = {
                 key: {f: by_shape[shape][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
-                for key, shape in timed_shapes.items() if key.startswith(("repair", "serve_repair"))}
+                for key, shape in timed_shapes.items()
+                if key.startswith(("repair", "serve_repair", "das"))}
         if line[-1]["launches"] == 0:
             raise SystemExit(f"{name} was launched on no path")
     print(card, flush=True)

@@ -3,8 +3,8 @@
 ``get(name)`` returns the full published config, ``get_smoke(name)`` a
 reduced same-family config for CPU tests, as in ``repro/configs``.  The port
 serves the dense, token-input architectures so far; the others raise
-``NotImplementedError`` until their families are ported (ROADMAP Queue 1
-item 8).
+``NotImplementedError`` until their families are ported (ROADMAP Queue 1,
+the LM stack).
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ def _module(name: str):
         if name in ALL_ARCHS:
             raise NotImplementedError(
                 f"{name}: only the dense, token-input architectures "
-                f"({', '.join(_MODULES)}) are ported; the rest is ROADMAP Queue 1 item 8")
+                f"({', '.join(_MODULES)}) are ported; the rest is ROADMAP Queue 1, the LM stack")
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 

@@ -59,6 +59,25 @@ class Reassignment:
     new_sp: int
 
 
+@dataclasses.dataclass(frozen=True)
+class DASRecord:
+    """On-chain record of a blob's 2-D DAS extension (see core/extend2d.py).
+
+    Only the DAS root and the share placement live on chain — the row and
+    column trees stay with the storage providers, who attach per-share
+    Merkle paths to sampled reads.  ``proof_bytes`` is the fixed modeled
+    wire size of one share proof (constant for a given ``side``), used by
+    transports to bill proof bandwidth without shipping the object graph.
+    """
+
+    blob_id: int
+    side: int  # 2k
+    share_bytes: int
+    das_root: bytes
+    placement: dict[tuple[int, int], int]  # (row, col) -> sp_id
+    proof_bytes: int
+
+
 class ShelbyContract:
     """All critical state … recorded and enforced via the Shelby smart
     contract (§1)."""
@@ -89,6 +108,8 @@ class ShelbyContract:
         # per-epoch submissions
         self._scoreboards: dict[int, dict[int, Scoreboard]] = defaultdict(dict)
         self.outcomes: dict[int, EpochOutcome] = {}
+        # blob_id -> DAS extension record (data-availability sampling)
+        self.das: dict[int, DASRecord] = {}
 
     # -- participation ---------------------------------------------------------
     def register_sp(self, info: SPInfo):
@@ -99,6 +120,12 @@ class ShelbyContract:
 
     def register_rpc(self, rpc_id: str):
         self.rpcs.add(rpc_id)
+
+    def register_das(self, record: DASRecord):
+        """Publish a blob's DAS root + share placement (tiny: roots only)."""
+        if record.blob_id not in self.blobs:
+            raise KeyError(f"unknown blob {record.blob_id}")
+        self.das[record.blob_id] = record
 
     def active_sps(self) -> list[SPInfo]:
         dead = self.ejected | self.departed

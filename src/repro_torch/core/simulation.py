@@ -20,10 +20,10 @@ Nash equilibrium), Theorem 2 (mutual dishonesty is not), Theorem 3
 (coalition resistance) and the §5.4 parameter calibration.
 
 The layout's byte work (encode, decodes, repairs) runs on ``device``: the
-card unless ``device="cpu"``.  The knobs of planes this package does not
-have yet (``das``, ``admission``, ``single_flight=False``, ``sanitize`` or
-``SHELBY_SIMSAN``) raise :class:`NotImplementedError` rather than being
-ignored.
+card unless ``device="cpu"`` (the DAS extension of each blob included).
+The knobs of planes this package does not have yet (``admission``,
+``single_flight=False``, ``sanitize`` or ``SHELBY_SIMSAN``) raise
+:class:`NotImplementedError` rather than being ignored.
 """
 from __future__ import annotations
 
@@ -107,14 +107,13 @@ def run_sim(
     background: BackgroundSpec | None = None,  # per-SP audit/repair budget
     churn: ChurnSpec | None = None,  # epoch-scale membership churn plane
     epoch_ms: float = 250.0,  # simulated wall span of one churned epoch
-    das=None,  # DAS sampling: not ported (must stay None)
+    das=None,  # storage.das.DASSpec: extend blobs + sample every epoch
     engine: str | None = None,  # event-queue discipline (calendar|heap)
     sanitize: bool | None = None,  # simsan: not ported (must stay off)
 ) -> SimResult:
     if sanitize is None:
         sanitize = bool(os.environ.get("SHELBY_SIMSAN"))
     for knob, wanted, slice_ in (
-        ("das", das is not None, "the DAS slice (core/extend2d.py, storage/das.py)"),
         ("admission", admission is not None, "overload control (AdmissionSpec)"),
         ("single_flight=False", not single_flight, "the RPC node's single_flight option"),
         ("sanitize", sanitize, "the simsan sanitizer (SHELBY_SIMSAN)"),
@@ -137,7 +136,7 @@ def run_sim(
         for r in range(num_rpcs)
     ]
     fleet = RPCFleet(rpcs, CacheAffinityPolicy())
-    client = ShelbyClient(contract, fleet, deposit=1e9)
+    client = ShelbyClient(contract, fleet, deposit=1e9, das=das)
 
     # crashes take effect AFTER the write phase (the contract would never
     # assign chunks to an SP that is already down)
@@ -173,7 +172,6 @@ def run_sim(
     sps_joined = 0
     sps_departed = 0
 
-    # the DAS plane is not ported: its counters stay 0
     das_samples = 0
     das_detections = 0
     das_proof_bytes = 0
@@ -232,6 +230,16 @@ def run_sim(
                 repairs_completed += sum(
                     1 for r in mplane.repair.records if r.ok
                 )
+        if das is not None and das.extension and contract.das:
+            # the light-client sampling round: every blob's extension is
+            # probed with s seeded coordinates through the same session —
+            # pay-per-sample flows through settlement conservation below
+            verdicts = client.current_session.sample_availability(
+                epoch=epoch, seed=seed * 733 + epoch
+            )
+            das_samples += sum(v.verified + v.failures for v in verdicts)
+            das_detections += sum(1 for v in verdicts if not v.available)
+            das_proof_bytes += sum(v.proof_bytes for v in verdicts)
         for i, sp in sps.items():
             if i not in contract.dead_sps():
                 contract.submit_scoreboard(epoch, sp.scoreboard)

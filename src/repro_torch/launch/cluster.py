@@ -2,7 +2,8 @@
 and the fleet-first client, with the Clay data path on one device.
 
 The counterpart of the JAX package's ``repro/launch/train.py::build_cluster``
-(without the DAS plane and without the trainer):
+(without the trainer); every put also extends the blob's DAS square and
+disperses its shares (``CONFIG.das()``):
 
     from repro_torch.launch.cluster import build_cluster
     contract, sps, rpc, client = build_cluster(device="cpu")
@@ -48,5 +49,5 @@ def build_cluster(num_sps: int = 8, layout: BlobLayout | None = None,
         for r in range(num_rpcs)
     ]
     fleet = RPCFleet(rpcs, CacheAffinityPolicy())
-    client = ShelbyClient(contract, fleet, deposit=1e9)
+    client = ShelbyClient(contract, fleet, deposit=1e9, das=CONFIG.das())
     return contract, sps, fleet.primary, client

@@ -50,7 +50,7 @@ class DecoderLM:
         if cfg.family != "dense" or cfg.input_mode != "tokens" or cfg.use_qk_norm:
             raise NotImplementedError(
                 f"{cfg.name}: the port builds dense token-input models only "
-                f"(family {cfg.family!r}; ROADMAP Queue 1 item 8)")
+                f"(family {cfg.family!r}; ROADMAP Queue 1, the LM stack)")
         self.cfg = cfg
 
     def param_specs(self) -> dict[str, ParamSpec]:

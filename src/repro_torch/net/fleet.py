@@ -130,6 +130,7 @@ class RPCFleet:
         self._ewma_seeded = [False] * len(self.rpcs)
         self.routed = [0] * len(self.rpcs)
         self.chunkset_reads = 0
+        self.samples_routed = 0  # DAS samples (accounted apart from reads)
         self.bytes_served = 0
         self.request_latencies_ms: list[float] = []
 
@@ -279,6 +280,49 @@ class RPCFleet:
             self.request_latencies_ms.append(latency)
         return served
 
+    # -- DAS sampling (tiny proof-carrying reads) ----------------------------------
+    def sample_share_task(
+        self,
+        loop: EventLoop,
+        blob_id: int,
+        row: int,
+        col: int,
+        *,
+        client: str | None = None,
+        cache_bypass: bool = True,
+        label: str = "das",
+    ):
+        """Task: route ONE DAS sample to a node, fetch + verify it there.
+
+        Routing uses the policy with a coordinate-derived key (each share
+        is its own cache/decode unit), but samples are accounted apart
+        from chunkset reads: they do not touch ``chunkset_reads`` (so the
+        streaming ``cache_hit_rate`` stays a streaming metric) and do not
+        feed the latency EWMA (tiny single-slot reads would make every
+        node look fast to the latency-aware router).  The JAX package
+        retries a shed leg on a sibling; overload control is not ported,
+        so no leg is shed here.
+        """
+        from repro_torch.storage.rpc import ReadError  # deferred: import cycle
+
+        rec = self.primary.contract.das.get(blob_id)
+        if rec is None:
+            raise ReadError(f"blob {blob_id} has no DAS extension")
+        key = (blob_id, rec.side * rec.side + row * rec.side + col)
+        i = self.policy.pick(key, client, self)
+        self.routed[i] += 1
+        self.samples_routed += 1
+        prop = self._prop(i, client)
+        if prop > 0:
+            yield Sleep(prop)
+        ss = yield from self.rpcs[i].sample_share_task(
+            loop, blob_id, row, col, cache_bypass=cache_bypass,
+            label=f"{label}/{self.node_ids[i]}",
+        )
+        return dataclasses.replace(
+            ss, latency_ms=ss.latency_ms + 2.0 * prop, rpc_id=self.node_ids[i]
+        )
+
     def serve_ranges(
         self,
         ranges: list[tuple[int, int, int]],  # (blob_id, offset, length)
@@ -316,6 +360,24 @@ class RPCFleet:
         """Cache misses that piggybacked on an in-flight fetch (stampede
         collapse) instead of fetching from SPs again."""
         return sum(r.stats.coalesced for r in self.rpcs)
+
+    def latency_percentiles(self, *qs: float) -> tuple[float, ...]:
+        if not self.request_latencies_ms:
+            return tuple(0.0 for _ in qs)
+        arr = np.asarray(self.request_latencies_ms)
+        return tuple(float(np.percentile(arr, q)) for q in qs)
+
+    def samples_served(self) -> int:
+        """DAS shares delivered + verified across the fleet."""
+        return sum(r.stats.samples_served for r in self.rpcs)
+
+    def samples_withheld(self) -> int:
+        """DAS samples an SP went silent on (the detection signal)."""
+        return sum(r.stats.samples_withheld for r in self.rpcs)
+
+    def sample_proof_bytes(self) -> int:
+        """Proof bandwidth moved for DAS samples, fleet-wide."""
+        return sum(r.stats.sample_proof_bytes for r in self.rpcs)
 
     def latency_percentiles(self, *qs: float) -> tuple[float, ...]:
         if not self.request_latencies_ms:

@@ -34,8 +34,7 @@ ramps the offered rate and returns the goodput / shed-rate / p99 series
 that make the saturation knee measurable.
 
 Not here yet: the port has no overload control, so nothing raises
-``Overloaded`` and no request is shed; a :class:`SampleRequest` in a replay
-raises :class:`NotImplementedError` until the DAS slice is ported.
+``Overloaded`` and no request is shed.
 """
 from __future__ import annotations
 
@@ -679,14 +678,35 @@ def _serve_one(loop, fleet, records, i, req, label, on_served, on_shed=None):
 
 
 def _sample_one(loop, fleet, records, i, req, label, on_sampled, on_shed=None):
-    """One DAS sample through the fleet: needs the RPC sampling path
-    (``RPCFleet.sample_share_task``), which comes with the DAS slice of
-    this package.  Raises at spawn time so a mixed replay fails before its
-    loop runs."""
-    raise NotImplementedError(
-        "DAS sample requests need RPCFleet.sample_share_task, which is not "
-        "ported yet (the DAS slice: core/extend2d.py, storage/das.py)"
-    )
+    """Task body: one DAS sample through the fleet, recorded like a read.
+
+    A hard failure (withheld / bad share) is the sampler's DETECTION
+    signal, not an error to retry: it lands as ``ok=False, kind="das"``
+    and debits nothing (pay-on-delivery)."""
+    from repro_torch.storage.rpc import Overloaded, ReadError
+
+    t0 = loop.now
+    try:
+        ss = yield from fleet.sample_share_task(
+            loop, req.blob_id, req.row, req.col,
+            client=req.client, cache_bypass=req.cache_bypass, label=label,
+        )
+    except Overloaded:
+        records[i] = RequestRecord(i, t0, loop.now, loop.now - t0, 0, False,
+                                   req.client, req.blob_id, shed=True, kind="das")
+        if on_shed is not None:
+            on_shed(i, req, loop.now - t0)
+        return
+    except ReadError:
+        records[i] = RequestRecord(i, t0, loop.now, loop.now - t0, 0, False,
+                                   req.client, req.blob_id, kind="das")
+        return
+    finish = t0 + ss.latency_ms
+    records[i] = RequestRecord(i, t0, finish, ss.latency_ms, ss.nbytes,
+                               True, req.client, req.blob_id, kind="das")
+    if on_sampled is not None:
+        on_sampled(i, req, ss)
+    return ss
 
 
 def _planes(background) -> list:

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import commitments as cm
+from repro_torch.core import extend2d
 from repro_torch.core.contract import BlobState, ShelbyContract
 from repro_torch.core.payments import PaymentLedger
 from repro_torch.net.events import (
@@ -108,6 +109,35 @@ class ReadStats:
     chunkset_fetches: int = 0
     fetch_ms_total: float = 0.0  # simulated clock, not wall time
     coalesced: int = 0  # misses that piggybacked on an in-flight fetch
+    # DAS sampling plane (tiny proof-carrying reads, core/extend2d.py)
+    samples_served: int = 0  # shares delivered + verified (paid)
+    samples_withheld: int = 0  # SP went silent — the detection signal
+    samples_bad: int = 0  # share failed proof verification (unpaid)
+    das_cache_hits: int = 0  # samples answered from the hot cache
+    sample_proof_bytes: int = 0  # proof bandwidth moved for samples
+
+
+@dataclasses.dataclass(frozen=True)
+class SampledShare:
+    """One verified DAS sample: the share plus what moving it cost.
+
+    ``proof_bytes`` is 0 on a cache hit (no proof crossed the wire), but
+    the share is still client-payable — the node did serve it.
+    """
+
+    blob_id: int
+    row: int
+    col: int
+    data: np.ndarray
+    share_bytes: int
+    proof_bytes: int
+    latency_ms: float
+    cache_hit: bool = False
+    rpc_id: str = ""
+
+    @property
+    def nbytes(self) -> int:
+        return self.share_bytes + self.proof_bytes
 
 
 @dataclasses.dataclass(frozen=True, slots=True)
@@ -153,6 +183,21 @@ class DirectTransport:
         finally:
             yield from safe_release(Release(("sp", sp_id)))
         return data
+
+    def das_request_task(self, sp_id: int, blob_id: int, row: int, col: int):
+        """One DAS share + proof off the SP's disk (no network stages)."""
+        sp = self.sps[sp_id]
+        resp = sp.serve_share(blob_id, row, col)
+        if resp is None:
+            yield Sleep(sp.service_ms())
+            return None
+        share, proof, service_ms = resp
+        yield Acquire(("sp", sp_id), sp.service.slots)
+        try:
+            yield Sleep(service_ms)
+        finally:
+            yield from safe_release(Release(("sp", sp_id)))
+        return share, proof
 
 
 class BackboneTransport:
@@ -202,6 +247,26 @@ class BackboneTransport:
         yield Transfer(node, self.rpc_node, data.nbytes)
         return data
 
+    def das_request_task(self, sp_id: int, blob_id: int, row: int, col: int):
+        """One DAS share + proof over the backbone: request out, share AND
+        proof bytes back — proof bandwidth rides the same NICs and trunks
+        as any paid payload, so the sampling storm's overhead is real."""
+        node = self.sp_node[sp_id]
+        yield Transfer(self.rpc_node, node, REQUEST_BYTES)
+        sp = self.sps[sp_id]
+        resp = sp.serve_share(blob_id, row, col)
+        if resp is None:
+            yield Transfer(node, self.rpc_node, NACK_BYTES)
+            return None
+        share, proof, service_ms = resp
+        yield Acquire(("sp", sp_id), sp.service.slots)
+        try:
+            yield Sleep(service_ms)
+        finally:
+            yield from safe_release(Release(("sp", sp_id)))
+        yield Transfer(node, self.rpc_node, share.nbytes + proof.nbytes)
+        return share, proof
+
 
 class RPCNode:
     def __init__(
@@ -230,10 +295,11 @@ class RPCNode:
         for sp_id in sps:
             self.ledger.open(str(sp_id), sp_deposit)  # channels at join time (§2.3)
         self.serving_income = 0.0  # realized when client sessions settle (§3.2)
-        # hot-cache: key -> (decoded chunkset as a device tensor, contract
+        # hot-cache: key -> (decoded chunkset as a device tensor, or a DAS
+        # share as a host array under ("das", blob, index); contract
         # placement version at decode time — a remapped chunkset invalidates
         # on its next lookup)
-        self._cache: OrderedDict[tuple[int, int], tuple[torch.Tensor, int]] = OrderedDict()
+        self._cache: OrderedDict[tuple, tuple[torch.Tensor | np.ndarray, int]] = OrderedDict()
         self._cache_size = cache_chunksets
         self._sf: SingleFlight | None = None  # bound to one loop at a time
         self.stats = ReadStats()
@@ -263,6 +329,16 @@ class RPCNode:
         self.stats.payments += self.price_per_chunk
         self.stats.bytes_paid_for += self.layout.chunk_bytes
         return self.price_per_chunk
+
+    def _pay_sample(self, sp_id: int, nbytes: int) -> float:
+        """Pay one delivered+verified DAS sample, pro-rated by wire bytes
+        (share + proof) against the per-chunk price."""
+        amount = self.price_per_chunk * nbytes / self.layout.chunk_bytes
+        self.ledger.pay(str(sp_id), amount)
+        self.sps[sp_id].receive_payment(amount)
+        self.stats.payments += amount
+        self.stats.bytes_paid_for += nbytes
+        return amount
 
     def settle_sp_channels(self) -> dict[int, float]:
         """Broadcast the freshest refund of every paid RPC->SP channel.
@@ -351,7 +427,7 @@ class RPCNode:
             self._sf = SingleFlight(loop)
         return self._sf
 
-    def _cache_get(self, key: tuple[int, int]) -> torch.Tensor | None:
+    def _cache_get(self, key: tuple) -> torch.Tensor | np.ndarray | None:
         entry = self._cache.get(key)
         if entry is None:
             return None
@@ -366,7 +442,7 @@ class RPCNode:
         self._cache.move_to_end(key)
         return decoded
 
-    def _cache_put(self, key: tuple[int, int], decoded: torch.Tensor) -> None:
+    def _cache_put(self, key: tuple, decoded: torch.Tensor | np.ndarray) -> None:
         if self._cache_size <= 0:
             return
         self._cache[key] = (decoded, self.contract.placement_version.get(key, 0))
@@ -456,3 +532,56 @@ class RPCNode:
                 out[key] = dec
                 self._cache_put(key, dec)
         return out, stats
+
+    # -- DAS sampling path (tiny proof-carrying reads, core/extend2d.py) ----------
+    def sample_share_task(
+        self, loop: EventLoop, blob_id: int, row: int, col: int, *,
+        cache_bypass: bool = True, label: str = "das",
+    ):
+        """Task: fetch + verify ONE DAS share through this node.
+
+        Shares have exactly one contract-assigned holder, so there is no
+        hedging and no k-of-n recovery — a silent SP *is* the signal the
+        sampler exists to detect, surfaced as :class:`ReadError` (unpaid).
+        Samples default to ``cache_bypass=True``: single-use random
+        coordinates would churn the entry-bounded hot cache out from under
+        streaming readers.  With ``cache_bypass=False`` a verified share is
+        cached under ``("das", blob, row * side + col)``.
+
+        The JAX package also passes samples through the node's admission
+        gate; overload control is not ported, so nothing is shed here.
+        """
+        rec = self.contract.das.get(blob_id)
+        if rec is None:
+            raise ReadError(f"blob {blob_id} has no DAS extension")
+        key = ("das", blob_id, row * rec.side + col)
+        cached = self._cache_get(key)
+        if cached is not None:
+            self.stats.das_cache_hits += 1
+            self.stats.samples_served += 1
+            return SampledShare(
+                blob_id=blob_id, row=row, col=col, data=cached,
+                share_bytes=rec.share_bytes, proof_bytes=0, latency_ms=0.0,
+                cache_hit=True, rpc_id=self.rpc_id,
+            )
+        sp_id = rec.placement[(row, col)]
+        t0 = loop.now
+        resp = yield from self.transport.das_request_task(sp_id, blob_id, row, col)
+        latency_ms = loop.now - t0
+        if resp is None:
+            self.stats.samples_withheld += 1
+            raise ReadError(f"share ({blob_id},{row},{col}) withheld by SP {sp_id}")
+        share, proof = resp
+        if not extend2d.verify_share(rec.das_root, rec.side, share.tobytes(), proof):
+            self.stats.samples_bad += 1  # tampering detected — unpaid
+            raise ReadError(f"share ({blob_id},{row},{col}) failed verification")
+        self._pay_sample(sp_id, share.nbytes + proof.nbytes)  # pay on delivery
+        self.stats.samples_served += 1
+        self.stats.sample_proof_bytes += proof.nbytes
+        if not cache_bypass:
+            self._cache_put(key, share)
+        return SampledShare(
+            blob_id=blob_id, row=row, col=col, data=share,
+            share_bytes=share.nbytes, proof_bytes=proof.nbytes,
+            latency_ms=latency_ms, rpc_id=self.rpc_id,
+        )

@@ -26,8 +26,11 @@ across the fleet in one pass so wide GF batch-decodes span requests.
 ``replay`` runs a workload's request list open loop on one shared event
 loop, with background planes (audits, repair, churn) beside it.
 
-Not here yet: the cohort fast-path replay of a ``RequestBatch``, DAS
-``sample_availability`` and the DAS extension on ``put``.
+With a ``das`` spec, ``put`` also extends the blob's DAS square on the
+layout's device and disperses its shares, and ``sample_availability`` runs
+a paid light-client sampling round (``storage/das.py``).
+
+Not here yet: the cohort fast-path replay of a ``RequestBatch``.
 """
 from __future__ import annotations
 
@@ -221,7 +224,9 @@ class ShelbySession:
         time in deterministic event order; dropped requests debit nothing.
         Returns ``(receipts, ReplayResult)`` — ``receipts[i]`` is ``None``
         when request ``i`` was dropped by a hard failure (the port has no
-        admission control yet, so no request is shed).
+        admission control yet, so no request is shed).  A DAS
+        :class:`~repro_torch.net.workloads.SampleRequest` that verifies lands
+        a :class:`~repro_torch.storage.das.SampleReceipt` there instead.
 
         A :class:`~repro_torch.net.workloads.RequestBatch` goes to the cohort
         fast path in the JAX package; that path is not ported yet, so a
@@ -242,9 +247,135 @@ class ShelbySession:
         def on_served(i, req, sr):
             receipts[i] = self._receipt_for(sr)
 
+        def on_sampled(i, req, ss):
+            from repro_torch.storage.das import SampleReceipt
+
+            amount = max(self._price * ss.nbytes, 1e-12)
+            self._channel(ss.rpc_id).pay(amount)
+            receipt = SampleReceipt(
+                blob_id=req.blob_id, row=req.row, col=req.col,
+                nbytes=ss.nbytes, share_bytes=ss.share_bytes,
+                proof_bytes=ss.proof_bytes, latency_ms=ss.latency_ms,
+                payments={ss.rpc_id: amount}, verified=True,
+                cache_hit=ss.cache_hit,
+            )
+            receipts[i] = receipt
+            self.receipts.append(receipt)
+
         result = replay_open_loop(self._fleet, requests, on_served=on_served,
-                                  background=background, trace=trace, engine=engine)
+                                  on_sampled=on_sampled, background=background,
+                                  trace=trace, engine=engine)
         return receipts, result
+
+    # -- DAS sampling (pay-per-sample light-client reads) --------------------------
+    def sample_availability(
+        self,
+        blob_ids: list[int] | None = None,
+        *,
+        epoch: int = 0,
+        samples: int | None = None,
+        seed: int = 0,
+        client: str | None = None,
+        cache_bypass: bool = True,
+        t_ms: float = 0.0,
+    ):
+        """One sampling round: draw ``samples`` uniform share coordinates
+        per blob (seeded, with replacement — see
+        :func:`repro_torch.storage.das.draw_coords`), fetch them concurrently
+        through the fleet as tiny paid proof-carrying reads, verify against
+        each blob's on-chain DAS root, and return one
+        :class:`~repro_torch.storage.das.AvailabilityVerdict` per blob.
+
+        Pay-per-sample: each delivered+verified share debits its serving
+        node's channel by the per-byte price of share+proof wire bytes;
+        withheld/bad samples debit nothing (and flip the verdict).  The
+        :class:`~repro_torch.storage.das.SampleReceipt` rows land in
+        ``self.receipts``, so ``close()``'s conservation check covers the
+        sampling economy unchanged."""
+        self._settle_check()
+        from repro_torch.net.events import EventLoop
+        from repro_torch.storage import das as das_mod
+        from repro_torch.storage.rpc import Overloaded, ReadError
+
+        contract = self._client.contract
+        if blob_ids is None:
+            blob_ids = sorted(contract.das)
+        spec = getattr(self._client, "das", None)
+        s = samples if samples is not None else (
+            spec.samples_per_epoch if spec is not None else 16
+        )
+        loop = EventLoop(network=self._fleet.network)
+        plan: list[tuple[int, int, int, int, object]] = []
+
+        def one(blob_id, row, col):
+            try:
+                ss = yield from self._fleet.sample_share_task(
+                    loop, blob_id, row, col, client=client,
+                    cache_bypass=cache_bypass,
+                )
+            except Overloaded:
+                return ("shed", None)
+            except ReadError:
+                return ("failed", None)
+            return ("ok", ss)
+
+        for blob_id in blob_ids:
+            rec = contract.das[blob_id]
+            coords = das_mod.draw_coords(seed, blob_id, epoch, s, rec.side)
+            for j, (row, col) in enumerate(coords):
+                h = loop.spawn(one(blob_id, row, col), at_ms=t_ms,
+                               label=f"das/b{blob_id}/{j}")
+                plan.append((blob_id, j, row, col, h))
+        loop.run()
+
+        verdicts = []
+        by_blob: dict[int, list] = {}
+        for blob_id, j, row, col, h in plan:
+            by_blob.setdefault(blob_id, []).append((j, row, col, h))
+        for blob_id in blob_ids:
+            verified = failures = shed = 0
+            first_failure = None
+            sample_bytes = proof_bytes = 0
+            paid = 0.0
+            for j, row, col, h in by_blob.get(blob_id, []):
+                outcome, ss = h.result
+                if outcome == "shed":
+                    shed += 1
+                    self.receipts.append(das_mod.SampleReceipt(
+                        blob_id=blob_id, row=row, col=col, nbytes=0,
+                        share_bytes=0, proof_bytes=0, latency_ms=0.0,
+                        payments={}, verified=False, shed=True,
+                    ))
+                    continue
+                if outcome == "failed":
+                    failures += 1
+                    if first_failure is None:
+                        first_failure = j
+                    self.receipts.append(das_mod.SampleReceipt(
+                        blob_id=blob_id, row=row, col=col, nbytes=0,
+                        share_bytes=0, proof_bytes=0, latency_ms=0.0,
+                        payments={}, verified=False,
+                    ))
+                    continue
+                amount = max(self._price * ss.nbytes, 1e-12)
+                self._channel(ss.rpc_id).pay(amount)
+                paid += amount
+                verified += 1
+                sample_bytes += ss.nbytes
+                proof_bytes += ss.proof_bytes
+                self.receipts.append(das_mod.SampleReceipt(
+                    blob_id=blob_id, row=row, col=col, nbytes=ss.nbytes,
+                    share_bytes=ss.share_bytes, proof_bytes=ss.proof_bytes,
+                    latency_ms=ss.latency_ms, payments={ss.rpc_id: amount},
+                    verified=True, cache_hit=ss.cache_hit,
+                ))
+            verdicts.append(das_mod.AvailabilityVerdict(
+                blob_id=blob_id, epoch=epoch, samples=s, verified=verified,
+                failures=failures, shed=shed, first_failure=first_failure,
+                available=failures == 0, sample_bytes=sample_bytes,
+                proof_bytes=proof_bytes, paid=paid,
+            ))
+        return verdicts
 
     def read(
         self,
@@ -453,6 +584,7 @@ class ShelbyClient:
         layout: BlobLayout | None = None,
         read_price_per_byte: float = 1e-9,
         deposit: float = 100.0,
+        das=None,  # storage.das.DASSpec: auto-extend blobs on put()
     ):
         self.contract = contract
         self.fleet = (
@@ -462,6 +594,7 @@ class ShelbyClient:
         self.layout = layout or self.fleet.primary.layout
         self.read_price_per_byte = read_price_per_byte
         self.deposit_per_node = deposit
+        self.das = das
         self._session: ShelbySession | None = None
 
     @property
@@ -538,6 +671,16 @@ class ShelbyClient:
             epochs=epochs,
         )
         self.fleet.primary.write_blob(meta, prep.encoded_chunksets)
+        if self.das is not None and self.das.extension:
+            # DAS plane: extend the blob into its 2k x 2k share square on the
+            # layout's device and disperse it alongside the chunksets (see
+            # storage/das.py)
+            from repro_torch.storage.das import extend_and_disperse
+
+            extend_and_disperse(
+                self.contract, self.fleet.primary.sps, meta.blob_id, data,
+                self.das, device=self.layout.device,
+            )
         return meta
 
     # -- reads (§2.2): pay-on-delivery via the implicit session ---------------------
@@ -572,6 +715,17 @@ class ShelbyClient:
         :meth:`ShelbySession.replay`)."""
         return self.current_session.replay(requests, background=background,
                                            trace=trace, engine=engine)
+
+    def open(self, blob_id: int, readahead: int = 0) -> BlobReader:
+        return self.current_session.open(blob_id, readahead=readahead)
+
+    def stream(self, blob_id: int, chunk_size: int | None = None):
+        return self.current_session.stream(blob_id, chunk_size)
+
+    def sample_availability(self, blob_ids: list[int] | None = None, **kw):
+        """One DAS sampling round through the implicit session (see
+        :meth:`ShelbySession.sample_availability`)."""
+        return self.current_session.sample_availability(blob_ids, **kw)
 
     def open(self, blob_id: int, readahead: int = 0) -> BlobReader:
         return self.current_session.open(blob_id, readahead=readahead)

@@ -109,6 +109,14 @@ class StorageProvider:
         self.behavior = behavior or SPBehavior()
         self.service = service or ServiceSpec()
         self._chunks: dict[tuple[int, int, int], np.ndarray] = {}
+        # DAS share plane (core/extend2d.py): shares are stored alongside —
+        # not inside — `_chunks`, so chunk audits and repair accounting are
+        # untouched by the sampling regime.  Withheld coordinates keep their
+        # bytes (the adversary HAS the data, it just won't serve it — the
+        # case chunk-possession audits structurally cannot catch).
+        self._das_shares: dict[tuple[int, int, int], np.ndarray] = {}
+        self._das_proofs: dict[tuple[int, int, int], object] = {}
+        self._das_withheld: set[tuple[int, int, int]] = set()
         self._trees: OrderedDict[tuple[int, int, int], cm.MerkleTree] = OrderedDict()
         self._tree_cache = tree_cache
         self._rng = np.random.default_rng(sp_id * 7919 + 13)
@@ -183,6 +191,43 @@ class StorageProvider:
             data = data.copy()
             data.reshape(-1)[0] ^= 0xFF
         return data, self.service_ms()
+
+    # -- DAS share plane (paid tiny reads, core/extend2d.py) -----------------------
+    def store_share(self, blob_id: int, row: int, col: int, share: np.ndarray,
+                    proof) -> bool:
+        """Accept one DAS share + its pre-built commitment proof."""
+        if self.behavior.crashed:
+            return False
+        key = (blob_id, row, col)
+        self._das_shares[key] = np.array(share, dtype=np.uint8)
+        self._das_proofs[key] = proof
+        return True
+
+    def withhold_share(self, blob_id: int, row: int, col: int) -> None:
+        """Go silent on one coordinate (data retained — withholding, not loss)."""
+        self._das_withheld.add((blob_id, row, col))
+
+    def stored_shares(self) -> int:
+        return len(self._das_shares)
+
+    def serve_share(self, blob_id: int, row: int, col: int):
+        """Returns (share_bytes, proof, latency_ms) or None.
+
+        Same pay-on-delivery contract as `serve_chunk`: the sampler pays
+        only after the share verifies against the blob's DAS root, so a
+        withholding or corrupting SP earns nothing from the sample — and
+        the refusal itself IS the availability signal.
+        """
+        if self.behavior.crashed:
+            return None
+        key = (blob_id, row, col)
+        if key not in self._das_shares or key in self._das_withheld:
+            return None
+        data = self._das_shares[key]
+        if self.behavior.corrupt:
+            data = data.copy()
+            data.reshape(-1)[0] ^= 0xFF
+        return data, self._das_proofs[key], self.service_ms()
 
     def serve_subchunks(self, blob_id: int, chunkset: int, chunk: int, ids: list[int]):
         """MSR repair helper read: only the requested sub-chunks (planes)."""
@@ -281,3 +326,6 @@ class StorageProvider:
     def wipe(self):
         self._chunks.clear()
         self._trees.clear()
+        self._das_shares.clear()
+        self._das_proofs.clear()
+        self._das_withheld.clear()

@@ -210,8 +210,9 @@ def test_unported_replay_paths_raise():
     batch = zipf_hotset_batch(metas, clients=["client"], num_requests=5, seed=1)
     with pytest.raises(NotImplementedError, match="fast-path"):
         client.replay(batch)
-    with pytest.raises(NotImplementedError, match="DAS"):
-        replay_open_loop(fleet, [SampleRequest(0.0, "client", metas[0].blob_id, 0, 0)])
+    # a sample of a blob without a DAS extension replays as a detection
+    result = replay_open_loop(fleet, [SampleRequest(0.0, "client", metas[0].blob_id, 0, 0)])
+    assert (result.das_samples, result.das_detections) == (1, 1)
     # the same batch replays through the task drivers as a request list
     receipts, result = client.replay(batch.to_requests())
     assert result.dropped == 0 and all(r is not None for r in receipts)

@@ -198,6 +198,53 @@ def test_put_and_read_go_through_the_kernel(cuda):
     assert all(t.device.type == "cuda" for t, _version in rpc._cache.values())
 
 
+def test_extend_batch_on_the_card_matches_the_cpu(cuda):
+    """4,096 squares of 512-byte shares: two launches, the CPU's bytes."""
+    from repro_torch.core.extend2d import Extend2D
+
+    lay = Extend2D(4)
+    squares = list(np.random.default_rng(9).integers(0, 256, (4096, 4, 4, 512), dtype=np.uint8))
+    launches = gk.gf_matmul.launches
+    got = lay.extend_batch(squares, device=cuda)
+    torch.cuda.synchronize()
+    assert gk.gf_matmul.launches == launches + 2
+    assert got.device.type == "cuda" and tuple(got.shape) == (4096, 8, 8, 512)
+    assert torch.equal(got.cpu(), lay.extend_batch(squares, device="cpu"))
+
+
+def test_reconstruct_on_the_card_equals_the_extended_square(cuda):
+    from repro_torch.core.extend2d import Extend2D
+
+    lay = Extend2D(4)
+    square = np.random.default_rng(4).integers(0, 256, (4, 4, 512), dtype=np.uint8)
+    ext = lay.extend(square, device=cuda)
+    for lines in ((0, 1, 2, 3), (4, 5, 6, 7), (1, 3, 5, 7)):
+        launches = gk.gf_matmul.launches
+        by_rows = lay.reconstruct_from_rows({r: ext[r] for r in lines}, device=cuda)
+        by_cols = lay.reconstruct_from_cols({c: ext[:, c] for c in lines}, device=cuda)
+        torch.cuda.synchronize()
+        assert gk.gf_matmul.launches == launches + 2  # one product per axis
+        assert torch.equal(by_rows, ext) and torch.equal(by_cols, ext)
+
+
+def test_put_on_the_card_registers_the_cpu_das_record(cuda):
+    import dataclasses
+
+    from repro_torch.launch.cluster import build_cluster
+
+    data = np.random.default_rng(8).bytes(300_000)
+    records = []
+    for device in (cuda, "cpu"):
+        contract, sps, rpc, client = build_cluster(device=device)
+        launches = gk.gf_matmul.launches
+        meta = client.put(data)
+        if device == cuda:
+            torch.cuda.synchronize()
+            assert gk.gf_matmul.launches >= launches + 2
+        records.append(dataclasses.astuple(contract.das[meta.blob_id]))
+    assert records[0] == records[1]
+
+
 @pytest.mark.parametrize("leaves,words,seed", [
     (1, 4, 0), (7, 256, 0), (1000, 16, 1), (257, 64, 2**32 + 9), (5, 3, 0), (1_000_003, 256, 1),
 ])

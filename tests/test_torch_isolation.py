@@ -33,7 +33,8 @@ def test_port_files_exist():
                 "src/repro_torch/storage/repair.py", "src/repro_torch/storage/background.py",
                 "src/repro_torch/storage/membership.py", "src/repro_torch/net/workloads.py",
                 "src/repro_torch/core/simulation.py", "src/repro_torch/core/durability.py",
-                "src/repro_torch/core/economics.py", "chip_smoke.py"):
+                "src/repro_torch/core/economics.py", "src/repro_torch/core/extend2d.py",
+                "src/repro_torch/storage/das.py", "chip_smoke.py"):
         assert rel in names
 
 
@@ -57,6 +58,11 @@ def test_round_trip_with_jax_and_reference_blocked():
         meta = client.put(data)
         assert client.get(meta.blob_id) == data
         assert client.get(meta.blob_id, 250_000, 70_000) == data[250_000:320_000]
+        client.settle()
+        rec = contract.das[meta.blob_id]
+        assert len(rec.placement) == 64 and sum(sp.stored_shares() for sp in sps.values()) == 64
+        (verdict,) = client.sample_availability(epoch=0, seed=1)
+        assert verdict.available and verdict.verified == 16
         client.settle()
 
         from repro_torch.net.events import EventLoop

@@ -244,7 +244,7 @@ def test_run_sim_refuses_unported_planes():
     from repro_torch.core.simulation import honest_population, run_sim
 
     pop = honest_population(6)
-    for kw, what in ((dict(das=object()), "DAS"), (dict(admission=object()), "overload"),
+    for kw, what in ((dict(admission=object()), "overload"),
                      (dict(single_flight=False), "single_flight"), (dict(sanitize=True), "simsan")):
         with pytest.raises(NotImplementedError, match=what):
             run_sim(pop, device="cpu", **kw)

@@ -87,7 +87,7 @@ def test_other_architectures_raise():
     for arch in tconfigs.ALL_ARCHS:
         if arch in DENSE:
             continue
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Queue 1, the LM stack"):
             tconfigs.get(arch)
         with pytest.raises(NotImplementedError):
             tconfigs.get_smoke(arch)
