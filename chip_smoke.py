@@ -15,9 +15,10 @@ the phase that caused it; any failure exits non-zero and prints no result:
    encode and repair, at the production (10,6) repair, at an N = 8
    (mod 16) decode and at the DAS extension's small-and-wide shapes (one
    put's column and row stages, the batched extension of every blob of
-   phase 7, a 1 x k recovery), with its ptxas lines printed in
-   phase 1): ``gf_matmul`` and ``sample_hash`` with exact
-   equality (their arithmetic is exact), ``flash_attention`` within the
+   phase 7, a 1 x k recovery) and at the decode of one Clay (4,2) 64 KiB
+   chunkset of phases 12-13, with its ptxas lines printed in phase 1):
+   ``gf_matmul`` and ``sample_hash`` with exact equality (their
+   arithmetic is exact), ``flash_attention`` within the
    tolerance stated at ``ATTN_TOL``; kernel and plain version timed in turns
    with CUDA events beside the least time the card could take; ``gf_matmul``
    and attention also by their device time from a ``torch.profiler`` trace
@@ -29,7 +30,9 @@ the phase that caused it; any failure exits non-zero and prints no result:
    ranges across chunksets, crash 2 SPs and read again, mark one SP
    corrupt and read again, settle; bytes compared with the input, kernel
    launches counted per phase (each must be > 0); the put also extends the
-   blob's DAS square (two more launches) and places its 64 shares;
+   blob's DAS square (two more launches) and places its 64 shares; the RPC
+   node's synchronous ``read_range`` across a chunkset boundary and
+   ``read_blob`` of the whole blob;
 4. the audit path: the bulk digests of every 1 KiB sample of every chunk
    the put stored, checked against the plain version on the CPU;
 5. Clay MSR repair on the same cluster (``RepairCoordinator.repair_all``):
@@ -65,7 +68,20 @@ the phase that caused it; any failure exits non-zero and prints no result:
    k-of-n reads, serve batch 4 x (prompt 8 + 16 generated tokens); the
    served model teacher-forced for two steps on the card and on the CPU
    plain path; decode tok/s as the median of nine warm generations;
-12. the card again, one JSON line per kernel, then the result line.
+12. the cohort fast path at the JAX package's ``engine`` scenario: 500 SPs,
+   50 RPC nodes, 192 single-chunkset blobs at Clay (4,2); Zipf storms of
+   10k, 100k and 1M requests through ``session.replay(batch)`` on fresh
+   fleets, each under the profiler (wall, requests/s, the cohort split,
+   sim p50/p99, goodput, ``gf_matmul`` launches of the de-opted decodes,
+   device busy share); no fallback; the 10k digest equal to a heap
+   task-per-request replay and to the JAX package's, which also times the
+   100k rung for the events/s speedup; settlement conserves;
+13. overload control at the JAX package's ``concurrent`` scenario: 12 SPs
+   (a 250 ms straggler, a crashed SP), 3 RPC nodes with 10 Gbps NICs, 400
+   Poisson Zipf reads at 200/1000/5000 rps, free-running and with a fetch
+   budget of 6; digest, sheds 0/3/26, coalesced legs and both p99s at 5000
+   rps equal to the JAX package's, every read's bytes right;
+14. the card again, one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -110,6 +126,19 @@ DAS_STORM = 20_000  # samples in the replayed storm
 DAS_STORM_GAP_MS = 0.05
 DAS_REBUILT = 64  # squares reconstructed on the card
 DAS_RATE_TOL = 0.05  # detection rate vs 1-(1-q)^s over 2,048 trials: ~4.5 sigma
+# the JAX package's `engine` scenario (src/repro/scenarios/engine.py): its world and ramp
+ENGINE_SPS, ENGINE_RPCS, ENGINE_BLOBS, ENGINE_CACHE = 500, 50, 192, 16
+ENGINE_RAMP = (10_000, 100_000, 1_000_000)
+ENGINE_HEAP_RUNGS = (10_000, 100_000)  # rungs also replayed task-per-request on the heap
+ENGINE_DIGEST_10K = "5cb923036ace9559"  # a live run of the JAX package on the CPU
+# its `concurrent` scenario (src/repro/scenarios/serving.py): 400 Poisson Zipf reads
+# through 3 nodes with 10 Gbps NICs, free-running and with a fetch budget of 6
+OVERLOAD_RATES = (200, 1000, 5000)
+OVERLOAD_REQUESTS = 400
+OVERLOAD_DIGEST_200 = "f691cbe9e5a3bbdf"  # live JAX package runs on the CPU, as these:
+OVERLOAD_SHED = {200: 0, 1000: 3, 5000: 26}  # admitted sheds per rate
+OVERLOAD_COALESCED_5000 = 313
+OVERLOAD_P99_5000 = {"free": 1894.4, "admitted": 67.0}  # ms, to 0.1
 
 
 def _phase(name: str) -> None:
@@ -143,10 +172,12 @@ def gf_shapes(blob_mib: int, das_blobs: int) -> dict[str, tuple[int, int, int]]:
     (10,6) (6 column nodes from 12 known flats over alpha/q = 36 repair
     planes), the serving path's Clay (4,2) encode and repair, and the DAS
     extension (``CONFIG.das()``: k parity lines from k data lines per axis)
-    of one put and of ``das_blobs`` squares at once, and one line of each of
-    ``das_blobs`` squares rebuilt from k."""
+    of one put and of ``das_blobs`` squares at once, one line of each of
+    ``das_blobs`` squares rebuilt from k, and the engine and overload
+    phases' decode of one Clay (4,2) 64 KiB chunkset."""
     from repro_torch.configs.shelby import CONFIG
     from repro_torch.launch.cluster import build_cluster
+    from repro_torch.storage.blob import BlobLayout
 
     lay = CONFIG.layout
     alpha, w, m, kk = lay.code.alpha, lay.w, lay.m, lay.code.N - lay.m
@@ -172,6 +203,10 @@ def gf_shapes(blob_mib: int, das_blobs: int) -> dict[str, tuple[int, int, int]]:
     shapes["das_batch_col"] = (dk, dk, das_blobs * dk * ds)
     shapes["das_batch_row"] = (dk, dk, das_blobs * 2 * dk * ds)
     shapes["das_recover_1xk"] = (1, dk, das_blobs * ds)
+    # the engine and overload phases: one Clay (4,2) 64 KiB chunkset decoded from
+    # its k data chunks (both parities unknown: one product over every plane)
+    eng = BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024, device="cuda")
+    shapes["engine_decode_clay_4_2"] = (eng.m, eng.code.N - eng.m, eng.code.alpha * eng.w)
     return shapes
 
 
@@ -718,6 +753,242 @@ def das_phase(gk, seed: int, num_blobs: int, device: str = "cuda") -> dict:
     return row
 
 
+def _engine_world(device: str):
+    """The JAX package's `engine` world: 500 SPs on a 5-DC mesh (6 ms, 25
+    Gbps), 0.5 ms service on 4 slots, SP latency from rng(99), and 192
+    single-chunkset blobs of 50,000 bytes at Clay (4,2), 64 KiB chunksets."""
+    from repro_torch.core.contract import ShelbyContract
+    from repro_torch.core.placement import SPInfo
+    from repro_torch.net.backbone import Backbone
+    from repro_torch.storage.blob import BlobLayout
+    from repro_torch.storage.rpc import RPCNode
+    from repro_torch.storage.sdk import ShelbyClient
+    from repro_torch.storage.sp import ServiceSpec, StorageProvider
+
+    layout = BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024, device=device)
+    contract = ShelbyContract()
+    bb = Backbone.mesh(5, base_latency_ms=6.0, gbps=25.0)
+    rng = np.random.default_rng(99)
+    sps = {}
+    for i in range(ENGINE_SPS):
+        contract.register_sp(SPInfo(sp_id=i, stake=1000.0, dc=f"dc{i % 5}", rack=f"r{i % 20}"))
+        sps[i] = StorageProvider(i, service=ServiceSpec(disk_ms_per_chunk=0.5, slots=4))
+        sps[i].behavior.latency_ms = float(rng.uniform(1.0, 8.0))
+        bb.register_node(f"sp{i}", f"dc{i % 5}")
+    for c in range(3):
+        bb.register_node(f"client{c}", f"dc{c}")
+    bb.register_node("writer", "dc0")
+    writer = ShelbyClient(contract, RPCNode("writer", contract, sps, layout), deposit=1e9)
+    metas = [writer.put(rng.integers(0, 256, 50_000, dtype=np.uint8).tobytes())
+             for _ in range(ENGINE_BLOBS)]
+    return layout, contract, bb, sps, metas
+
+
+def _engine_fleet(layout, contract, bb, sps):
+    """A fresh fleet of 50 RPC nodes (16-chunkset caches) on the world."""
+    from repro_torch.configs.shelby import CONFIG
+    from repro_torch.net.fleet import RPCFleet
+    from repro_torch.storage.rpc import BackboneTransport, RPCNode
+
+    rpcs = []
+    for r in range(ENGINE_RPCS):
+        node = f"rpc{r}"
+        if node not in bb._node_dc:
+            bb.register_node(node, f"dc{r % 5}")
+        rpcs.append(RPCNode(node, contract, sps, layout, cache_chunksets=ENGINE_CACHE,
+                            transport=BackboneTransport(sps, bb, node)))
+    bb.reset_accounting()
+    return RPCFleet(rpcs, CONFIG.policy(), backbone=bb)
+
+
+def engine_phase(gk, device: str = "cuda") -> dict:
+    """The `engine` ramp: a Zipf storm of 10k, 100k and 1M requests through
+    ``session.replay(batch)`` (the cohort fast path) on fresh fleets, each
+    rung under the profiler; the cold-key leaders de-opt to real tasks and
+    decode on the card (one cold-key leader per blob).  The 10k digest
+    must equal a task-per-request replay on the heap engine and the JAX
+    package's; ``ENGINE_HEAP_RUNGS`` also time that baseline for the
+    events/s speedup."""
+    import torch
+
+    from repro_torch.net.workloads import replay_open_loop, zipf_hotset_batch
+    from repro_torch.storage.sdk import ShelbyClient
+
+    t = time.perf_counter()
+    layout, contract, bb, sps, metas = _engine_world(device)
+    torch.cuda.synchronize()
+    rows = {"world": {"sps": ENGINE_SPS, "rpcs": ENGINE_RPCS, "blobs": ENGINE_BLOBS,
+                      "cache_chunksets": ENGINE_CACHE, "build_s": time.perf_counter() - t}}
+    print(json.dumps({"engine_world": rows["world"]}), flush=True)
+    for n in ENGINE_RAMP:
+        batch = zipf_hotset_batch(metas, clients=["client0", "client1", "client2"],
+                                  num_requests=n, read_bytes=64 * 1024, interarrival_ms=0.05,
+                                  seed=23, arrival="poisson")
+        reader = ShelbyClient(contract, _engine_fleet(layout, contract, bb, sps), deposit=1e9)
+        held = {}
+
+        def replay():
+            with reader.session(deposit_per_node=1e6) as session:
+                held["rb"], held["fast"] = session.replay(batch)
+            held["session"] = session
+
+        seen = gk.gf_matmul.launches
+        busy = device_busy(replay)
+        fast, rb, session = held["fast"], held["rb"], held["session"]
+        co = fast.cohort
+        row = {"requests": n, "wall_s": busy["wall_s"], "requests_per_s": n / busy["wall_s"],
+               "events_per_s": fast.engine_events_per_sec,
+               "vec_requests": co.vec_requests, "deopt_requests": co.deopt_requests,
+               "coalesced_legs": co.coalesced, "fallback_reason": co.fallback_reason,
+               "p50_ms": fast.percentile(50.0), "p99_ms": fast.percentile(99.0),
+               "goodput_mbps": fast.goodput_mbps, "digest": fast.digest()[:16],
+               "gf_matmul_launches": gk.gf_matmul.launches - seen,
+               "device_busy_s": busy["device_busy_s"], "idle_share": busy["idle_share"],
+               "gf_matmul_device_ms": busy["gf_matmul_device_ms"]}
+        if co.fallback_reason is not None or row["gf_matmul_launches"] == 0:
+            raise SystemExit(f"engine {n}: fell back ({co.fallback_reason}) "
+                             f"or made no gf_matmul launch")
+        paid = rb.total_paid + sum(r.total_paid for r in session.receipts)
+        if abs(session.settlement.total_node_income - paid) >= 1e-6:
+            raise SystemExit(f"engine {n}: settlement does not conserve")
+        if n in ENGINE_HEAP_RUNGS:
+            t = time.perf_counter()
+            base = replay_open_loop(_engine_fleet(layout, contract, bb, sps),
+                                    batch.to_requests(), engine="heap")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            row["heap"] = {"wall_s": wall, "requests_per_s": n / wall,
+                           "events_per_s": base.engine_events_per_sec,
+                           "digest": base.digest()[:16]}
+            row["speedup_events_per_s"] = (fast.engine_events_per_sec
+                                           / base.engine_events_per_sec)
+            if n == ENGINE_RAMP[0] and not (fast.digest() == base.digest()
+                                            and row["digest"] == ENGINE_DIGEST_10K
+                                            and co.deopt_requests == ENGINE_BLOBS):
+                raise SystemExit(f"engine 10k: digest {row['digest']} (heap "
+                                 f"{row['heap']['digest']}, JAX package {ENGINE_DIGEST_10K}), "
+                                 f"{co.deopt_requests} de-opts")
+        print(json.dumps({"engine": row}), flush=True)
+        rows[str(n)] = row
+    return rows
+
+
+def _overload_world(cfg, device: str):
+    """The `concurrent` scenario's world: 12 SPs on a 3-DC mesh with the
+    config's NICs and 2 disk slots each, SP latency from rng(42), six blobs
+    (8 and 4 chunksets) at Clay (4,2), 64 KiB chunksets; then SP 0 a 250 ms
+    straggler and SP 1 crashed."""
+    from repro_torch.core.contract import ShelbyContract
+    from repro_torch.core.placement import SPInfo
+    from repro_torch.net.backbone import Backbone
+    from repro_torch.storage.blob import BlobLayout
+    from repro_torch.storage.rpc import RPCNode
+    from repro_torch.storage.sdk import ShelbyClient
+    from repro_torch.storage.sp import StorageProvider
+
+    nic = cfg.nic()
+    layout = BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024, device=device)
+    contract = ShelbyContract()
+    bb = Backbone.mesh(3, base_latency_ms=6.0, gbps=25.0)
+    rng = np.random.default_rng(42)
+    sps = {}
+    for i in range(12):
+        contract.register_sp(SPInfo(sp_id=i, stake=1000.0, dc=f"dc{i % 3}", rack=f"r{i % 4}"))
+        sps[i] = StorageProvider(i, service=cfg.service(slots=2))
+        sps[i].behavior.latency_ms = float(rng.uniform(1.0, 12.0))
+        bb.register_node(f"sp{i}", f"dc{i % 3}", nic=nic)
+    for c in range(3):
+        bb.register_node(f"client{c}", f"dc{c}")
+    bb.register_node("writer", "dc0")
+    writer = ShelbyClient(contract, RPCNode("writer", contract, sps, layout), deposit=1e9)
+    metas, datas = [], {}
+    for b in range(6):
+        size = (8 if b == 0 else 4) * layout.chunkset_bytes
+        data = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+        metas.append(writer.put(data))
+        datas[metas[-1].blob_id] = data
+    sps[0].behavior.latency_ms = 250.0
+    sps[1].crash()
+    return nic, layout, contract, bb, sps, metas, datas
+
+
+def overload_phase(gk, device: str = "cuda") -> dict:
+    """The `concurrent` ramp: 400 Poisson Zipf reads at 200, 1000 and 5000
+    rps, each free-running (no admission, no single-flight) and admitted
+    (``ShelbyConfig(rpc_max_inflight_fetches=6).admission()``); every read
+    decodes on the card.  Digest, sheds, coalesced legs and both p99s at
+    5000 rps must equal the JAX package's; settlement conserves."""
+    import torch
+
+    from repro_torch.configs.shelby import ShelbyConfig
+    from repro_torch.net.fleet import RPCFleet
+    from repro_torch.net.workloads import zipf_hotset
+    from repro_torch.storage.rpc import BackboneTransport, RPCNode
+    from repro_torch.storage.sdk import ShelbyClient
+
+    cfg = ShelbyConfig(rpc_max_inflight_fetches=6)
+    nic, layout, contract, bb, sps, metas, datas = _overload_world(cfg, device)
+
+    def one_run(rate, admission=None, single_flight=True):
+        rpcs = []
+        for r in range(3):
+            node = f"rpc{r}"
+            if node not in bb._node_dc:
+                bb.register_node(node, f"dc{r}", nic=nic)
+            rpcs.append(RPCNode(node, contract, sps, layout, cache_chunksets=8,
+                                transport=BackboneTransport(sps, bb, node),
+                                scheduler=cfg.scheduler(), admission=admission,
+                                single_flight=single_flight))
+        bb.reset_accounting()
+        fleet = RPCFleet(rpcs, cfg.policy(), backbone=bb)
+        reqs = zipf_hotset(metas, clients=["client0", "client1", "client2"],
+                           num_requests=OVERLOAD_REQUESTS, interarrival_ms=1000.0 / rate,
+                           seed=11, arrival="poisson")
+        seen = gk.gf_matmul.launches
+        t = time.perf_counter()
+        with ShelbyClient(contract, fleet, deposit=1e9).session() as session:
+            receipts, result = session.replay(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        paid = sum(r.total_paid for r in session.receipts)
+        if abs(session.settlement.total_node_income - paid) >= 1e-3:
+            raise SystemExit(f"overload {rate} rps: settlement does not conserve")
+        wrong = sum(r.data != datas[q.blob_id][q.offset:q.offset + q.length]
+                    for q, r in zip(reqs, receipts) if r is not None and not r.shed)
+        return fleet, result, {
+            "wall_s": wall, "goodput_mbps": result.goodput_mbps,
+            "p50_ms": result.percentile(50.0), "p99_ms": result.percentile(99.0),
+            "shed": result.shed, "dropped": result.dropped, "wrong_bytes": wrong,
+            "hedges_launched": fleet.hedges_launched(), "hedged_wasted": fleet.hedged_wasted(),
+            "coalesced": fleet.coalesced(), "retried_legs": fleet.retried_legs,
+            "gf_matmul_launches": gk.gf_matmul.launches - seen}
+
+    _, a, _ = one_run(OVERLOAD_RATES[0])
+    _, b, _ = one_run(OVERLOAD_RATES[0])
+    rows = {"digest_200rps": a.digest()[:16]}
+    if a.digest() != b.digest() or rows["digest_200rps"] != OVERLOAD_DIGEST_200:
+        raise SystemExit(f"overload: digest {a.digest()[:16]} / {b.digest()[:16]}, "
+                         f"JAX package {OVERLOAD_DIGEST_200}")
+    for rate in OVERLOAD_RATES:
+        for mode, admission, single_flight in (("free", None, False),
+                                               ("admitted", cfg.admission(), True)):
+            _, _, row = one_run(rate, admission, single_flight)
+            print(json.dumps({"overload": {"rate_rps": rate, "mode": mode, **row}}), flush=True)
+            rows[f"{rate}rps_{mode}"] = row
+            if row["gf_matmul_launches"] == 0 or row["wrong_bytes"] or row["dropped"]:
+                raise SystemExit(f"overload {rate} rps {mode}: {row}")
+        if rows[f"{rate}rps_admitted"]["shed"] != OVERLOAD_SHED[rate]:
+            raise SystemExit(f"overload {rate} rps: admitted shed "
+                             f"{rows[f'{rate}rps_admitted']['shed']}, not {OVERLOAD_SHED[rate]}")
+    top = OVERLOAD_RATES[-1]
+    p99 = {mode: round(rows[f"{top}rps_{mode}"]["p99_ms"], 1) for mode in OVERLOAD_P99_5000}
+    if (p99 != OVERLOAD_P99_5000
+            or rows[f"{top}rps_admitted"]["coalesced"] != OVERLOAD_COALESCED_5000):
+        raise SystemExit(f"overload {top} rps: p99 {p99}, coalesced "
+                         f"{rows[f'{top}rps_admitted']['coalesced']}")
+    return rows
+
+
 SERVE_LOGIT_ATOL = 0.15  # bf16 logits, card vs CPU: the two round products differently
 
 
@@ -918,6 +1189,14 @@ def main(argv=None) -> int:
         got = run_phase(f"read_range{i}", lambda: client.get(meta.blob_id, off, ln),
                         ln or len(data) - off)
         assert got == data[off: None if ln is None else off + ln], f"range {i} differs"
+    # the RPC node's synchronous reads: a range across a chunkset boundary, the whole blob
+    clear_caches()
+    off, ln = cs_bytes - 4321, 10_000
+    got = run_phase("rpc_read_range", lambda: rpc.read_range(meta.blob_id, off, ln), ln)
+    assert got == data[off:off + ln], "the RPC node's read_range differs from the blob"
+    clear_caches()
+    got = run_phase("rpc_read_blob", lambda: rpc.read_blob(meta.blob_id), len(data))
+    assert got == data, "the RPC node's read_blob differs from the blob"
     crashed = [meta.placement[(0, 0)], meta.placement[(0, 1)]]
     for sp_id in crashed:
         sps[sp_id].crash()
@@ -1101,7 +1380,23 @@ def main(argv=None) -> int:
     }}), flush=True)
     del run, engine
 
-    # -- 12. the kernels line and the result ----------------------------------------------
+    # -- 12. the cohort fast path at the engine scenario's scale --------------------------
+    _phase(f"engine: Zipf storms of {', '.join(f'{n:,}' for n in ENGINE_RAMP)} requests "
+           f"through the cohort fast path, {ENGINE_SPS} SPs, {ENGINE_RPCS} RPC nodes")
+    zero_counts()  # count the engine path only
+    engine_phase(gk)
+    if read_counts("engine")["gf_matmul"] == 0:
+        raise SystemExit("the engine path made no gf_matmul launch")
+
+    # -- 13. overload control: the concurrent scenario's ramp ----------------------------
+    _phase(f"overload: {OVERLOAD_REQUESTS} Poisson Zipf reads at "
+           f"{'/'.join(map(str, OVERLOAD_RATES))} rps, free-running and admitted")
+    zero_counts()  # count the overload path only
+    overload_phase(gk)
+    if read_counts("overload")["gf_matmul"] == 0:
+        raise SystemExit("the overload path made no gf_matmul launch")
+
+    # -- 14. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),
@@ -1134,7 +1429,7 @@ def main(argv=None) -> int:
             line[-1]["shapes"] = {
                 key: {f: by_shape[shape][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
                 for key, shape in timed_shapes.items()
-                if key.startswith(("repair", "serve_repair", "das"))}
+                if key.startswith(("repair", "serve_repair", "das", "engine"))}
         if line[-1]["launches"] == 0:
             raise SystemExit(f"{name} was launched on no path")
     print(card, flush=True)

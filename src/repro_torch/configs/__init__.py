@@ -1,7 +1,8 @@
 """Architecture registry of the port.
 
 ``get(name)`` returns the full published config, ``get_smoke(name)`` a
-reduced same-family config for CPU tests, as in ``repro/configs``.  The port
+reduced same-family config for CPU tests, as in ``repro/configs``;
+``"shelby"`` names the storage deployment (``configs/shelby.py``).  The port
 serves the dense, token-input architectures so far; the others raise
 ``NotImplementedError`` until their families are ported (ROADMAP Queue 1,
 the LM stack).
@@ -28,6 +29,7 @@ _MODULES = {
     "granite-8b": "granite",
     "yi-9b": "yi",
     "command-r-plus-104b": "command_r_plus",
+    "shelby": "shelby",
 }
 
 

@@ -21,9 +21,9 @@ Nash equilibrium), Theorem 2 (mutual dishonesty is not), Theorem 3
 
 The layout's byte work (encode, decodes, repairs) runs on ``device``: the
 card unless ``device="cpu"`` (the DAS extension of each blob included).
-The knobs of planes this package does not have yet (``admission``,
-``single_flight=False``, ``sanitize`` or ``SHELBY_SIMSAN``) raise
-:class:`NotImplementedError` rather than being ignored.
+The simsan sanitizer (``sanitize`` or ``SHELBY_SIMSAN``) is not part of
+this package yet and raises :class:`NotImplementedError` rather than being
+ignored.
 """
 from __future__ import annotations
 
@@ -102,7 +102,7 @@ def run_sim(
     num_rpcs: int = 1,
     read_requests_per_epoch: int = 0,
     device=None,  # the layout's device: None = the card, "cpu" = plain path
-    admission=None,  # overload control: not ported (must stay None)
+    admission=None,  # storage.rpc.AdmissionSpec: shed past saturation
     single_flight: bool = True,  # collapse concurrent same-chunkset misses
     background: BackgroundSpec | None = None,  # per-SP audit/repair budget
     churn: ChurnSpec | None = None,  # epoch-scale membership churn plane
@@ -113,13 +113,9 @@ def run_sim(
 ) -> SimResult:
     if sanitize is None:
         sanitize = bool(os.environ.get("SHELBY_SIMSAN"))
-    for knob, wanted, slice_ in (
-        ("admission", admission is not None, "overload control (AdmissionSpec)"),
-        ("single_flight=False", not single_flight, "the RPC node's single_flight option"),
-        ("sanitize", sanitize, "the simsan sanitizer (SHELBY_SIMSAN)"),
-    ):
-        if wanted:
-            raise NotImplementedError(f"run_sim({knob}) needs {slice_}, not ported yet")
+    if sanitize:
+        raise NotImplementedError(
+            "run_sim(sanitize) needs the simsan sanitizer (SHELBY_SIMSAN), not ported yet")
     params = params or AuditParams(p_a=0.5, auditors_per_audit=4, C=50, p_ata=0.3)
     layout = layout or BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024,
                                   device=device)
@@ -132,7 +128,8 @@ def run_sim(
         sps[i] = StorageProvider(i, behaviors.get(i, SPBehavior()),
                                  service=ServiceSpec(background=background))
     rpcs = [
-        RPCNode(f"rpc{r}", contract, sps, layout)
+        RPCNode(f"rpc{r}", contract, sps, layout,
+                admission=admission, single_flight=single_flight)
         for r in range(num_rpcs)
     ]
     fleet = RPCFleet(rpcs, CacheAffinityPolicy())

@@ -45,7 +45,11 @@ def build_cluster(num_sps: int = 8, layout: BlobLayout | None = None,
             i, service=ServiceSpec(slots=CONFIG.sp_service_slots)
         )
     rpcs = [
-        RPCNode(f"rpc{r}", contract, sps, layout, cache_chunksets=32)
+        RPCNode(f"rpc{r}", contract, sps, layout, cache_chunksets=32,
+                cache_ttl_ms=CONFIG.rpc_cache_ttl_ms,
+                cache_admit_bytes=CONFIG.rpc_cache_admit_bytes,
+                admission=CONFIG.admission(),
+                single_flight=CONFIG.rpc_single_flight)
         for r in range(num_rpcs)
     ]
     fleet = RPCFleet(rpcs, CacheAffinityPolicy())

@@ -10,6 +10,8 @@ path runs on, with the simulated clock's float arithmetic kept op for op:
 * ``fleet``     — multi-RPC router with pluggable policies.
 * ``workloads`` — deterministic scenario generators plus the open-loop /
   closed-loop replay drivers.
+* ``fastpath``  — the cohort fast path: a ``RequestBatch`` replayed as
+  numpy array steps, with cold-key first touchers de-opted to real tasks.
 """
 from repro_torch.net.backbone import Backbone, LinkSpec, NICSpec
 from repro_torch.net.events import (

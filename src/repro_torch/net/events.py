@@ -40,9 +40,10 @@ first caller leads, the rest coalesce), so N simultaneous misses on a hot
 object cost one fetch instead of N.
 
 Sync callers keep working: wrap a task in a fresh loop and
-``run_until`` it (see ``RPCFleet.serve_ranges``).  Concurrent
-drivers spawn one task per request on a shared loop and ``run()``
-everything to completion.
+``run_until`` it (see ``RPCNode.read_items_detailed``).  Concurrent
+drivers (``repro_torch.net.workloads.replay_open_loop`` /
+``replay_closed_loop``) spawn one task per request on a shared loop and
+``run()`` everything to completion.
 
 The runtime sanitizer (``sanitize=True`` / ``SHELBY_SIMSAN``) is not part
 of this package yet: asking for it raises :class:`NotImplementedError`.

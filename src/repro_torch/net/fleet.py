@@ -51,10 +51,17 @@ class ServedRange:
     hedges_launched: int = 0
     hedged_wasted: int = 0
     coalesced: int = 0  # chunksets that joined another request's fetch
+    # rpc_id -> chunksets this range served on that node AFTER its routed
+    # node shed the leg (retry-on-sibling); payments follow the server
+    retried_nodes: dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class LatencyAwarePolicy:
     """Route to the node minimizing propagation + recent-latency EWMA."""
+
+    # routing depends on live fleet state (EWMA, routed counts): the cohort
+    # fast path cannot precompute it, so batches de-opt to task mode
+    static = False
 
     def pick(self, key: tuple[int, int], client: str | None, fleet: "RPCFleet") -> int:
         def est(i: int) -> tuple[float, int, int]:
@@ -70,8 +77,11 @@ class CacheAffinityPolicy:
     """Rendezvous hashing on (blob_id, chunkset) -> stable home node.
 
     A pure function of (key, node set), so picks are memoized: a hot key
-    re-routed a million times costs one sha256 sweep, not a million.
+    re-routed a million times costs one sha256 sweep, not a million — and
+    the cohort fast path can route whole batches through the same memo.
     """
+
+    static = True  # pick depends only on (key, node set): vectorizable
 
     def __init__(self):
         self._memo: dict[tuple[int, int], int] = {}
@@ -97,6 +107,8 @@ class CacheAffinityPolicy:
 class PowerOfTwoPolicy:
     """Two seeded random probes, pick the less-loaded (routed count)."""
 
+    static = False  # consumes an rng stream in routing order
+
     def __init__(self, seed: int = 0):
         self._rng = np.random.default_rng(seed)
 
@@ -106,6 +118,28 @@ class PowerOfTwoPolicy:
             return 0
         a, b = self._rng.choice(n, size=2, replace=False)
         return int(a if fleet.routed[a] <= fleet.routed[b] else b)
+
+
+# named policy factories: the routing_policy config knob and the scenario
+# registry resolve policies by these names (fresh instance per fleet —
+# policies carry per-fleet state: memos, rng streams, EWMA views)
+POLICY_FACTORIES = {
+    "latency": LatencyAwarePolicy,
+    "affinity": CacheAffinityPolicy,
+    "p2c": lambda: PowerOfTwoPolicy(seed=0),
+}
+
+
+def make_policy(name: str):
+    """A fresh routing-policy instance for a registered name."""
+    try:
+        factory = POLICY_FACTORIES[name]
+    except KeyError:
+        raise ValueError(
+            f"routing_policy must be one of {sorted(POLICY_FACTORIES)}, "
+            f"got {name!r}"
+        ) from None
+    return factory()
 
 
 class RPCFleet:
@@ -133,6 +167,10 @@ class RPCFleet:
         self.samples_routed = 0  # DAS samples (accounted apart from reads)
         self.bytes_served = 0
         self.request_latencies_ms: list[float] = []
+        # overload accounting (legs = one node's share of one request)
+        self.shed_legs = 0  # node legs refused at admission
+        self.retried_legs = 0  # shed legs rescued by a sibling
+        self.retried_chunksets = 0  # chunksets served via those retries
 
     @property
     def primary(self) -> RPCNode:
@@ -195,7 +233,17 @@ class RPCFleet:
         the fleet over the public internet, not the dedicated backbone): a
         range's latency is the max over its own chunksets' legs plus the
         client<->node round trip.
+
+        Overload: a node leg refused at admission (:class:`Overloaded`) is
+        retried ONCE on the least-loaded sibling — the NACK is cheap, so
+        the edge re-issues: extra latency is the round trip burned on the
+        refusing node plus the sibling's own propagation.  If the sibling
+        sheds too, the whole request surfaces as `Overloaded` (replay
+        drivers record it as *shed*, and pay-on-delivery means it debits
+        nothing).  Payments follow the node that actually served.
         """
+        from repro_torch.storage.rpc import Overloaded  # deferred: import cycle
+
         lay = self.primary.layout
         contract = self.primary.contract
         per_range_items: list[list[tuple[int, int]]] = []
@@ -213,6 +261,8 @@ class RPCFleet:
 
         decoded: dict[tuple[int, int], object] = {}
         item_stats: dict[tuple[int, int], object] = {}
+        served_by: dict[tuple[int, int], int] = {}  # who ACTUALLY served
+        retried: set[tuple[int, int]] = set()
         extra_ms: dict[tuple[int, int], float] = {}  # client round trips
         handles: dict[int, object] = {}
         for i, node_items in by_node.items():
@@ -221,10 +271,29 @@ class RPCFleet:
             def node_task(i=i, node_items=node_items, prop=prop):
                 if prop > 0:
                     yield Sleep(prop)  # request reaches the serving node
-                out, stats = yield from self.rpcs[i].read_items_task(
-                    loop, node_items, label=f"{label}/{self.node_ids[i]}"
-                )
-                return out, stats, 2.0 * prop
+                try:
+                    out, stats = yield from self.rpcs[i].read_items_task(
+                        loop, node_items, label=f"{label}/{self.node_ids[i]}"
+                    )
+                    return out, stats, i, 2.0 * prop
+                except Overloaded:
+                    self.shed_legs += 1
+                    j = self._sibling(i)
+                    if j is None:
+                        raise  # fleet of one: nowhere to retry
+                    # the NACK came back (prop) and the edge re-issues to
+                    # the sibling (its own propagation); if the sibling
+                    # sheds too, Overloaded propagates and drops the request
+                    prop_j = self._prop(j, client)
+                    if prop + prop_j > 0:
+                        yield Sleep(prop + prop_j)
+                    out, stats = yield from self.rpcs[j].read_items_task(
+                        loop, node_items, label=f"{label}/{self.node_ids[j]}"
+                    )
+                    self.retried_legs += 1
+                    self.retried_chunksets += len(node_items)
+                    self.routed[j] += len(node_items)  # load landed on the sibling
+                    return out, stats, j, 2.0 * prop + 2.0 * prop_j
 
             handles[i] = loop.spawn(
                 node_task(), label=f"{label}/{self.node_ids[i]}"
@@ -232,7 +301,7 @@ class RPCFleet:
         first_err: Exception | None = None
         for i, h in handles.items():
             try:
-                out, stats, extra = yield Join(h)
+                out, stats, srv, extra = yield Join(h)
             except (GeneratorExit, KeyboardInterrupt):
                 # task teardown / user interrupt must never be harvested as
                 # a leg failure — propagate immediately
@@ -241,11 +310,14 @@ class RPCFleet:
                 if first_err is None:
                     first_err = e
                 continue
-            self._observe(i, max(s.latency_ms for s in stats.values()))
+            self._observe(srv, max(s.latency_ms for s in stats.values()))
             decoded.update(out)
             item_stats.update(stats)
             for key in out:
+                served_by[key] = srv
                 extra_ms[key] = extra
+                if srv != i:
+                    retried.add(key)
         if first_err is not None:
             raise first_err
 
@@ -258,10 +330,13 @@ class RPCFleet:
                 meta.size_bytes,
             )
             by_node_count: dict[str, int] = {}
+            retried_nodes: dict[str, int] = {}
             latency, hits, hedges, wasted, coalesced = 0.0, 0, 0, 0, 0
             for key in items:
-                nid = self.node_ids[routed_node[key]]
+                nid = self.node_ids[served_by[key]]
                 by_node_count[nid] = by_node_count.get(nid, 0) + 1
+                if key in retried:
+                    retried_nodes[nid] = retried_nodes.get(nid, 0) + 1
                 s = item_stats[key]
                 latency = max(latency, s.latency_ms + extra_ms[key])
                 hits += s.cache_hit
@@ -273,7 +348,7 @@ class RPCFleet:
                     blob_id=blob_id, offset=offset, length=length, data=data,
                     latency_ms=latency, chunksets_by_node=by_node_count,
                     cache_hits=hits, hedges_launched=hedges, hedged_wasted=wasted,
-                    coalesced=coalesced,
+                    coalesced=coalesced, retried_nodes=retried_nodes,
                 )
             )
             self.bytes_served += len(data)
@@ -299,14 +374,15 @@ class RPCFleet:
         from chunkset reads: they do not touch ``chunkset_reads`` (so the
         streaming ``cache_hit_rate`` stays a streaming metric) and do not
         feed the latency EWMA (tiny single-slot reads would make every
-        node look fast to the latency-aware router).  The JAX package
-        retries a shed leg on a sibling; overload control is not ported,
-        so no leg is shed here.
+        node look fast to the latency-aware router).  A shed leg retries
+        once on the least-loaded sibling, like any other request.
         """
-        from repro_torch.storage.rpc import ReadError  # deferred: import cycle
+        from repro_torch.storage.rpc import Overloaded  # deferred: import cycle
 
         rec = self.primary.contract.das.get(blob_id)
         if rec is None:
+            from repro_torch.storage.rpc import ReadError
+
             raise ReadError(f"blob {blob_id} has no DAS extension")
         key = (blob_id, rec.side * rec.side + row * rec.side + col)
         i = self.policy.pick(key, client, self)
@@ -315,13 +391,38 @@ class RPCFleet:
         prop = self._prop(i, client)
         if prop > 0:
             yield Sleep(prop)
-        ss = yield from self.rpcs[i].sample_share_task(
-            loop, blob_id, row, col, cache_bypass=cache_bypass,
-            label=f"{label}/{self.node_ids[i]}",
-        )
+        srv, extra = i, 2.0 * prop
+        try:
+            ss = yield from self.rpcs[i].sample_share_task(
+                loop, blob_id, row, col, cache_bypass=cache_bypass,
+                label=f"{label}/{self.node_ids[i]}",
+            )
+        except Overloaded:
+            self.shed_legs += 1
+            j = self._sibling(i)
+            if j is None:
+                raise
+            prop_j = self._prop(j, client)
+            if prop + prop_j > 0:
+                yield Sleep(prop + prop_j)
+            ss = yield from self.rpcs[j].sample_share_task(
+                loop, blob_id, row, col, cache_bypass=cache_bypass,
+                label=f"{label}/{self.node_ids[j]}",
+            )
+            self.retried_legs += 1
+            self.routed[j] += 1
+            srv, extra = j, 2.0 * prop + 2.0 * prop_j
         return dataclasses.replace(
-            ss, latency_ms=ss.latency_ms + 2.0 * prop, rpc_id=self.node_ids[i]
+            ss, latency_ms=ss.latency_ms + extra, rpc_id=self.node_ids[srv]
         )
+
+    def _sibling(self, i: int) -> int | None:
+        """Deterministic overflow target for a shed leg: the least-routed
+        OTHER node (ties by index); None on a fleet of one."""
+        others = [j for j in range(len(self.rpcs)) if j != i]
+        if not others:
+            return None
+        return min(others, key=lambda j: (self.routed[j], j))
 
     def serve_ranges(
         self,
@@ -335,13 +436,22 @@ class RPCFleet:
         `t_ms` anchors the batch on the global simulated clock; trunk/NIC
         reservations persist in the shared Backbone, so sequential callers
         still queue against earlier traffic.  For genuinely concurrent
-        requests, spawn `serve_ranges_task` per request on one shared loop."""
+        requests, spawn `serve_ranges_task` per request on one shared loop
+        (see ``repro_torch.net.workloads.replay_open_loop``)."""
         loop = EventLoop(network=self.network)
         h = loop.spawn(
             self.serve_ranges_task(loop, ranges, client=client),
             at_ms=t_ms, label="serve",
         )
         return loop.run_until(h)
+
+    def read_range(
+        self, blob_id: int, offset: int, length: int, *, client: str | None = None,
+        t_ms: float = 0.0,
+    ) -> tuple[bytes, float]:
+        """Serve [offset, offset+length) and return (bytes, sim_latency_ms)."""
+        sr = self.serve_ranges([(blob_id, offset, length)], client=client, t_ms=t_ms)[0]
+        return sr.data, sr.latency_ms
 
     # -- metrics -------------------------------------------------------------------
     def cache_hit_rate(self) -> float:
@@ -356,16 +466,18 @@ class RPCFleet:
         """Requests launched by hedge deadlines only (straggler mitigation)."""
         return sum(r.stats.hedges_launched for r in self.rpcs)
 
+    def hedges_suppressed(self) -> int:
+        """Hedge deadlines the per-node overload gate refused to act on."""
+        return sum(r.stats.hedges_suppressed for r in self.rpcs)
+
     def coalesced(self) -> int:
         """Cache misses that piggybacked on an in-flight fetch (stampede
         collapse) instead of fetching from SPs again."""
         return sum(r.stats.coalesced for r in self.rpcs)
 
-    def latency_percentiles(self, *qs: float) -> tuple[float, ...]:
-        if not self.request_latencies_ms:
-            return tuple(0.0 for _ in qs)
-        arr = np.asarray(self.request_latencies_ms)
-        return tuple(float(np.percentile(arr, q)) for q in qs)
+    def requests_shed(self) -> int:
+        """Node-level admission refusals (each is one leg's Overloaded)."""
+        return sum(r.stats.shed_requests for r in self.rpcs)
 
     def samples_served(self) -> int:
         """DAS shares delivered + verified across the fleet."""

@@ -16,8 +16,10 @@ every in-flight leg is its own spawned task, and the deadline is a timer
 task feeding the same :class:`~repro_torch.net.events.Channel`, so the hedge
 decisions of concurrent fetches genuinely interleave on one global heap —
 a hot SP another request is queueing on delays THIS fetch's leg, which can
-blow THIS fetch's deadline.  It never peeks at a completion time before the
-simulated clock reaches it, and everything is deterministic.
+blow THIS fetch's deadline.  ``fetch()`` keeps the old synchronous shape by
+running ``fetch_task`` on a private loop; it never peeks at a completion
+time before the simulated clock reaches it, and everything is
+deterministic.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ class FetchResult:
     bad: int = 0  # responses failing verification (corruption, §2.3)
     failed: int = 0  # transport-level failures (crashed SP, missing chunk)
     hedges: int = 0  # requests launched by the hedge deadline timer
+    hedges_suppressed: int = 0  # deadline fired but the hedge_gate said no
 
     @property
     def wasted(self) -> int:
@@ -79,9 +82,19 @@ class HedgedScheduler:
         issue_task: Callable,  # (key, sp_id) -> generator returning payload|None
         verify: Callable[[int, object], bool] | None = None,
         label: str = "fetch",
+        hedge_gate: Callable[[], bool] | None = None,
     ):
         """Generator task; spawn it on the shared loop (its legs and hedge
-        timer live on the same heap as every other request's)."""
+        timer live on the same heap as every other request's).
+
+        ``hedge_gate`` is the overload hook: consulted when the deadline
+        fires, and hedges are launched only while it returns True.  Hedges
+        multiply offered load exactly when the system can least afford it,
+        so an overloaded node sheds its *hedges* first (counted in
+        ``FetchResult.hedges_suppressed``) before shedding whole requests.
+        Failure recovery is never gated — a failed primary must be
+        replaced or the fetch cannot reach k shards at all.
+        """
         if len(candidates) < k:
             raise ValueError(f"need >= {k} candidates, got {len(candidates)}")
         order = sorted(candidates, key=lambda c: (c[2], c[0]))
@@ -123,11 +136,19 @@ class HedgedScheduler:
             key, data = yield Recv(chan)
             if key is _HEDGE:
                 # stragglers outstanding past the deadline: hedge + re-arm
+                # (unless the overload gate says the node cannot afford it)
                 launched = 0
                 while launched < self.hedge and queue:
+                    if hedge_gate is not None and not hedge_gate():
+                        res.hedges_suppressed += 1
+                        break
                     launch()
                     launched += 1
                 res.hedges += launched
+                # re-arm whenever candidates remain — INCLUDING when the
+                # overload gate suppressed the launch: a brownout window
+                # must delay hedging, not permanently disable it for this
+                # fetch (the gate is consulted afresh at the next deadline)
                 if queue:
                     timer_h = loop.spawn(timer(deadline), label=f"{label}/deadline")
                 continue
@@ -148,3 +169,32 @@ class HedgedScheduler:
             timer_h.cancel()
         res.latency_ms = loop.now - start_ms
         return res
+
+    def fetch(
+        self,
+        k: int,
+        candidates: list[tuple[int, int, float]],  # (key, sp_id, est_ms)
+        issue: Callable[[int, int, float], tuple[object, float]],
+        verify: Callable[[int, object], bool] | None = None,
+        start_ms: float = 0.0,
+    ) -> FetchResult:
+        """Synchronous wrapper: run ``fetch_task`` on a private loop.
+
+        ``issue(key, sp_id, t_ms) -> (payload | None, done_ms)`` answers
+        with the payload and the simulated completion time (the legacy
+        transport shape); ``start_ms`` anchors the fetch on the caller's
+        simulated clock.
+        """
+        loop = EventLoop()
+
+        def issue_task(key, sp_id):
+            payload, done_ms = issue(key, sp_id, loop.now)
+            if done_ms > loop.now:
+                yield Sleep(done_ms - loop.now)
+            return payload
+
+        h = loop.spawn(
+            self.fetch_task(loop, k, candidates, issue_task, verify),
+            at_ms=start_ms, label="fetch",
+        )
+        return loop.run_until(h)

@@ -32,9 +32,6 @@ Requests the fleet refuses at admission (typed ``Overloaded`` NACKs) are
 recorded as *shed*, separately from hard failures; ``sweep_open_loop``
 ramps the offered rate and returns the goodput / shed-rate / p99 series
 that make the saturation knee measurable.
-
-Not here yet: the port has no overload control, so nothing raises
-``Overloaded`` and no request is shed.
 """
 from __future__ import annotations
 
@@ -81,7 +78,7 @@ class RequestBatch:
     Python object; a 1M-request storm held that way is ~0.5 GB of boxed
     floats before the engine even starts.  A batch keeps the five columns
     as numpy arrays (client names interned once in ``clients``), which is
-    what the cohort fast path (``net/fastpath.py``, not ported yet) consumes —
+    what the cohort fast path (``repro_torch.net.fastpath``) consumes directly —
     ``to_requests()`` materializes the identical request list for the
     task-per-request drivers, so the same batch replays on either path.
     """
@@ -443,7 +440,7 @@ class ReplayResult:
     background: list[BackgroundRecord] = dataclasses.field(default_factory=list)
     # pooled per-request rows from the cohort fast path (records stay empty)
     batch: RecordBatch | None = None
-    # fast-path cohort accounting (``CohortStats`` of the fast path): which
+    # fast-path cohort accounting (repro_torch.net.fastpath.CohortStats): which
     # requests advanced vectorized, which individuated into tasks, and the
     # per-leg (request, node) attribution payment batching consumes
     cohort: object = None

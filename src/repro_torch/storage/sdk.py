@@ -24,13 +24,13 @@ yields successive receipts; ``client.get_many([...])`` routes all ranges
 across the fleet in one pass so wide GF batch-decodes span requests.
 
 ``replay`` runs a workload's request list open loop on one shared event
-loop, with background planes (audits, repair, churn) beside it.
+loop, with background planes (audits, repair, churn) beside it; a
+``RequestBatch`` goes through the cohort fast path (``net/fastpath.py``) and
+settles each serving node's channel once per cohort (:class:`ReceiptBatch`).
 
 With a ``das`` spec, ``put`` also extends the blob's DAS square on the
 layout's device and disperses its shares, and ``sample_availability`` runs
 a paid light-client sampling round (``storage/das.py``).
-
-Not here yet: the cohort fast-path replay of a ``RequestBatch``.
 """
 from __future__ import annotations
 
@@ -68,9 +68,13 @@ class ReadReceipt:
 
     `payments` maps serving rpc_id -> the micropayment made to that node's
     channel for THIS read; cache/hedge stats cover only this read's
-    chunksets.  All latencies are simulated milliseconds.  ``coalesced``
-    counts chunksets that rode another in-flight request's fetch instead of
-    hitting SPs again.
+    chunksets.  All latencies are simulated milliseconds.
+
+    Overload bookkeeping: ``shed=True`` marks a read the fleet refused at
+    admission — it carries no data and (pay-on-delivery) debits nothing;
+    ``retried_nodes`` names the sibling nodes that rescued legs a routed
+    node shed; ``coalesced`` counts chunksets that rode another in-flight
+    request's fetch instead of hitting SPs again.
     """
 
     blob_id: int
@@ -87,12 +91,48 @@ class ReadReceipt:
     # prefetch / this read overlapped N prefetches with its own fetch
     prefetched: bool = False
     prefetches_launched: int = 0
-    coalesced: int = 0  # single-flight dedup
+    # overload bookkeeping (admission control + single-flight dedup)
+    shed: bool = False
+    coalesced: int = 0
+    retried_nodes: dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def total_paid(self) -> float:
         # sorted so the float sum is independent of dict insertion order
         return sum(self.payments[k] for k in sorted(self.payments))
+
+
+@dataclasses.dataclass(frozen=True)
+class ReceiptBatch:
+    """Pooled receipts for one vectorized cohort (struct-of-arrays).
+
+    A million warm-cache reads do not need a million :class:`ReadReceipt`
+    objects and a million ``channel.pay()`` calls: the cohort fast path
+    (``repro_torch.net.fastpath``) reports which requests stayed vectorized and
+    which node served each leg, and settlement charges each serving node's
+    channel ONCE with the numpy-summed total.  ``paid_by_node`` holds the
+    exact floats debited, so :meth:`ShelbySession.close` verifies
+    conservation against them without unpacking rows.  De-opted requests
+    (hedges, NACKs, cold-key leaders) still get individual receipts in
+    ``session.receipts``.
+    """
+
+    req_idx: np.ndarray  # rows into the replayed RequestBatch
+    blob_id: np.ndarray
+    offset: np.ndarray
+    length: np.ndarray
+    latency_ms: np.ndarray
+    nbytes: np.ndarray
+    paid: np.ndarray  # per-request total micropayment
+    paid_by_node: dict[str, float]  # rpc_id -> summed debit (one pay() each)
+
+    def __len__(self) -> int:
+        return int(self.req_idx.size)
+
+    @property
+    def total_paid(self) -> float:
+        # sorted so the float sum is independent of dict insertion order
+        return float(sum(self.paid_by_node[k] for k in sorted(self.paid_by_node)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +177,7 @@ class ShelbySession:
         self._price = client.read_price_per_byte
         self.channels: dict[str, MicropaymentChannel] = {}  # rpc_id -> channel
         self.receipts: list[ReadReceipt] = []
+        self.receipt_batches: list[ReceiptBatch] = []  # vectorized cohorts
         self.settlement: SessionSettlement | None = None
 
     # -- channels ------------------------------------------------------------------
@@ -181,7 +222,7 @@ class ShelbySession:
             cache_hits=sr.cache_hits, hedges_launched=sr.hedges_launched,
             hedged_wasted=sr.hedged_wasted, prefetched=prefetched,
             prefetches_launched=prefetches_launched,
-            coalesced=sr.coalesced,
+            coalesced=sr.coalesced, retried_nodes=dict(sr.retried_nodes),
         )
         self.receipts.append(receipt)
         return receipt
@@ -223,29 +264,37 @@ class ShelbySession:
         Payments stay pay-on-delivery, applied at each request's completion
         time in deterministic event order; dropped requests debit nothing.
         Returns ``(receipts, ReplayResult)`` — ``receipts[i]`` is ``None``
-        when request ``i`` was dropped by a hard failure (the port has no
-        admission control yet, so no request is shed).  A DAS
+        when request ``i`` was dropped by a hard failure.  A request the
+        fleet *shed* at admission instead gets a zero-payment receipt with
+        ``shed=True`` (documented refusal: you asked, the fleet NACKed,
+        you paid nothing), and its record is marked ``shed`` in the
+        :class:`~repro_torch.net.workloads.ReplayResult`.  A DAS
         :class:`~repro_torch.net.workloads.SampleRequest` that verifies lands
         a :class:`~repro_torch.storage.das.SampleReceipt` there instead.
 
-        A :class:`~repro_torch.net.workloads.RequestBatch` goes to the cohort
-        fast path in the JAX package; that path is not ported yet, so a
-        batch without ``background`` raises :class:`NotImplementedError`
-        (``batch.to_requests()`` replays the same requests here).
+        Passing a :class:`~repro_torch.net.workloads.RequestBatch` (and no
+        ``background``) routes through the cohort fast path instead:
+        returns ``(ReceiptBatch, ReplayResult)``, with de-opted requests'
+        individual receipts appended to ``session.receipts`` as usual.
         """
         self._settle_check()
         from repro_torch.net.workloads import RequestBatch, replay_open_loop
 
         if isinstance(requests, RequestBatch) and background is None:
-            raise NotImplementedError(
-                "the cohort fast-path replay of a RequestBatch (net/fastpath.py) "
-                "is not ported yet; pass batch.to_requests()"
-            )
+            return self._replay_batch(requests, trace=trace, engine=engine)
 
         receipts: list[ReadReceipt | None] = [None] * len(requests)
 
         def on_served(i, req, sr):
             receipts[i] = self._receipt_for(sr)
+
+        def on_shed(i, req, nack_ms):
+            receipts[i] = ReadReceipt(
+                blob_id=req.blob_id, offset=req.offset, length=req.length,
+                data=b"", latency_ms=nack_ms, payments={},
+                chunksets_by_node={}, shed=True,
+            )
+            self.receipts.append(receipts[i])
 
         def on_sampled(i, req, ss):
             from repro_torch.storage.das import SampleReceipt
@@ -263,9 +312,75 @@ class ShelbySession:
             self.receipts.append(receipt)
 
         result = replay_open_loop(self._fleet, requests, on_served=on_served,
-                                  on_sampled=on_sampled, background=background,
-                                  trace=trace, engine=engine)
+                                  on_shed=on_shed, on_sampled=on_sampled,
+                                  background=background, trace=trace,
+                                  engine=engine)
         return receipts, result
+
+    def _replay_batch(self, batch, *, trace: bool = False,
+                      engine: str | None = None):
+        """Cohort-fast replay of a :class:`RequestBatch` with settlement
+        done on arrays: each serving node's channel is debited ONCE with the
+        numpy-aggregated total of the vectorized cohort's pro-rata per-leg
+        payments — the same ``max(price * bytes * legs_on_node / legs,
+        1e-12)`` formula :meth:`_receipt_for` applies per request, charged
+        per cohort.  De-opted requests pay per-receipt via the task path."""
+        from repro_torch.net.fastpath import replay_open_loop_fast
+
+        def on_served(i, req, sr):
+            self._receipt_for(sr)
+
+        def on_shed(i, req, nack_ms):
+            self.receipts.append(ReadReceipt(
+                blob_id=req.blob_id, offset=req.offset, length=req.length,
+                data=b"", latency_ms=nack_ms, payments={},
+                chunksets_by_node={}, shed=True,
+            ))
+
+        result = replay_open_loop_fast(self._fleet, batch, engine=engine,
+                                       on_served=on_served, on_shed=on_shed,
+                                       trace=trace)
+        co = result.cohort
+        paid_by_node: dict[str, float] = {}
+        n = len(batch)
+        if co is not None and co.vec_requests:
+            n_nodes = len(co.node_ids)
+            # collapse legs to (request, node) groups: the pro-rata share of
+            # a request's fee lands on each node in proportion to the legs
+            # (chunksets) that node served
+            pair = co.leg_req * n_nodes + co.leg_node
+            upair, counts = np.unique(pair, return_counts=True)
+            preq, pnode = upair // n_nodes, upair % n_nodes
+            legs_per_req = np.bincount(co.leg_req, minlength=n)
+            amounts = np.maximum(
+                self._price * batch.length[preq] * counts / legs_per_req[preq],
+                1e-12,
+            )
+            node_totals = np.bincount(pnode, weights=amounts, minlength=n_nodes)
+            for i in np.flatnonzero(node_totals).tolist():
+                total = float(node_totals[i])
+                self._channel(co.node_ids[i]).pay(total)
+                paid_by_node[co.node_ids[i]] = total
+            paid_req = np.bincount(preq, weights=amounts, minlength=n)
+            vec = co.vec_req_idx
+        else:
+            paid_req = np.zeros(n)
+            vec = np.empty(0, dtype=np.int64)
+        rows = result.batch
+        rb = ReceiptBatch(
+            req_idx=vec,
+            blob_id=batch.blob_id[vec].copy(),
+            offset=batch.offset[vec].copy(),
+            length=batch.length[vec].copy(),
+            latency_ms=(rows.latency_ms[vec].copy() if rows is not None
+                        else np.zeros(len(vec))),
+            nbytes=(co.vec_nbytes if co is not None and co.vec_nbytes is not None
+                    else np.zeros(len(vec), dtype=np.int64)),
+            paid=paid_req[vec],
+            paid_by_node=paid_by_node,
+        )
+        self.receipt_batches.append(rb)
+        return rb, result
 
     # -- DAS sampling (pay-per-sample light-client reads) --------------------------
     def sample_availability(
@@ -449,6 +564,9 @@ class ShelbySession:
         paid_by_node: dict[str, float] = {}
         for r in self.receipts:
             for rpc_id, amt in r.payments.items():
+                paid_by_node[rpc_id] = paid_by_node.get(rpc_id, 0.0) + amt
+        for rb in self.receipt_batches:  # vectorized cohorts: exact debits
+            for rpc_id, amt in rb.paid_by_node.items():
                 paid_by_node[rpc_id] = paid_by_node.get(rpc_id, 0.0) + amt
         for rpc_id, income in incomes.items():
             # tolerance tracks the deposit's float granularity: income is
@@ -715,12 +833,6 @@ class ShelbyClient:
         :meth:`ShelbySession.replay`)."""
         return self.current_session.replay(requests, background=background,
                                            trace=trace, engine=engine)
-
-    def open(self, blob_id: int, readahead: int = 0) -> BlobReader:
-        return self.current_session.open(blob_id, readahead=readahead)
-
-    def stream(self, blob_id: int, chunk_size: int | None = None):
-        return self.current_session.stream(blob_id, chunk_size)
 
     def sample_availability(self, blob_ids: list[int] | None = None, **kw):
         """One DAS sampling round through the implicit session (see

@@ -204,12 +204,18 @@ def test_workload_generators_match_reference():
 
 
 def test_unported_replay_paths_raise():
+    """A batch now replays through the cohort fast path; the sanitizer is
+    the replay option still refused."""
+    from repro_torch.net.events import EventLoop
     from repro_torch.net.workloads import SampleRequest, replay_open_loop, zipf_hotset_batch
+    from repro_torch.storage.sdk import ReceiptBatch
 
     layout, contract, bb, sps, fleet, client, metas, datas = _bg_world("repro_torch", num_rpcs=1)
     batch = zipf_hotset_batch(metas, clients=["client"], num_requests=5, seed=1)
-    with pytest.raises(NotImplementedError, match="fast-path"):
-        client.replay(batch)
+    rb, fast = client.replay(batch)
+    assert isinstance(rb, ReceiptBatch) and fast.cohort is not None
+    with pytest.raises(NotImplementedError, match="simsan"):
+        EventLoop(sanitize=True)
     # a sample of a blob without a DAS extension replays as a detection
     result = replay_open_loop(fleet, [SampleRequest(0.0, "client", metas[0].blob_id, 0, 0)])
     assert (result.das_samples, result.das_detections) == (1, 1)

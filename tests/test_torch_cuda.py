@@ -195,7 +195,111 @@ def test_put_and_read_go_through_the_kernel(cuda):
     assert client.get(meta.blob_id) == data
     assert gk.gf_matmul.launches > launches
     assert rpc._cache  # decoded chunksets stay on the card
-    assert all(t.device.type == "cuda" for t, _version in rpc._cache.values())
+    assert all(t.device.type == "cuda" for t, _expires, _version in rpc._cache.values())
+
+
+def _fast_world(device, **node_kw):
+    """Two RPC nodes on a 3-DC backbone, 8 SPs, 12 single-chunkset blobs of
+    a Clay (4,2) 64 KiB layout on ``device``; caches cold after the puts."""
+    from repro_torch.core.contract import ShelbyContract
+    from repro_torch.core.placement import SPInfo
+    from repro_torch.net.backbone import Backbone
+    from repro_torch.net.fleet import CacheAffinityPolicy, RPCFleet
+    from repro_torch.storage.blob import BlobLayout
+    from repro_torch.storage.rpc import BackboneTransport, RPCNode
+    from repro_torch.storage.sdk import ShelbyClient
+    from repro_torch.storage.sp import ServiceSpec, StorageProvider
+
+    layout = BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024, device=device)
+    contract = ShelbyContract()
+    bb = Backbone.mesh(3, base_latency_ms=4.0, gbps=10.0)
+    sps = {}
+    for i in range(8):
+        contract.register_sp(SPInfo(sp_id=i, stake=1000.0, dc=f"dc{i % 3}", rack=f"r{i % 4}"))
+        sps[i] = StorageProvider(i, service=ServiceSpec(disk_ms_per_chunk=0.5, slots=4))
+        bb.register_node(f"sp{i}", f"dc{i % 3}")
+    rpcs = []
+    for r in range(2):
+        bb.register_node(f"rpc{r}", f"dc{r}")
+        rpcs.append(RPCNode(f"rpc{r}", contract, sps, layout, cache_chunksets=64,
+                            transport=BackboneTransport(sps, bb, f"rpc{r}"), **node_kw))
+    bb.register_node("client", "dc0")
+    client = ShelbyClient(contract, RPCFleet(rpcs, CacheAffinityPolicy(), backbone=bb),
+                          deposit=1e9)
+    rng = np.random.default_rng(7)
+    metas = [client.put(rng.integers(0, 256, 50_000, dtype=np.uint8).tobytes())
+             for _ in range(12)]
+    for node in rpcs:
+        node._cache.clear()
+    return client, metas
+
+
+def test_fast_path_deopt_decodes_on_the_card_match_the_cpu(cuda):
+    """A cohort fast-path replay whose de-opted cold-key reads decode through
+    ``gf_matmul`` on the card: digest, cohort and settlement of the CPU's."""
+    from repro_torch.net.workloads import zipf_hotset_batch
+
+    got = []
+    for device in (cuda, "cpu"):
+        client, metas = _fast_world(device)
+        batch = zipf_hotset_batch(metas, clients=["client"], num_requests=1500,
+                                  read_bytes=64 * 1024, interarrival_ms=0.2, seed=3,
+                                  arrival="poisson")
+        launches = gk.gf_matmul.launches
+        with client.session(deposit_per_node=1e6) as session:
+            rb, fast = session.replay(batch)
+        co = fast.cohort
+        assert co.fallback_reason is None and co.deopt_requests > 0
+        if device == cuda:
+            torch.cuda.synchronize()
+            assert gk.gf_matmul.launches >= launches + co.deopt_requests
+            assert all(t.device.type == cuda.type for node in client.fleet.rpcs
+                       for t, _expires, _version in node._cache.values())
+        got.append((fast.digest(), co.vec_requests, co.deopt_requests, co.coalesced,
+                    rb.paid_by_node, session.settlement.node_income))
+    assert got[0] == got[1]
+
+
+def test_batch_decode_read_on_the_card_matches_the_plain_path(cuda):
+    """Several chunksets of one node's read: one stacked decode
+    (``batch_decode``) against one decode per chunkset, and the CPU."""
+    from repro_torch.launch.cluster import build_cluster
+
+    data = np.random.default_rng(5).bytes(5 * 256 * 1024 + 999)  # 6 chunksets
+    out = {}
+    for device in (cuda, "cpu"):
+        contract, sps, rpc, client = build_cluster(device=device)
+        meta = client.put(data)
+        sps[meta.placement[(0, 0)]].crash()  # two erasure patterns in the batch
+        for batch in (True, False):
+            rpc.batch_decode = batch
+            rpc._cache.clear()
+            launches = gk.gf_matmul.launches
+            out[(str(device), batch)] = rpc.read_blob(meta.blob_id)
+            if device == cuda:
+                torch.cuda.synchronize()
+                out[("launches", batch)] = gk.gf_matmul.launches - launches
+    assert len(set(v for key, v in out.items() if key[0] != "launches")) == 1
+    assert out[(str(cuda), True)] == data
+    # stacked: one launch per plane group and erasure pattern, not per chunkset
+    assert 0 < out[("launches", True)] < out[("launches", False)]
+
+
+def test_read_range_across_a_chunkset_boundary_on_the_card(cuda):
+    from repro_torch.launch.cluster import build_cluster
+
+    contract, sps, rpc, client = build_cluster(device=cuda)
+    data = np.random.default_rng(6).bytes(int(2.5 * rpc.layout.chunkset_bytes))
+    meta = client.put(data)
+    cs = rpc.layout.chunkset_bytes
+    for off, ln in [(cs - 1, 2), (cs - 100, 200), (2 * cs - 1, 2), (0, 2 * cs),
+                    (len(data) - 50, 10_000)]:
+        rpc._cache.clear()
+        launches = gk.gf_matmul.launches
+        got, ms = rpc.read_range_timed(meta.blob_id, off, ln)
+        torch.cuda.synchronize()
+        assert got == data[off: off + ln] and gk.gf_matmul.launches > launches
+    assert rpc.read_blob(meta.blob_id) == data
 
 
 def test_extend_batch_on_the_card_matches_the_cpu(cuda):

@@ -244,10 +244,9 @@ def test_run_sim_refuses_unported_planes():
     from repro_torch.core.simulation import honest_population, run_sim
 
     pop = honest_population(6)
-    for kw, what in ((dict(admission=object()), "overload"),
-                     (dict(single_flight=False), "single_flight"), (dict(sanitize=True), "simsan")):
-        with pytest.raises(NotImplementedError, match=what):
-            run_sim(pop, device="cpu", **kw)
+    # overload control is ported (tests/test_torch_overload.py); simsan is not
+    with pytest.raises(NotImplementedError, match="simsan"):
+        run_sim(pop, device="cpu", sanitize=True)
 
 
 def test_closed_forms_match_reference():

@@ -71,22 +71,19 @@ def backbone_world(pkg):
 
 
 def receipt_view(r):
-    # overload control is not in the port: the reference never sheds here
-    assert not getattr(r, "shed", False) and not getattr(r, "retried_nodes", {})
+    # no admission limits in these worlds: neither package sheds here
+    assert not r.shed and not r.retried_nodes
     return (r.blob_id, r.offset, r.length, r.data, r.latency_ms, r.payments,
             r.chunksets_by_node, r.cache_hits, r.hedges_launched, r.hedged_wasted,
             r.prefetched, r.prefetches_launched, r.coalesced)
 
 
 def stats_view(stats):
-    """The port's ReadStats fields; the reference's others (overload
-    control, DAS) are for planes the port lacks and must stay zero."""
+    """Every ReadStats field: the port carries exactly the reference's."""
     from repro_torch.storage.rpc import ReadStats
 
     ported = [f.name for f in dataclasses.fields(ReadStats)]
-    others = {f.name: getattr(stats, f.name) for f in dataclasses.fields(stats)
-              if f.name not in ported}
-    assert not any(others.values()), others
+    assert ported == [f.name for f in dataclasses.fields(stats)]
     return {name: getattr(stats, name) for name in ported}
 
 
@@ -264,6 +261,9 @@ def test_config_defaults_match_reference():
             lay, ref = CONFIG.layout, REF.layout
             assert (lay.k, lay.m, lay.chunkset_bytes_target, lay.device) == (
                 ref.k, ref.m, ref.chunkset_bytes_target, None)
+        elif f.name == "audit":
+            assert dataclasses.asdict(CONFIG.audit) == dataclasses.asdict(REF.audit)
         else:
             assert getattr(CONFIG, f.name) == getattr(REF, f.name), f.name
-    assert REF.admission() is None  # the reference's overload control is off
+    # overload control is off by default in both packages
+    assert REF.admission() is None and CONFIG.admission() is None
