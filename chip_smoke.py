@@ -15,8 +15,9 @@ the phase that caused it; any failure exits non-zero and prints no result:
    encode and repair, at the production (10,6) repair, at an N = 8
    (mod 16) decode and at the DAS extension's small-and-wide shapes (one
    put's column and row stages, the batched extension of every blob of
-   phase 7, a 1 x k recovery) and at the decode of one Clay (4,2) 64 KiB
-   chunkset of phases 12-13, with its ptxas lines printed in phase 1):
+   phase 7, a 1 x k recovery), at the decode of one Clay (4,2) 64 KiB
+   chunkset of phases 12-14 and at phase 14's Clay (4,2) MSR repair and DAS
+   extension of six blobs, with its ptxas lines printed in phase 1):
    ``gf_matmul`` and ``sample_hash`` with exact equality (their
    arithmetic is exact), ``flash_attention`` within the
    tolerance stated at ``ATTN_TOL``; kernel and plain version timed in turns
@@ -68,7 +69,8 @@ the phase that caused it; any failure exits non-zero and prints no result:
    k-of-n reads, serve batch 4 x (prompt 8 + 16 generated tokens); the
    served model teacher-forced for two steps on the card and on the CPU
    plain path; decode tok/s as the median of nine warm generations;
-12. the cohort fast path at the JAX package's ``engine`` scenario: 500 SPs,
+12. the cohort fast path in the ``engine`` scenario's world and fleets
+   (``repro_torch.scenarios.engine``): 500 SPs,
    50 RPC nodes, 192 single-chunkset blobs at Clay (4,2); Zipf storms of
    10k, 100k and 1M requests through ``session.replay(batch)`` on fresh
    fleets, each under the profiler (wall, requests/s, the cohort split,
@@ -76,12 +78,23 @@ the phase that caused it; any failure exits non-zero and prints no result:
    device busy share); no fallback; the 10k digest equal to a heap
    task-per-request replay and to the JAX package's, which also times the
    100k rung for the events/s speedup; settlement conserves;
-13. overload control at the JAX package's ``concurrent`` scenario: 12 SPs
+13. overload control in the ``concurrent`` scenario's world and fleets
+   (``repro_torch.scenarios.serving``): 12 SPs
    (a 250 ms straggler, a crashed SP), 3 RPC nodes with 10 Gbps NICs, 400
    Poisson Zipf reads at 200/1000/5000 rps, free-running and with a fetch
    budget of 6; digest, sheds 0/3/26, coalesced legs and both p99s at 5000
    rps equal to the JAX package's, every read's bytes right;
-14. the card again, one JSON line per kernel, then the result line.
+14. the registered scenarios on the card (``repro_torch.scenarios``):
+   ``serve_grid``, ``concurrent``, ``background``, ``churn``, ``das`` and
+   ``tune_admission`` at full size through ``run_scenario(..., device=
+   "cuda")``, each under the profiler, every declared SLO a gate; digests
+   and headline numbers equal to live CPU runs of the JAX package; then
+   ``engine`` with its events/s SLO reported, not raised (the one open
+   finding: its 100k speedup), every other number gated; ``churn`` again
+   under ``SHELBY_SIMSAN=1`` (same digest) and a sanitized one-epoch
+   ``run_sim`` equal to the CPU's; a 3-point sweep of ``tune_admission``'s
+   fetch budget whose digests and argmax equal the JAX package's;
+15. the card again, one JSON line per kernel, then the result line.
 """
 from __future__ import annotations
 
@@ -105,7 +118,7 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 H100_FP32_OPS_PER_S = 67e12  # 32-bit CUDA-core peak (fp32), the rate of sample_hash's u32 ops
 KERNELS = {  # name -> (source, the Pallas kernel it replaces)
     "gf_matmul": ("src/repro_torch/kernels/csrc/gf_matmul.cu",
-                  "src/repro/kernels/gf_matmul.py:68"),
+                  "src/repro/kernels/gf_matmul.py:69"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:73"),
     "sample_hash": ("src/repro_torch/kernels/csrc/sample_hash.cu",
@@ -126,12 +139,10 @@ DAS_STORM = 20_000  # samples in the replayed storm
 DAS_STORM_GAP_MS = 0.05
 DAS_REBUILT = 64  # squares reconstructed on the card
 DAS_RATE_TOL = 0.05  # detection rate vs 1-(1-q)^s over 2,048 trials: ~4.5 sigma
-# the JAX package's `engine` scenario (src/repro/scenarios/engine.py): its world and ramp
-ENGINE_SPS, ENGINE_RPCS, ENGINE_BLOBS, ENGINE_CACHE = 500, 50, 192, 16
-ENGINE_RAMP = (10_000, 100_000, 1_000_000)
+# the `engine` scenario's ramp (repro_torch/scenarios/engine.py, as the JAX package's)
 ENGINE_HEAP_RUNGS = (10_000, 100_000)  # rungs also replayed task-per-request on the heap
 ENGINE_DIGEST_10K = "5cb923036ace9559"  # a live run of the JAX package on the CPU
-# its `concurrent` scenario (src/repro/scenarios/serving.py): 400 Poisson Zipf reads
+# the `concurrent` scenario (repro_torch/scenarios/serving.py): 400 Poisson Zipf reads
 # through 3 nodes with 10 Gbps NICs, free-running and with a fetch budget of 6
 OVERLOAD_RATES = (200, 1000, 5000)
 OVERLOAD_REQUESTS = 400
@@ -139,10 +150,44 @@ OVERLOAD_DIGEST_200 = "f691cbe9e5a3bbdf"  # live JAX package runs on the CPU, as
 OVERLOAD_SHED = {200: 0, 1000: 3, 5000: 26}  # admitted sheds per rate
 OVERLOAD_COALESCED_5000 = 313
 OVERLOAD_P99_5000 = {"free": 1894.4, "admitted": 67.0}  # ms, to 0.1
+# phase 14: the registered scenarios at full size; digests and headline numbers
+# from live runs of the JAX package on the CPU (`concurrent` prints its digest)
+SCENARIOS = ("serve_grid", "concurrent", "background", "churn", "das", "tune_admission")
+SCENARIO_DIGESTS = {"concurrent": "f691cbe9e5a3bbdf", "churn": "1bc184e8531f028f",
+                    "das": "85ab3ef5108a7122", "tune_admission": "c1556c3dd6076921"}
+SCENARIO_HEADLINES = {
+    "serve_grid": {"affinity_zipf.goodput_mbps": 963.7652444759353,
+                   "affinity_zipf.p99_ms": 67.34528218908011,
+                   "affinity_zipf.cache_hit_rate": 0.944},
+    "concurrent": {"5000rps.admitted.p99_ms": 66.9937597276077,
+                   "5000rps.free.p99_ms": 1894.3813484713874,
+                   "5000rps.admitted.shed_rate": 0.065,
+                   "5000rps.admitted.goodput_mbps": 1450.6629631907954},
+    "background": {"p99_inflation": 1.025824167285706, "audit_ops": 168, "repairs_ok": 20,
+                   "background_bytes": 1706608},
+    "churn": {"p99_inflation": 1.1296410686942202, "lost_chunksets": 0, "sps_departed": 4,
+              "repairs_enqueued": 65},
+    "das": {"bytes_to_detect": 2694.289303289303, "storm.detections": 33,
+            "streaming.cache_hit_under_storm": 0.8466666666666667,
+            "streaming.p99_under_storm_ms": 80.71843664552334},
+    "tune_admission": {"goodput_mbps": 1275.2513420433397, "p99_ms": 67.77299059450574,
+                       "shed_rate": 0.14, "digest": "c1556c3dd6076921"},
+}
+# the `engine` SLO the card does not meet (events/s speedup at 100k, ROADMAP Queue 2
+# item 4): reported with its value, never raised; every other SLO stays a gate
+ENGINE_OPEN_SLO = "speedup_events_per_sec_100k"
+# a sweep of tune_admission's fetch budget: each point's digest, as the JAX package's
+SWEEP_FETCHES = (3, 6, 12)
+SWEEP_DIGESTS = {None: "c1556c3dd6076921", 3: "c3f6770a6d6255d4", 6: "c1556c3dd6076921",
+                 12: "875830cd51af074f"}  # None: the baseline, the registered budget of 6
+SWEEP_BEST = 12
+
+
+_STARTED = time.perf_counter()
 
 
 def _phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _STARTED:.1f} s)", flush=True)
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -173,8 +218,9 @@ def gf_shapes(blob_mib: int, das_blobs: int) -> dict[str, tuple[int, int, int]]:
     planes), the serving path's Clay (4,2) encode and repair, and the DAS
     extension (``CONFIG.das()``: k parity lines from k data lines per axis)
     of one put and of ``das_blobs`` squares at once, one line of each of
-    ``das_blobs`` squares rebuilt from k, and the engine and overload
-    phases' decode of one Clay (4,2) 64 KiB chunkset."""
+    ``das_blobs`` squares rebuilt from k, the engine, overload and scenario
+    phases' decode of one Clay (4,2) 64 KiB chunkset, and the scenario
+    phase's MSR repair at that layout and DAS extension of its six blobs."""
     from repro_torch.configs.shelby import CONFIG
     from repro_torch.launch.cluster import build_cluster
     from repro_torch.storage.blob import BlobLayout
@@ -207,6 +253,10 @@ def gf_shapes(blob_mib: int, das_blobs: int) -> dict[str, tuple[int, int, int]]:
     # its k data chunks (both parities unknown: one product over every plane)
     eng = BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024, device="cuda")
     shapes["engine_decode_clay_4_2"] = (eng.m, eng.code.N - eng.m, eng.code.alpha * eng.w)
+    shapes["scenario_repair_clay_4_2"] = (eng.m, eng.code.N - eng.m,
+                                          eng.code.alpha // eng.m * eng.w)
+    shapes["scenario_das_col"] = (dk, dk, 6 * dk * ds)  # background/das: six blobs at once
+    shapes["scenario_das_row"] = (dk, dk, 6 * 2 * dk * ds)
     return shapes
 
 
@@ -753,78 +803,32 @@ def das_phase(gk, seed: int, num_blobs: int, device: str = "cuda") -> dict:
     return row
 
 
-def _engine_world(device: str):
-    """The JAX package's `engine` world: 500 SPs on a 5-DC mesh (6 ms, 25
-    Gbps), 0.5 ms service on 4 slots, SP latency from rng(99), and 192
-    single-chunkset blobs of 50,000 bytes at Clay (4,2), 64 KiB chunksets."""
-    from repro_torch.core.contract import ShelbyContract
-    from repro_torch.core.placement import SPInfo
-    from repro_torch.net.backbone import Backbone
-    from repro_torch.storage.blob import BlobLayout
-    from repro_torch.storage.rpc import RPCNode
-    from repro_torch.storage.sdk import ShelbyClient
-    from repro_torch.storage.sp import ServiceSpec, StorageProvider
-
-    layout = BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024, device=device)
-    contract = ShelbyContract()
-    bb = Backbone.mesh(5, base_latency_ms=6.0, gbps=25.0)
-    rng = np.random.default_rng(99)
-    sps = {}
-    for i in range(ENGINE_SPS):
-        contract.register_sp(SPInfo(sp_id=i, stake=1000.0, dc=f"dc{i % 5}", rack=f"r{i % 20}"))
-        sps[i] = StorageProvider(i, service=ServiceSpec(disk_ms_per_chunk=0.5, slots=4))
-        sps[i].behavior.latency_ms = float(rng.uniform(1.0, 8.0))
-        bb.register_node(f"sp{i}", f"dc{i % 5}")
-    for c in range(3):
-        bb.register_node(f"client{c}", f"dc{c}")
-    bb.register_node("writer", "dc0")
-    writer = ShelbyClient(contract, RPCNode("writer", contract, sps, layout), deposit=1e9)
-    metas = [writer.put(rng.integers(0, 256, 50_000, dtype=np.uint8).tobytes())
-             for _ in range(ENGINE_BLOBS)]
-    return layout, contract, bb, sps, metas
-
-
-def _engine_fleet(layout, contract, bb, sps):
-    """A fresh fleet of 50 RPC nodes (16-chunkset caches) on the world."""
-    from repro_torch.configs.shelby import CONFIG
-    from repro_torch.net.fleet import RPCFleet
-    from repro_torch.storage.rpc import BackboneTransport, RPCNode
-
-    rpcs = []
-    for r in range(ENGINE_RPCS):
-        node = f"rpc{r}"
-        if node not in bb._node_dc:
-            bb.register_node(node, f"dc{r % 5}")
-        rpcs.append(RPCNode(node, contract, sps, layout, cache_chunksets=ENGINE_CACHE,
-                            transport=BackboneTransport(sps, bb, node)))
-    bb.reset_accounting()
-    return RPCFleet(rpcs, CONFIG.policy(), backbone=bb)
-
-
 def engine_phase(gk, device: str = "cuda") -> dict:
-    """The `engine` ramp: a Zipf storm of 10k, 100k and 1M requests through
-    ``session.replay(batch)`` (the cohort fast path) on fresh fleets, each
-    rung under the profiler; the cold-key leaders de-opt to real tasks and
-    decode on the card (one cold-key leader per blob).  The 10k digest
-    must equal a task-per-request replay on the heap engine and the JAX
-    package's; ``ENGINE_HEAP_RUNGS`` also time that baseline for the
-    events/s speedup."""
+    """The `engine` ramp in that scenario's world, fleets and batches
+    (``repro_torch.scenarios.engine``): a Zipf storm of 10k, 100k and 1M
+    requests through ``session.replay(batch)`` (the cohort fast path) on
+    fresh fleets, each rung under the profiler; the cold-key leaders de-opt
+    to real tasks and decode on the card (one cold-key leader per blob).
+    The 10k digest must equal a task-per-request replay on the heap engine
+    and the JAX package's; ``ENGINE_HEAP_RUNGS`` also time that baseline
+    for the events/s speedup."""
     import torch
 
-    from repro_torch.net.workloads import replay_open_loop, zipf_hotset_batch
+    from repro_torch.configs.shelby import CONFIG
+    from repro_torch.net.workloads import replay_open_loop
+    from repro_torch.scenarios import engine as eng
     from repro_torch.storage.sdk import ShelbyClient
 
     t = time.perf_counter()
-    layout, contract, bb, sps, metas = _engine_world(device)
+    layout, contract, bb, sps, metas = eng._world(device)
     torch.cuda.synchronize()
-    rows = {"world": {"sps": ENGINE_SPS, "rpcs": ENGINE_RPCS, "blobs": ENGINE_BLOBS,
-                      "cache_chunksets": ENGINE_CACHE, "build_s": time.perf_counter() - t}}
+    rows = {"world": {"sps": eng.NUM_SPS, "rpcs": eng.NUM_RPCS, "blobs": eng.NUM_BLOBS,
+                      "cache_chunksets": eng.CACHE_CHUNKSETS, "build_s": time.perf_counter() - t}}
     print(json.dumps({"engine_world": rows["world"]}), flush=True)
-    for n in ENGINE_RAMP:
-        batch = zipf_hotset_batch(metas, clients=["client0", "client1", "client2"],
-                                  num_requests=n, read_bytes=64 * 1024, interarrival_ms=0.05,
-                                  seed=23, arrival="poisson")
-        reader = ShelbyClient(contract, _engine_fleet(layout, contract, bb, sps), deposit=1e9)
+    for n in eng.RAMP:
+        batch = eng._batch(metas, n)
+        reader = ShelbyClient(contract, eng._fleet(CONFIG, layout, contract, bb, sps),
+                              deposit=1e9)
         held = {}
 
         def replay():
@@ -853,7 +857,7 @@ def engine_phase(gk, device: str = "cuda") -> dict:
             raise SystemExit(f"engine {n}: settlement does not conserve")
         if n in ENGINE_HEAP_RUNGS:
             t = time.perf_counter()
-            base = replay_open_loop(_engine_fleet(layout, contract, bb, sps),
+            base = replay_open_loop(eng._fleet(CONFIG, layout, contract, bb, sps),
                                     batch.to_requests(), engine="heap")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
@@ -862,9 +866,9 @@ def engine_phase(gk, device: str = "cuda") -> dict:
                            "digest": base.digest()[:16]}
             row["speedup_events_per_s"] = (fast.engine_events_per_sec
                                            / base.engine_events_per_sec)
-            if n == ENGINE_RAMP[0] and not (fast.digest() == base.digest()
-                                            and row["digest"] == ENGINE_DIGEST_10K
-                                            and co.deopt_requests == ENGINE_BLOBS):
+            if n == eng.RAMP[0] and not (fast.digest() == base.digest()
+                                         and row["digest"] == ENGINE_DIGEST_10K
+                                         and co.deopt_requests == eng.NUM_BLOBS):
                 raise SystemExit(f"engine 10k: digest {row['digest']} (heap "
                                  f"{row['heap']['digest']}, JAX package {ENGINE_DIGEST_10K}), "
                                  f"{co.deopt_requests} de-opts")
@@ -873,74 +877,30 @@ def engine_phase(gk, device: str = "cuda") -> dict:
     return rows
 
 
-def _overload_world(cfg, device: str):
-    """The `concurrent` scenario's world: 12 SPs on a 3-DC mesh with the
-    config's NICs and 2 disk slots each, SP latency from rng(42), six blobs
-    (8 and 4 chunksets) at Clay (4,2), 64 KiB chunksets; then SP 0 a 250 ms
-    straggler and SP 1 crashed."""
-    from repro_torch.core.contract import ShelbyContract
-    from repro_torch.core.placement import SPInfo
-    from repro_torch.net.backbone import Backbone
-    from repro_torch.storage.blob import BlobLayout
-    from repro_torch.storage.rpc import RPCNode
-    from repro_torch.storage.sdk import ShelbyClient
-    from repro_torch.storage.sp import StorageProvider
-
-    nic = cfg.nic()
-    layout = BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024, device=device)
-    contract = ShelbyContract()
-    bb = Backbone.mesh(3, base_latency_ms=6.0, gbps=25.0)
-    rng = np.random.default_rng(42)
-    sps = {}
-    for i in range(12):
-        contract.register_sp(SPInfo(sp_id=i, stake=1000.0, dc=f"dc{i % 3}", rack=f"r{i % 4}"))
-        sps[i] = StorageProvider(i, service=cfg.service(slots=2))
-        sps[i].behavior.latency_ms = float(rng.uniform(1.0, 12.0))
-        bb.register_node(f"sp{i}", f"dc{i % 3}", nic=nic)
-    for c in range(3):
-        bb.register_node(f"client{c}", f"dc{c}")
-    bb.register_node("writer", "dc0")
-    writer = ShelbyClient(contract, RPCNode("writer", contract, sps, layout), deposit=1e9)
-    metas, datas = [], {}
-    for b in range(6):
-        size = (8 if b == 0 else 4) * layout.chunkset_bytes
-        data = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
-        metas.append(writer.put(data))
-        datas[metas[-1].blob_id] = data
-    sps[0].behavior.latency_ms = 250.0
-    sps[1].crash()
-    return nic, layout, contract, bb, sps, metas, datas
-
-
 def overload_phase(gk, device: str = "cuda") -> dict:
-    """The `concurrent` ramp: 400 Poisson Zipf reads at 200, 1000 and 5000
-    rps, each free-running (no admission, no single-flight) and admitted
-    (``ShelbyConfig(rpc_max_inflight_fetches=6).admission()``); every read
-    decodes on the card.  Digest, sheds, coalesced legs and both p99s at
-    5000 rps must equal the JAX package's; settlement conserves."""
+    """The `concurrent` ramp in that scenario's world and fleets
+    (``repro_torch.scenarios.serving``): 400 Poisson Zipf reads at 200, 1000
+    and 5000 rps, each free-running (no admission, no single-flight) and
+    admitted (the scenario's fetch budget of 6); every read decodes on the
+    card.  Digest, sheds, coalesced legs and both p99s at 5000 rps must
+    equal the JAX package's; settlement conserves; every read's bytes are
+    the written ones."""
     import torch
 
-    from repro_torch.configs.shelby import ShelbyConfig
-    from repro_torch.net.fleet import RPCFleet
     from repro_torch.net.workloads import zipf_hotset
-    from repro_torch.storage.rpc import BackboneTransport, RPCNode
+    from repro_torch.scenarios import REGISTRY, load_builtin, serving
     from repro_torch.storage.sdk import ShelbyClient
 
-    cfg = ShelbyConfig(rpc_max_inflight_fetches=6)
-    nic, layout, contract, bb, sps, metas, datas = _overload_world(cfg, device)
+    load_builtin()
+    cfg = REGISTRY.get("concurrent").config()
+    nic = cfg.nic()
+    layout, contract, bb, sps, metas, written = serving._world(cfg, False, nic=nic, sp_slots=2,
+                                                               device=device)
+    datas = {meta.blob_id: data for meta, data in zip(metas, written)}
 
     def one_run(rate, admission=None, single_flight=True):
-        rpcs = []
-        for r in range(3):
-            node = f"rpc{r}"
-            if node not in bb._node_dc:
-                bb.register_node(node, f"dc{r}", nic=nic)
-            rpcs.append(RPCNode(node, contract, sps, layout, cache_chunksets=8,
-                                transport=BackboneTransport(sps, bb, node),
-                                scheduler=cfg.scheduler(), admission=admission,
-                                single_flight=single_flight))
-        bb.reset_accounting()
-        fleet = RPCFleet(rpcs, cfg.policy(), backbone=bb)
+        fleet = serving._fresh_fleet(cfg, layout, contract, bb, sps, nic=nic, cache_chunksets=8,
+                                     admission=admission, single_flight=single_flight)
         reqs = zipf_hotset(metas, clients=["client0", "client1", "client2"],
                            num_requests=OVERLOAD_REQUESTS, interarrival_ms=1000.0 / rate,
                            seed=11, arrival="poisson")
@@ -986,6 +946,140 @@ def overload_phase(gk, device: str = "cuda") -> dict:
             or rows[f"{top}rps_admitted"]["coalesced"] != OVERLOAD_COALESCED_5000):
         raise SystemExit(f"overload {top} rps: p99 {p99}, coalesced "
                          f"{rows[f'{top}rps_admitted']['coalesced']}")
+    return rows
+
+
+def _run_scenario_profiled(name: str, profiled: bool = True, **kw) -> tuple:
+    """``run_scenario(name, emit=False, **kw)``, under the profiler unless
+    ``profiled`` is false: its result, the device-busy row (wall only when
+    not profiled; ``with_trace_s`` adds the trace's processing) and
+    everything it printed (shown as well)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.scenarios import run_scenario
+
+    held, out = {}, io.StringIO()
+
+    def run():
+        held["res"] = run_scenario(name, emit=False, **kw)
+        torch.cuda.synchronize()
+
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        if profiled:
+            busy = device_busy(run)
+        else:
+            run()
+            busy = {"wall_s": time.perf_counter() - t, "device_busy_s": None,
+                    "idle_share": None, "gf_matmul_device_ms": None}
+    busy["with_trace_s"] = time.perf_counter() - t
+    print(out.getvalue(), end="", flush=True)
+    return held["res"], busy, out.getvalue()
+
+
+def scenario_phase(gk, device: str = "cuda") -> dict:
+    """The registered scenarios at full size on ``device``: each of
+    ``SCENARIOS`` through ``run_scenario`` under the profiler (a declared
+    SLO that fails raises), its digest and headline numbers held to the JAX
+    package's; ``engine`` with ``raise_on_violation=False``, every SLO but
+    ``ENGINE_OPEN_SLO`` a gate; ``churn`` again under ``SHELBY_SIMSAN=1``
+    (these two timed without the profiler);
+    a sanitized one-epoch ``run_sim`` against the CPU's; a sweep of
+    ``tune_admission``'s fetch budget."""
+    from repro_torch.core.simulation import honest_population, run_sim
+    from repro_torch.scenarios import KnobAxis, ScenarioProblem, load_builtin
+    from repro_torch.scenarios.report import metric_path
+
+    load_builtin()
+    rows = {}
+
+    def scenario_row(name, res, busy, printed, launches, digest=None):
+        digest = digest or res.digest or next(iter(re.findall(
+            rf"# {name} determinism digest: ([0-9a-f]{{16}}) OK", printed)), None)
+        row = {"scenario": name, "wall_s": busy["wall_s"], "with_trace_s": busy["with_trace_s"],
+               "device_busy_s": busy["device_busy_s"], "idle_share": busy["idle_share"],
+               "gf_matmul_launches": launches,
+               "gf_matmul_device_ms": busy["gf_matmul_device_ms"], "digest": digest,
+               "slos": {r.slo.metric: r.value for r in res.slo_results},
+               "slos_ok": {r.slo.metric: r.ok for r in res.slo_results},
+               "headline": {p: metric_path(res.payload, p) for p in res.scenario.headline}}
+        print(json.dumps({"scenario": row}), flush=True)
+        if launches == 0:
+            raise SystemExit(f"scenario {name} made no gf_matmul launch")
+        return row
+
+    for name in SCENARIOS:
+        seen = gk.gf_matmul.launches
+        res, busy, printed = _run_scenario_profiled(name, smoke=False, device=device)
+        row = rows[name] = scenario_row(name, res, busy, printed, gk.gf_matmul.launches - seen)
+        if name in SCENARIO_DIGESTS and row["digest"] != SCENARIO_DIGESTS[name]:
+            raise SystemExit(f"scenario {name}: digest {row['digest']}, "
+                             f"JAX package {SCENARIO_DIGESTS[name]}")
+        if row["headline"] != SCENARIO_HEADLINES[name]:
+            raise SystemExit(f"scenario {name}: headline {row['headline']}, "
+                             f"JAX package {SCENARIO_HEADLINES[name]}")
+
+    # engine: the run asserts no fallback, fast == heap at 10k, determinism and
+    # settlement conservation itself; its events/s SLO is the open finding.
+    # Not profiled: phase 12 profiles each rung of the same ramp
+    seen = gk.gf_matmul.launches
+    res, busy, printed = _run_scenario_profiled("engine", profiled=False, device=device,
+                                                raise_on_violation=False)
+    row = rows["engine"] = scenario_row("engine", res, busy, printed,
+                                        gk.gf_matmul.launches - seen,
+                                        digest=res.payload["digest_10k"])
+    for r in res.slo_results:
+        if r.slo.metric == ENGINE_OPEN_SLO:
+            print(f"engine SLO (open finding, reported not raised): {r.message()}", flush=True)
+        elif not r.ok:
+            raise SystemExit(f"scenario engine: {r.message()}")
+    if row["digest"] != ENGINE_DIGEST_10K:
+        raise SystemExit(f"scenario engine: 10k digest {row['digest']}, "
+                         f"JAX package {ENGINE_DIGEST_10K}")
+
+    # simsan on the card: observes, never moves an event
+    os.environ["SHELBY_SIMSAN"] = "1"
+    try:
+        seen = gk.gf_matmul.launches
+        res, busy, printed = _run_scenario_profiled("churn", profiled=False, smoke=False,
+                                                    device=device)
+        san = rows["churn_sanitized"] = scenario_row("churn", res, busy, printed,
+                                                     gk.gf_matmul.launches - seen)
+    finally:
+        del os.environ["SHELBY_SIMSAN"]
+    if san["digest"] != rows["churn"]["digest"]:
+        raise SystemExit(f"sanitized churn: digest {san['digest']}, "
+                         f"unsanitized {rows['churn']['digest']}")
+    seen = gk.gf_matmul.launches
+    sims = {dev: dataclasses.asdict(run_sim(honest_population(6), epochs=1, seed=5,
+                                            read_requests_per_epoch=20, device=dev,
+                                            sanitize=True))
+            for dev in (device, "cpu")}
+    rows["run_sim_sanitized"] = {"equal_to_cpu": sims[device] == sims["cpu"],
+                                 "gf_matmul_launches": gk.gf_matmul.launches - seen}
+    print(json.dumps({"run_sim_sanitized": rows["run_sim_sanitized"]}), flush=True)
+    if not rows["run_sim_sanitized"]["equal_to_cpu"]:
+        raise SystemExit("sanitized run_sim on the card differs from the CPU's")
+
+    # the optimiser's objective: each swept point reproduces the JAX package's
+    seen = gk.gf_matmul.launches
+    t = time.perf_counter()
+    prob = ScenarioProblem("tune_admission",
+                           (KnobAxis("rpc_max_inflight_fetches", SWEEP_FETCHES),),
+                           "goodput_mbps", smoke=False, verbose=False, device=device)
+    tuned = prob.sweep()
+    digests = {p.knobs.get("rpc_max_inflight_fetches"): p.digest for p in tuned.history}
+    rows["sweep"] = {"wall_s": time.perf_counter() - t, "digests": digests,
+                     "values": {str(p.knobs.get("rpc_max_inflight_fetches")): p.value
+                                for p in tuned.history},
+                     "best": tuned.best.knobs, "gf_matmul_launches": gk.gf_matmul.launches - seen}
+    print(json.dumps({"sweep": {**rows["sweep"], "digests": {str(k): v for k, v in
+                                                              digests.items()}}}), flush=True)
+    if digests != SWEEP_DIGESTS or tuned.best.knobs != {"rpc_max_inflight_fetches": SWEEP_BEST}:
+        raise SystemExit(f"sweep: digests {digests}, best {tuned.best.knobs}")
     return rows
 
 
@@ -1381,8 +1475,10 @@ def main(argv=None) -> int:
     del run, engine
 
     # -- 12. the cohort fast path at the engine scenario's scale --------------------------
-    _phase(f"engine: Zipf storms of {', '.join(f'{n:,}' for n in ENGINE_RAMP)} requests "
-           f"through the cohort fast path, {ENGINE_SPS} SPs, {ENGINE_RPCS} RPC nodes")
+    from repro_torch.scenarios import engine as eng
+
+    _phase(f"engine: Zipf storms of {', '.join(f'{n:,}' for n in eng.RAMP)} requests "
+           f"through the cohort fast path, {eng.NUM_SPS} SPs, {eng.NUM_RPCS} RPC nodes")
     zero_counts()  # count the engine path only
     engine_phase(gk)
     if read_counts("engine")["gf_matmul"] == 0:
@@ -1396,7 +1492,14 @@ def main(argv=None) -> int:
     if read_counts("overload")["gf_matmul"] == 0:
         raise SystemExit("the overload path made no gf_matmul launch")
 
-    # -- 14. the kernels line and the result ----------------------------------------------
+    # -- 14. the registered scenarios on the card ------------------------------------------
+    _phase(f"scenarios: {', '.join(SCENARIOS)} and engine at full size, simsan, a sweep")
+    zero_counts()  # count the scenario path only
+    scenario_phase(gk)
+    if read_counts("scenarios")["gf_matmul"] == 0:
+        raise SystemExit("the scenario path made no gf_matmul launch")
+
+    # -- 15. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),
@@ -1429,7 +1532,7 @@ def main(argv=None) -> int:
             line[-1]["shapes"] = {
                 key: {f: by_shape[shape][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
                 for key, shape in timed_shapes.items()
-                if key.startswith(("repair", "serve_repair", "das", "engine"))}
+                if key.startswith(("repair", "serve_repair", "das", "engine", "scenario"))}
         if line[-1]["launches"] == 0:
             raise SystemExit(f"{name} was launched on no path")
     print(card, flush=True)

@@ -21,9 +21,6 @@ Nash equilibrium), Theorem 2 (mutual dishonesty is not), Theorem 3
 
 The layout's byte work (encode, decodes, repairs) runs on ``device``: the
 card unless ``device="cpu"`` (the DAS extension of each blob included).
-The simsan sanitizer (``sanitize`` or ``SHELBY_SIMSAN``) is not part of
-this package yet and raises :class:`NotImplementedError` rather than being
-ignored.
 """
 from __future__ import annotations
 
@@ -109,13 +106,10 @@ def run_sim(
     epoch_ms: float = 250.0,  # simulated wall span of one churned epoch
     das=None,  # storage.das.DASSpec: extend blobs + sample every epoch
     engine: str | None = None,  # event-queue discipline (calendar|heap)
-    sanitize: bool | None = None,  # simsan: not ported (must stay off)
+    sanitize: bool | None = None,  # simsan: per-epoch payment conservation
 ) -> SimResult:
     if sanitize is None:
         sanitize = bool(os.environ.get("SHELBY_SIMSAN"))
-    if sanitize:
-        raise NotImplementedError(
-            "run_sim(sanitize) needs the simsan sanitizer (SHELBY_SIMSAN), not ported yet")
     params = params or AuditParams(p_a=0.5, auditors_per_audit=4, C=50, p_ata=0.3)
     layout = layout or BlobLayout(k=4, m=2, chunkset_bytes_target=64 * 1024,
                                   device=device)
@@ -247,6 +241,15 @@ def run_sim(
 
         def respond_ata(auditor, auditee, pos):
             return sps[auditor].reproduce_proof(auditee, pos)
+
+        if sanitize:
+            # simsan: the settlement invariant (every channel debit backed
+            # by a receipt) must already hold at EVERY epoch boundary, not
+            # just at close() — catching the first epoch that breaks it
+            # names the plane that leaked value
+            from repro_torch.analysis.simsan import check_payment_conservation
+            check_payment_conservation(client.current_session,
+                                       where=f"epoch {epoch}")
 
         last = contract.close_epoch(epoch, respond_storage, respond_ata)
         for i in sorted(sps):  # sps may have grown mid-epoch (joiners)

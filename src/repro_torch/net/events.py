@@ -44,9 +44,6 @@ Sync callers keep working: wrap a task in a fresh loop and
 drivers (``repro_torch.net.workloads.replay_open_loop`` /
 ``replay_closed_loop``) spawn one task per request on a shared loop and
 ``run()`` everything to completion.
-
-The runtime sanitizer (``sanitize=True`` / ``SHELBY_SIMSAN``) is not part
-of this package yet: asking for it raises :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -180,7 +177,8 @@ class TaskHandle:
         self.finished_ms = float("nan")
         self._joiners: list["TaskHandle"] = []
         # resource slots this task currently holds, as (key, priority,
-        # t_acquired) — lets cancel() give slots back
+        # t_acquired) — lets cancel() give slots back and lets simsan name
+        # leak holders at drain
         self.held: list[tuple[Any, int, float]] = []
         self._loop: "EventLoop | None" = None
 
@@ -438,16 +436,18 @@ class EventLoop:
             self._q = _BinaryHeap()
         else:
             raise ValueError(f"engine must be calendar|heap, got {self.engine!r}")
-        # simsan (the opt-in runtime sanitizer; SHELBY_SIMSAN=1 arms it for
-        # every loop) is not part of this package yet: refuse, never ignore
+        # simsan: opt-in runtime sanitizer (pop-order audit, slot-leak and
+        # off-loop-mutation detection); SHELBY_SIMSAN=1 turns it on for
+        # every loop in the process.  None when off — the hot path pays
+        # one `is not None` test per hook.
         if sanitize is None:
             sanitize = bool(os.environ.get("SHELBY_SIMSAN"))
         self.sanitize = sanitize
+        self._san = None
+        self._current: TaskHandle | None = None
         if sanitize:
-            raise NotImplementedError(
-                "the event-loop sanitizer (simsan) is not ported yet; unset "
-                "SHELBY_SIMSAN / pass sanitize=False"
-            )
+            from repro_torch.analysis.simsan import Sanitizer
+            self._san = Sanitizer(self)
         self._seq = itertools.count()
         self._resources: dict[Any, Resource] = {}
         self._tasks: list[TaskHandle] = []
@@ -469,7 +469,11 @@ class EventLoop:
     def resource(self, key: Any, capacity: int = 1) -> Resource:
         res = self._resources.get(key)
         if res is None:
-            res = Resource(key, capacity)
+            if self._san is not None:
+                from repro_torch.analysis.simsan import GuardedResource
+                res = GuardedResource(key, capacity, self._san)
+            else:
+                res = Resource(key, capacity)
             self._resources[key] = res
         return res
 
@@ -490,6 +494,17 @@ class EventLoop:
                 if k == key and p == priority:
                     del holder.held[i]
                     break
+        san = self._san
+        if san is not None:
+            san.on_touch(res, holder)
+            san.on_release(res, priority, holder)
+            with san.engine_op():
+                self._release_inner(res, priority)
+            san.record(res, holder)
+        else:
+            self._release_inner(res, priority)
+
+    def _release_inner(self, res: Resource, priority: int) -> None:
         res.in_use -= 1
         held = res.in_use_by_class.get(priority, 0)
         res.in_use_by_class[priority] = max(0, held - 1)
@@ -513,6 +528,8 @@ class EventLoop:
         return h
 
     def _push(self, t_ms: float, handle: TaskHandle, action: tuple[str, Any]) -> None:
+        if self._san is not None:
+            self._san.on_push(t_ms, handle)
         self._q.push((t_ms, next(self._seq), handle, action))
 
     def _finish(self, h: TaskHandle, *, result: Any = None,
@@ -535,10 +552,13 @@ class EventLoop:
         t, seq, h, (kind, value) = self._q.pop()
         self.events_processed += 1
         self.now = t
+        if self._san is not None:
+            self._san.on_pop(t, seq)
         if h.cancelled or h.done:
             return
         if self.trace is not None:
             self.trace.append((t, h.label, kind))
+        self._current = h
         try:
             effect = h.gen.throw(value) if kind == "throw" else h.gen.send(value)
         except StopIteration as stop:
@@ -554,6 +574,8 @@ class EventLoop:
         except Exception as err:
             self._finish(h, error=err)
             return
+        finally:
+            self._current = None
         self._dispatch(h, effect)
 
     def _dispatch(self, h: TaskHandle, effect: Any) -> None:
@@ -569,7 +591,17 @@ class EventLoop:
             self._push(arrival, h, ("resume", arrival))
         elif isinstance(effect, Acquire):
             res = self.resource(effect.resource, effect.capacity)
-            if res.can_grant(effect.priority, effect.limit):
+            if self._san is not None:
+                self._san.on_touch(res, h)
+                with self._san.engine_op():
+                    if res.can_grant(effect.priority, effect.limit):
+                        res.grant(effect.priority)
+                        h.held.append((res.key, effect.priority, self.now))
+                        self._push(self.now, h, ("resume", None))
+                    else:
+                        res.enqueue(effect.priority, h, self.now, effect.limit)
+                self._san.record(res, h)
+            elif res.can_grant(effect.priority, effect.limit):
                 res.grant(effect.priority)
                 h.held.append((res.key, effect.priority, self.now))
                 self._push(self.now, h, ("resume", None))
@@ -625,6 +657,11 @@ class EventLoop:
             raise RuntimeError(
                 f"event loop drained with {len(stuck)} task(s) still "
                 f"suspended (deadlock?): {names}")
+        if self._san is not None:
+            # a full drain must leave every resource slot returned; this is
+            # deliberately NOT checked in run_until, which abandons
+            # stragglers like a real client dropping in-flight RPCs
+            self._san.on_drain()
         return self.now
 
     def run_until(self, handle: TaskHandle) -> Any:

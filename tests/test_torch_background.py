@@ -204,8 +204,8 @@ def test_workload_generators_match_reference():
 
 
 def test_unported_replay_paths_raise():
-    """A batch now replays through the cohort fast path; the sanitizer is
-    the replay option still refused."""
+    """A batch replays through the cohort fast path, and the sanitizer is
+    ported: no replay option is refused any more."""
     from repro_torch.net.events import EventLoop
     from repro_torch.net.workloads import SampleRequest, replay_open_loop, zipf_hotset_batch
     from repro_torch.storage.sdk import ReceiptBatch
@@ -214,8 +214,7 @@ def test_unported_replay_paths_raise():
     batch = zipf_hotset_batch(metas, clients=["client"], num_requests=5, seed=1)
     rb, fast = client.replay(batch)
     assert isinstance(rb, ReceiptBatch) and fast.cohort is not None
-    with pytest.raises(NotImplementedError, match="simsan"):
-        EventLoop(sanitize=True)
+    assert EventLoop(sanitize=True)._san is not None
     # a sample of a blob without a DAS extension replays as a detection
     result = replay_open_loop(fleet, [SampleRequest(0.0, "client", metas[0].blob_id, 0, 0)])
     assert (result.das_samples, result.das_detections) == (1, 1)

@@ -537,3 +537,35 @@ def test_serve_goes_through_both_kernels(cuda):
     assert gk.gf_matmul.launches > launches[0]
     assert fa.flash_attention.launches == launches[1] + 23 * get_smoke("yi-9b").num_layers
     assert all(torch.equal(run.served[k], run.published[k]) for k in run.published)
+
+
+def test_tune_admission_on_the_card_equals_the_cpu(cuda):
+    """A registered regime run on the card gives the CPU plain path's
+    payload, digest and SLO values, and its reads decode through the kernel."""
+    from repro_torch.scenarios import run_scenario
+
+    launches = gk.gf_matmul.launches
+    card = run_scenario("tune_admission", smoke=True, emit=False, device=cuda)
+    assert gk.gf_matmul.launches > launches
+    cpu = run_scenario("tune_admission", smoke=True, emit=False, device="cpu")
+    assert card.digest == cpu.digest == "42db0c083314839d"  # the JAX package's smoke digest
+    assert [r.value for r in card.slo_results] == [r.value for r in cpu.slo_results]
+    assert card.slos_ok
+
+
+def test_sanitized_loop_on_the_card_keeps_the_digest(cuda, monkeypatch):
+    """simsan observes and never moves an event: a sanitized replay whose
+    reads decode on the card has the unsanitized digest."""
+    from repro_torch.analysis.simsan import Sanitizer
+    from repro_torch.net.events import EventLoop
+    from repro_torch.scenarios import run_scenario
+
+    digests = []
+    for armed in (False, True):
+        if armed:
+            monkeypatch.setenv("SHELBY_SIMSAN", "1")
+        else:
+            monkeypatch.delenv("SHELBY_SIMSAN", raising=False)
+        assert isinstance(EventLoop()._san, Sanitizer) == armed
+        digests.append(run_scenario("churn", smoke=True, emit=False, device=cuda).digest)
+    assert digests[0] == digests[1] == "4b71c434b103b010"  # the JAX package's smoke digest

@@ -34,7 +34,10 @@ def test_port_files_exist():
                 "src/repro_torch/storage/membership.py", "src/repro_torch/net/workloads.py",
                 "src/repro_torch/core/simulation.py", "src/repro_torch/core/durability.py",
                 "src/repro_torch/core/economics.py", "src/repro_torch/core/extend2d.py",
-                "src/repro_torch/storage/das.py", "chip_smoke.py"):
+                "src/repro_torch/storage/das.py", "src/repro_torch/analysis/simsan.py",
+                "src/repro_torch/analysis/simlint.py", "src/repro_torch/scenarios/serving.py",
+                "src/repro_torch/scenarios/engine.py", "src/repro_torch/scenarios/sweep.py",
+                "chip_smoke.py"):
         assert rel in names
 
 
@@ -86,6 +89,15 @@ def test_round_trip_with_jax_and_reference_blocked():
         rpc._cache.clear()
         assert client.get(meta.blob_id) == data
 
+        from repro_torch.analysis import lint_paths
+        from repro_torch.scenarios import REGISTRY, load_builtin, run_scenario
+        load_builtin()
+        assert len(REGISTRY) == 7 and lint_paths()
+        import contextlib, io
+        with contextlib.redirect_stdout(io.StringIO()):  # the scenario's report rows
+            res = run_scenario("tune_admission", smoke=True, emit=False, device="cpu")
+        assert res.slos_ok and res.digest
+
         import torch
         import repro_torch.models, repro_torch.serve, repro_torch.launch.serve
         from repro_torch.configs import get_smoke
@@ -123,7 +135,17 @@ def test_entry_points_raise_without_a_gpu():
 
 
 def test_sanitizer_is_refused_until_ported():
-    from repro_torch.net.events import EventLoop
+    """The sanitizer is ported: a sanitized loop carries the port's own
+    simsan, and a fault it exists to catch raises its error."""
+    from repro_torch.analysis.simsan import Sanitizer, SanitizerError
+    from repro_torch.net.events import Acquire, EventLoop
 
-    with pytest.raises(NotImplementedError):
-        EventLoop(sanitize=True)
+    loop = EventLoop(sanitize=True)
+    assert isinstance(loop._san, Sanitizer)
+
+    def leaker():
+        yield Acquire(("sp", 0), 1)
+
+    loop.spawn(leaker(), label="leaker")
+    with pytest.raises(SanitizerError, match="leak"):
+        loop.run()

@@ -244,9 +244,10 @@ def test_run_sim_refuses_unported_planes():
     from repro_torch.core.simulation import honest_population, run_sim
 
     pop = honest_population(6)
-    # overload control is ported (tests/test_torch_overload.py); simsan is not
-    with pytest.raises(NotImplementedError, match="simsan"):
-        run_sim(pop, device="cpu", sanitize=True)
+    # overload control and simsan are both ported: no plane is refused, and
+    # the per-epoch conservation check changes nothing
+    kw = dict(epochs=1, read_requests_per_epoch=10, device="cpu")
+    assert run_sim(pop, sanitize=True, **kw) == run_sim(pop, sanitize=False, **kw)
 
 
 def test_closed_forms_match_reference():
