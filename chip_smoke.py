@@ -25,7 +25,13 @@ the phase that caused it; any failure exits non-zero and prints no result:
    and attention also by their device time from a ``torch.profiler`` trace
    (the ``ms`` they report), attention in turns with
    its earlier CUDA-core kernel and ``scaled_dot_product_attention`` (a
-   yardstick the port never calls), with the kernel the dispatch rule picked;
+   yardstick the port never calls), with the kernel the dispatch rule picked,
+   also at phase 15's microbatch; ``flash_attention_bwd`` against its plain
+   version within ``BWD_TOL`` at phase 15's shape (B 4, S 4096, H 24, Hkv 2,
+   hd 128) and at edge cases (window, explicit positions with Sq != Sk and
+   ragged tiles, hd 256, g = 1, rows that see no key), the forward with its
+   row log-sum-exp equal to the forward without it, timed beside its bound
+   and SDPA's backward;
 3. the storage path at production size: a (10,6) Clay / 10 MiB-chunkset
    cluster of 24 SPs in 5 DCs, put a seeded blob, read it whole and at 3
    ranges across chunksets, crash 2 SPs and read again, mark one SP
@@ -93,8 +99,19 @@ the phase that caused it; any failure exits non-zero and prints no result:
    finding: its 100k speedup), every other number gated; ``churn`` again
    under ``SHELBY_SIMSAN=1`` (same digest) and a sanitized one-epoch
    ``run_sim`` equal to the CPU's; a 3-point sweep of ``tune_admission``'s
-   fetch budget whose digests and argmax equal the JAX package's;
-15. the card again, one JSON line per kernel, then the result line.
+   fetch budget whose digests and argmax equal the JAX package's; device
+   intervals read from the profiler's kineto events (no chrome-trace file);
+15. training over Shelby (``launch/train.py``'s ``train``) at starcoder2-3b's
+   published widths, depth cut to 2 layers, on ``build_cluster``: a
+   16,777,216-token corpus blob, batches of 8 x 4096 in two microbatches
+   (each batch one paid ``get_many``), a coded checkpoint at step 3, an SP crashed
+   at step 4, the k-of-n restore equal to the saved state, the SP wiped and
+   every chunk repaired (all verified), steps 4-5 again; gates: finite
+   losses, ``gf_matmul`` and attention launches, a backward launch per
+   layer, microbatch and step; then one step under the profiler and a
+   1 x 256 loss and gradient on the card against the CPU plain path;
+16. the script's seconds, the card again, one JSON line per kernel, then the
+   result line.
 """
 from __future__ import annotations
 
@@ -106,7 +123,6 @@ import pathlib
 import re
 import subprocess
 import sys
-import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -123,10 +139,33 @@ KERNELS = {  # name -> (source, the Pallas kernel it replaces)
                         "src/repro/kernels/flash_attention.py:73"),
     "sample_hash": ("src/repro_torch/kernels/csrc/sample_hash.cu",
                     "src/repro/kernels/sample_hash.py:49"),
+    # no Pallas kernel: the JAX package lets XLA differentiate this function
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:123"),
 }
 # flash_attention against its plain version: f32 to summation order; bf16
 # outputs are the same f32 result rounded, so within one rounding step
 ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2**-7, 2**-7)}  # (atol, rtol)
+# flash_attention_bwd (bf16) against its plain version (f32 inside): each of dq, dk, dv
+# within BWD_TOL of its largest entry; the kernel rounds P and dS to bf16 as tensor-core
+# operands (2^-9 relative per term) and each gradient to bf16 once
+BWD_TOL = 2**-6
+# the row log-sum-exp of the forward kernel against the plain version's, absolute
+LSE_ATOL = 1e-3
+# phase 15: training over Shelby at starcoder2-3b's published widths, depth cut 30 -> 2
+TRAIN_ARCH, TRAIN_LAYERS = "starcoder2-3b", 2
+TRAIN_CORPUS_TOKENS = 16 * 2**20  # 64 MiB of seeded int32 tokens, one blob
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 4096, 2  # train_4k's sequence
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 3, 4
+TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 1, 256  # the card-vs-CPU step
+# the card-vs-CPU step, bf16 on both (rounded at different places: cuBLAS and the CPU's
+# products, the kernels' bf16 P and dS): loss within TRAIN_LOSS_ATOL; gradients (one
+# vector of every parameter) within TRAIN_NOISE_FACTOR times bf16's own error on the CPU
+# (bf16 against f32 compute there) plus TRAIN_GRAD_FLOOR of their norm.  At the JAX
+# package's initial weights the attention scores have a spread of ~440 (its "scaled" init
+# divides by the head count, ROADMAP Queue 3 item 5): the softmax is one-hot to bf16
+# precision and the q/k gradients are rounding noise in any bf16 computation
+TRAIN_LOSS_ATOL, TRAIN_NOISE_FACTOR, TRAIN_GRAD_FLOOR = 0.02, 3.0, 0.01
 SERVE_ARCH, SERVE_LAYERS = "yi-9b", 2  # published widths; depth cut from 48 (host-bound publish)
 # warm decode is host-bound and single generations swing by a third: the median of nine
 WARM_GENERATIONS = 9
@@ -262,8 +301,12 @@ def gf_shapes(blob_mib: int, das_blobs: int) -> dict[str, tuple[int, int, int]]:
 
 def _traced(fn) -> tuple[float, list[dict]]:
     """Run ``fn`` under ``torch.profiler`` with CUDA activity only; return
-    its wall seconds and the trace's events."""
+    its wall seconds and the card's activities as trace-style events
+    (``cat`` kernel, gpu_memcpy or gpu_memset; ``ts`` and ``dur`` in
+    microseconds), read from the profiler's own kineto events: no
+    chrome-trace file is written and parsed."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -271,11 +314,16 @@ def _traced(fn) -> tuple[float, list[dict]]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return wall, json.load(f)["traceEvents"]
+    events = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(e, "is_user_annotation", bool)():
+            continue
+        name = e.name()
+        cat = ("gpu_memcpy" if name.startswith("Memcpy")
+               else "gpu_memset" if name.startswith("Memset") else "kernel")
+        events.append({"ph": "X", "cat": cat, "name": name, "ts": e.start_ns() / 1e3,
+                       "dur": e.duration_ns() / 1e3})
+    return wall, events
 
 
 PROFILER_TRIES = 3  # a trace now and then comes back without its kernel events
@@ -514,6 +562,96 @@ def check_flash_attention(cases, gen) -> list[dict]:
             raise SystemExit(f"flash_attention disagrees with its plain version in f32 at {b, sq, sk}")
         if fa.flash_attention.variant_launches["general"] != general + 1:
             raise SystemExit("f32 attention did not go to the general kernel")
+    torch.cuda.synchronize()
+    return rows
+
+
+def attention_bwd_bound_ms(q, k, vis) -> tuple[float, str]:
+    """Least time for attention's gradient with the (Sq, Sk) visibility
+    ``vis``: five products of 2 * hd operations per visible (query, key) pair
+    and query head (S and dP again, dV, dK, dQ) at the bf16 peak, or q, k, v,
+    o, dO, lse read once and dq, dk, dv written once."""
+    b, sq, h, hd = q.shape
+    ops_ms = 5 * 2.0 * hd * int(vis.sum()) * b * h / H100_BF16_FLOPS * 1e3
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * b * h * sq
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
+    """cases: (name, b, sq, sk, h, hkv, hd, causal, window, q_positions, k_positions), bf16.
+
+    Each case: the forward with its row log-sum-exp ("tile") equal to the
+    forward without it and its lse within ``LSE_ATOL`` of the plain
+    version's; ``flash_attention_bwd`` against ``flash_attention_bwd_ref``
+    (one batch element at a time) within ``BWD_TOL`` of each gradient's
+    largest entry.  The case named ``timed`` is also timed: the kernel in
+    turns with SDPA's backward (``library``, a yardstick the port never
+    calls; its forward is not timed) by CUDA events (``*host_ms``) and by
+    device time from a profiler trace (``ms``, ``library_ms``), the plain
+    version (per batch element, summed) by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    rows = []
+    for name, b, sq, sk, h, hkv, hd, causal, window, qpos, kpos in cases:
+        q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
+        do = torch.randn((b, sq, h, hd), generator=gen, device="cuda").bfloat16()
+        kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
+        o, lse = fa.flash_attention_lse(q, k, v, **kw)
+        same_o = torch.equal(o, fa.flash_attention_variant("tile", q, k, v, **kw))
+        grads = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        lse_err = err = rel = 0.0
+        for i in range(b):  # the plain version one batch element at a time (its f32 scores)
+            sl = slice(i, i + 1)
+            _, lse_ref = fa.flash_attention_lse_ref(q[sl], k[sl], v[sl], **kw)
+            lse_err = max(lse_err, float((lse[sl] - lse_ref).abs().max()))
+            ref = fab.flash_attention_bwd_ref(q[sl], k[sl], v[sl], o[sl], do[sl], lse[sl], **kw)
+            for g, r in zip(grads, ref):
+                e = float((g[sl].float() - r.float()).abs().max())
+                err, rel = max(err, e), max(rel, e / float(r.float().abs().max()))
+            del ref, lse_ref
+        row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "causal": causal,
+               "window": window, "forward_with_lse_equal": same_o, "lse_max_abs_err": lse_err,
+               "max_abs_err": err, "max_rel_err": rel, "tol": BWD_TOL}
+        if name == timed:
+            vis = fa.visible(qpos, kpos, causal, window)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            assert causal and not window and sq == sk  # SDPA's own causal mask is the same here
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            dot = do.transpose(1, 2)
+
+            def kern():
+                return fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+
+            def lib():
+                return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+            def plain():
+                for i in range(b):
+                    sl = slice(i, i + 1)
+                    fab.flash_attention_bwd_ref(q[sl], k[sl], v[sl], o[sl], do[sl], lse[sl], **kw)
+
+            host = {"kernel": [_time_ms(kern, 10)], "library": [_time_ms(lib, 10)]}
+            host["library"].append(_time_ms(lib, 10))
+            host["kernel"].append(_time_ms(kern, 10))
+            dev = {what: _device_ms(fn, 10)[0] for what, fn in (("kernel", kern), ("library", lib))}
+            bound, by = attention_bwd_bound_ms(q, k, vis)
+            row.update(ms=dev["kernel"], host_ms=min(host["kernel"]), library_ms=dev["library"],
+                       library_host_ms=min(host["library"]), plain_ms=_time_ms(plain, 1),
+                       bound_ms=bound, bound_by=by)
+            del ot, qt, kt, vt
+        print(json.dumps({"flash_attention_bwd_check": row}), flush=True)
+        if not same_o or lse_err > LSE_ATOL or rel > BWD_TOL:
+            raise SystemExit(f"flash_attention_bwd disagrees with its plain version in case {name}")
+        rows.append(row)
+        del q, k, v, do, o, lse, grads
     torch.cuda.synchronize()
     return rows
 
@@ -1121,6 +1259,141 @@ def serve_card_vs_cpu(cfg, run, steps: int = 2) -> dict:
     return row
 
 
+def model_flops(cfg, params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step (no recomputation counted): 6 per
+    parameter per token (the tied embedding once, as the head's product),
+    and attention's 4 * hd per visible (query, key) pair and head forward,
+    three times that with its backward."""
+    pairs = seq * (seq + 1) // 2
+    return 6.0 * params * batch * seq + 12.0 * cfg.head_dim_ * cfg.num_heads * pairs * batch \
+        * cfg.num_layers
+
+
+def train_card_vs_cpu(cfg, params, seed: int) -> dict:
+    """One loss and gradient at TRAIN_CMP_BATCH x TRAIN_CMP_SEQ from the
+    trained parameters on the card (bf16) and on the CPU plain path, in bf16
+    and with f32 compute (the models' COMPUTE_DTYPE set to f32 for that pass):
+    the card within TRAIN_NOISE_FACTOR times the CPU's own bf16 error."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.train.step import make_loss_fn
+
+    loss_fn = make_loss_fn(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_CMP_BATCH, TRAIN_CMP_SEQ + 1), generator=gen)
+    out, times = {}, {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16), ("cpu", torch.float32)):
+        name = f"{dev}_{str(dtype)[6:]}"
+        leaves = {k: t.detach().to(dev).requires_grad_(True) for k, t in params.items()}
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        t, layers.COMPUTE_DTYPE = time.perf_counter(), dtype
+        try:
+            loss, _ = loss_fn(leaves, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        out[name] = (float(loss.detach()), torch.cat([g.float().cpu().reshape(-1) for g in grads]))
+        times[name] = time.perf_counter() - t
+        del leaves, grads
+    (l_card, g_card), (l_cpu, g_cpu), (l_f32, g_f32) = out.values()
+    norm = float(g_f32.norm())
+    dist, noise = float((g_card - g_cpu).norm()), float((g_cpu - g_f32).norm())
+    row = {"batch": TRAIN_CMP_BATCH, "seq": TRAIN_CMP_SEQ, "loss_card": l_card,
+           "loss_cpu": l_cpu, "loss_cpu_f32": l_f32,
+           "grad_rel_dist_card_cpu": dist / norm, "grad_rel_err_cpu_bf16_vs_f32": noise / norm,
+           "grad_rel_dist_card_vs_f32": float((g_card - g_f32).norm()) / norm,
+           "loss_atol": TRAIN_LOSS_ATOL, "noise_factor": TRAIN_NOISE_FACTOR,
+           "grad_floor": TRAIN_GRAD_FLOOR, "s": times}
+    print(json.dumps({"train_card_vs_cpu": row}), flush=True)
+    if (abs(l_card - l_cpu) > TRAIN_LOSS_ATOL
+            or dist > TRAIN_NOISE_FACTOR * noise + TRAIN_GRAD_FLOOR * norm):
+        raise SystemExit("a training step on the card disagrees with the CPU plain path")
+    return row
+
+
+def train_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
+    """``launch/train.py``'s flow at starcoder2-3b's published widths, depth
+    cut to TRAIN_LAYERS, on ``build_cluster`` (8 SPs, Clay (4,2), 256 KiB
+    chunksets): a TRAIN_CORPUS_TOKENS corpus as one blob, batches of
+    TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICROBATCHES microbatches, each one paid
+    ``get_many``, a coded checkpoint every TRAIN_CKPT_EVERY steps, an SP
+    crashed at TRAIN_FAIL_AT, the checkpoint restored k-of-n (equal to the
+    saved state), the SP wiped and repaired, the steps after the checkpoint
+    run again.  Then one step under the profiler and one loss and gradient
+    against the CPU plain path."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch.train import loss_fell, train
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(get(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    n_params = build(cfg).param_count()
+    print(json.dumps({"train_config": {
+        "arch": cfg.name, "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab, "norm": cfg.norm, "mlp": cfg.mlp, "params": n_params,
+        "layers": f"{cfg.num_layers} (cut from {get(TRAIN_ARCH).num_layers}: host-bound "
+                  "checkpoint I/O)",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICROBATCHES,
+        "corpus_tokens": TRAIN_CORPUS_TOKENS, "steps": TRAIN_STEPS,
+        "ckpt_every": TRAIN_CKPT_EVERY, "fail_at": TRAIN_FAIL_AT}}), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # count the training path only
+    run = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                ckpt_every=TRAIN_CKPT_EVERY, fail_at=TRAIN_FAIL_AT,
+                num_microbatches=TRAIN_MICROBATCHES, corpus_tokens=TRAIN_CORPUS_TOKENS,
+                device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    counts = read_counts("train")
+    steps_run = len(run.losses)
+    backward = TRAIN_LAYERS * TRAIN_MICROBATCHES * steps_run
+    if not all(np.isfinite(run.losses)):
+        raise SystemExit(f"non-finite training loss: {run.losses}")
+    if (counts["gf_matmul"] == 0 or counts["flash_attention_bwd"] != backward
+            or counts["flash_attention"] != 2 * backward  # each forward again in its backward
+            or variant_launches["train"]["tile"] != counts["flash_attention"]):
+        raise SystemExit(f"the training path's launches are off: {counts}, "
+                         f"attention {variant_launches['train']}, {backward} backward expected")
+    if run.restored_step != TRAIN_CKPT_EVERY or not run.restored_equal:
+        raise SystemExit(f"restored step {run.restored_step}: equal {run.restored_equal}")
+    if not run.repairs or run.repair_failures or not all(r.verified for r in run.repairs):
+        raise SystemExit(f"repairs after the crash: {len(run.repairs)}, "
+                         f"failures {run.repair_failures[:3]}")
+    step_s = [t for rep in run.reports for t in rep.step_s]
+    data_s = [t for rep in run.reports for t in rep.data_s]
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]  # the median, past the first step
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    mem = torch.cuda.max_memory_allocated()
+    x, y = next(run.dataset.batches(1, background=False))
+    batch = {"tokens": torch.as_tensor(x, dtype=torch.int64, device="cuda"),
+             "labels": torch.as_tensor(y, dtype=torch.int64, device="cuda")}
+    busy = device_busy(lambda: run.trainer.step_fn(run.state, batch))
+    rep0 = run.reports[0]
+    row = {
+        "losses": run.losses, "loss_fell": loss_fell(run.losses), "steps_run": steps_run,
+        "step_s": step_s, "steady_step_s": steady, "tokens/s": tokens / steady,
+        "model_flops_per_step": flops, "mfu_of_989_tflops": flops / steady / H100_BF16_FLOPS,
+        "data_wait_s": data_s, "data_wall_share": sum(data_s) / (sum(data_s) + sum(step_s)),
+        "profiled_step": busy, "corpus_put_s": run.corpus_put_s,
+        "ckpt_bytes": rep0.ckpt_bytes, "ckpt_save_s": rep0.ckpt_s,
+        "ckpt_save_GB/s": rep0.ckpt_bytes / rep0.ckpt_s / 1e9,
+        "restored_step": run.restored_step, "restored_equal": run.restored_equal,
+        "restore_s": run.restore_s, "restore_GB/s": run.restore_bytes / run.restore_s / 1e9,
+        "repairs": len(run.repairs), "repairs_msr": sum(r.mode == "msr" for r in run.repairs),
+        "repair_s": run.repair_s, "launches": counts, "max_memory_allocated": mem,
+    }
+    print(json.dumps({"train": row}), flush=True)
+    params = run.state["params"]
+    del run, batch
+    row["card_vs_cpu"] = train_card_vs_cpu(cfg, params, seed)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blob-mib", type=int, default=1024, help="blob size in MiB (default 1024)")
@@ -1139,13 +1412,14 @@ def main(argv=None) -> int:
     from repro_torch.core import commitments as cm
     from repro_torch.core.clay import ClayCode
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import gf_matmul as gk
     from repro_torch.kernels import sample_hash as sh
     from repro_torch.launch.cluster import build_cluster
     from repro_torch.models.attention import ring_positions
 
     wrappers = {"gf_matmul": gk.gf_matmul, "flash_attention": fa.flash_attention,
-                "sample_hash": sh.sample_hash}
+                "sample_hash": sh.sample_hash, "flash_attention_bwd": fab.flash_attention_bwd}
     path_launches: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
 
     variant_launches: dict[str, dict[str, int]] = {}  # path -> attention kernel -> launches
@@ -1175,18 +1449,24 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     # one nvcc per csrc/<name>.cu, all started together (each waits in its own thread)
     with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(lambda lib: lib(), (gk._lib, sh._lib, fa._lib)))
+        list(pool.map(lambda lib: lib(), (gk._lib, sh._lib, fa._lib, fab._lib)))
     print(f"kernel build+load ({', '.join(KERNELS)}): {time.perf_counter() - t0:.3f} s",
           flush=True)
     from repro_torch.kernels import _build
 
-    ptxas = {name: _build.ptxas_report(name) for name in ("gf_matmul", "flash_attention")}
+    ptxas = {name: _build.ptxas_report(name)
+             for name in ("gf_matmul", "flash_attention", "flash_attention_bwd")}
     for name, lines in ptxas.items():  # registers, spills, shared memory
         for line in lines:
             print(f"ptxas {name}: {line}", flush=True)
     print(json.dumps({"gf_matmul_ptxas": {
         "kernels": sum("Compiling entry" in ln for ln in ptxas["gf_matmul"]),
         "spill_bytes": sum(int(x) for ln in ptxas["gf_matmul"]
+                           for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))}}),
+          flush=True)
+    print(json.dumps({"flash_attention_bwd_ptxas": {
+        "kernels": sum("Compiling entry" in ln for ln in ptxas["flash_attention_bwd"]),
+        "spill_bytes": sum(int(x) for ln in ptxas["flash_attention_bwd"]
                            for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))}}),
           flush=True)
 
@@ -1229,8 +1509,26 @@ def main(argv=None) -> int:
         ("decode_4096_pos1000", 16, 1, 4096, 32, 4, 128, True, 0, ar(1, 1000), ar(4096)),
         # queries -128..127: the first 128 see no key while tiles past 127 are skipped
         ("row_sees_no_key", 1, 256, 512, 32, 4, 128, True, 0, ar(256, -128), ar(512)),
+        # phase 15's forward: a microbatch of starcoder2-3b (H 24, Hkv 2) at train_4k
+        ("train_microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, 24, 2, 128,
+         True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
     ]
     attn_checks = check_flash_attention(attn_cases, gen)
+
+    _phase("flash_attention_bwd vs plain (bf16; phase 15's shape: B 4, S 4096, H 24, Hkv 2, "
+           "hd 128)")
+    bwd_cases = [
+        ("train_microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, 24, 2, 128,
+         True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
+        ("window", 2, 300, 300, 24, 2, 128, True, 64, ar(300), ar(300)),
+        # a block of queries at the end of a longer cache; Sq != Sk, ragged last tiles
+        ("explicit_positions_ragged", 2, 100, 333, 8, 2, 64, True, 0, ar(100, 233), ar(333)),
+        ("noncausal_hd256_sq_ne_sk", 1, 130, 200, 4, 2, 256, False, 0, ar(130), ar(200)),
+        ("g1_mha", 2, 257, 257, 8, 8, 128, True, 0, ar(257), ar(257)),
+        # queries -5..10: the first five see no key (weights 1/Sk, no score gradient)
+        ("rows_see_no_key", 1, 16, 24, 4, 2, 16, True, 0, ar(16, -5), ar(24)),
+    ]
+    bwd_checks = check_flash_attention_bwd(bwd_cases, gen, timed="train_microbatch")
 
     # -- 3. the main path at production size -------------------------------------------
     _phase(f"slice: put/read a {args.blob_mib} MiB blob at (10,6), 10 MiB chunksets")
@@ -1499,14 +1797,20 @@ def main(argv=None) -> int:
     if read_counts("scenarios")["gf_matmul"] == 0:
         raise SystemExit("the scenario path made no gf_matmul launch")
 
-    # -- 15. the kernels line and the result ----------------------------------------------
+    # -- 15. training over Shelby at starcoder2-3b's widths --------------------------------
+    _phase(f"train: {TRAIN_ARCH} at published widths, {TRAIN_LAYERS} layers, through Shelby")
+    train_phase(args.seed, zero_counts, read_counts, variant_launches)
+
+    # -- 16. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),
         "flash_attention": next(r for r in attn_checks if r["case"] == "serve_decode"),
+        "flash_attention_bwd": next(r for r in bwd_checks if "ms" in r),
     }
     errs = {"gf_matmul": max_err, "sample_hash": max(r["max_abs_err"] for r in sh_checks),
-            "flash_attention": max(r["max_abs_err"] for r in attn_checks)}
+            "flash_attention": max(r["max_abs_err"] for r in attn_checks),
+            "flash_attention_bwd": max(r["max_abs_err"] for r in bwd_checks)}
     line = []
     for name, (source, replaces) in KERNELS.items():
         row = timed[name]
@@ -1527,6 +1831,11 @@ def main(argv=None) -> int:
                 cases={r["case"]: {key: r[key] for key in (
                     "variant", "ms", "host_ms", "previous_ms", "library_ms", "bound_ms",
                     "bound_by")} for r in attn_checks})
+        if name == "flash_attention_bwd":  # device ms above; host ms and the other cases
+            line[-1].update(
+                host_ms=row["host_ms"], library_host_ms=row["library_host_ms"],
+                max_rel_err=max(r["max_rel_err"] for r in bwd_checks),
+                cases={r["case"]: r["max_rel_err"] for r in bwd_checks})
         if name == "gf_matmul":  # the repair and DAS shapes beside the put's encode
             by_shape = {(r["m"], r["k"], r["n"]): r for r in checks}
             line[-1]["shapes"] = {
@@ -1535,6 +1844,7 @@ def main(argv=None) -> int:
                 if key.startswith(("repair", "serve_repair", "das", "engine", "scenario"))}
         if line[-1]["launches"] == 0:
             raise SystemExit(f"{name} was launched on no path")
+    print(json.dumps({"total_s": time.perf_counter() - _STARTED}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,1 @@
+"""data layer of the PyTorch port (see the package docstring)."""

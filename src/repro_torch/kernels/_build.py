@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled for Hopper (``sm_90a``) into ``build/repro_torch/lib<name>-<hash>.so``
 at the repository root (a directory git ignores) the first time it is
-needed.  The hash covers the source and the flags, so an edited kernel is
-rebuilt and a stale library is never loaded.  No PyTorch headers are
+needed.  The hash covers the source, the headers beside it (``csrc/*.cuh``)
+and the flags, so an edited kernel or header is rebuilt and a stale library
+is never loaded.  No PyTorch headers are
 involved, so a build takes seconds.
 """
 from __future__ import annotations
@@ -38,7 +39,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(path.read_bytes()
+                   for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

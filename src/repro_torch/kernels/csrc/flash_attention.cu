@@ -58,6 +58,13 @@
 // recognised by its running max staying at -1e30 and given the mean of V
 // over all Sk keys, as the unskipped softmax of equal scores would give.
 //
+// The row log-sum-exp (training): "tile" and "general" take an optional
+// lse (B, H, Sq) f32 output, written in the epilogue from the running (m, l)
+// as the natural log of sum_j exp(s[i, j]) -- the softmax statistics that
+// flash_attention_bwd.cu recomputes P from.  A row that sees no key gets
+// -1e30 (its weights are 1/Sk, as above).  Null on the serve path: serving's
+// launches and outputs are unchanged.  "split" (decode) has none.
+//
 // Not yet Hopper-specific: wgmma and TMA (with mbarriers) would lift the tile
 // kernel toward the bf16 peak; mma.sync and cp.async are the first step.
 //
@@ -74,11 +81,11 @@
 
 #include <climits>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
-constexpr float kMasked = -1e30f;  // the JAX package's NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxHeadDim = 256;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -90,28 +97,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Set a kernel's dynamic shared memory limit once per size, not per launch.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, int* done) {
-  if (static_cast<int>(bytes) <= *done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err == cudaSuccess) *done = static_cast<int>(bytes);
-  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -139,8 +124,9 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ q_pos,
-                       const int* __restrict__ k_pos, T* __restrict__ o, int sq, int sk,
-                       int h, int hkv, int hd, float scale, int causal, int window) {
+                       const int* __restrict__ k_pos, T* __restrict__ o,
+                       float* __restrict__ lse, int sq, int sk, int h, int hkv, int hd,
+                       float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* qs = smem;                   // [kRows][hd], scaled
   float* ks = qs + kRows * hd;        // [kTile][hd + 1]
@@ -254,6 +240,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= rows) continue;
     const int qi = row / g, head = kvh * g + (row - qi * g);
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)  // m and l are the same in every lane
+      lse[(b * h + head) * sq + qi] = m[i] == kMasked ? kMasked : m[i] + logf(l[i]);
     T* orow = o + ((b * sq + qi) * h + head) * hd;
 #pragma unroll
     for (int dd = 0; dd < kDPerLane; ++dd) {
@@ -265,8 +253,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int general_launch(const void* q, const void* k, const void* v, const void* q_pos,
-                   const void* k_pos, void* o, int b, int sq, int sk, int h, int hkv, int hd,
-                   float scale, int causal, int window, cudaStream_t stream) {
+                   const void* k_pos, void* o, void* lse, int b, int sq, int sk, int h, int hkv,
+                   int hd, float scale, int causal, int window, cudaStream_t stream) {
   static int smem_set = 0;
   const size_t smem = general_smem_bytes(hd);
   cudaError_t err = allow_smem(flash_attention_kernel<T>, smem, &smem_set);
@@ -275,8 +263,8 @@ int general_launch(const void* q, const void* k, const void* v, const void* q_po
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), hkv, b);
   flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<T*>(o), sq, sk,
-      h, hkv, hd, scale, causal, window);
+      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<T*>(o),
+      static_cast<float*>(lse), sq, sk, h, hkv, hd, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,91 +272,8 @@ int general_launch(const void* q, const void* k, const void* v, const void* q_po
 // tensor-core tiles: shared by "tile" and "split"
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
 constexpr int kKeys = 64;   // keys per K/V tile
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = kTcWarps * 32;
 constexpr int kSplitRows = 16;            // rows of a "split" block
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `r` in a [rows][HD] bf16 tile
-// whose chunks are XOR-swizzled by the row: the 8 rows that one ldmatrix
-// phase reads at one column land on 8 different bank groups.
-template <int HD>
-__device__ __forceinline__ uint32_t swz(int r, int chunk) {
-  return static_cast<uint32_t>(r * HD * 2 + ((chunk ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                          uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// Stage `nrows` rows of hd bf16 each into a swizzled [nrows][HD] tile; row r
-// comes from src(r) (nullptr: zeros).  Chunks past hd are zero-filled.
-template <int HD, int NROWS, typename Src>
-__device__ __forceinline__ void stage_rows(uint32_t dst, int hd, const bf16* base, Src src) {
-  constexpr int kChunks = HD / 8;
-  for (int e = threadIdx.x; e < NROWS * kChunks; e += kTcThreads) {
-    const int r = e / kChunks, c = e - r * kChunks;
-    const bf16* p = src(r);
-    const bool valid = p != nullptr && c * 8 < hd;
-    cp_async16(dst + swz<HD>(r, c), valid ? p + c * 8 : base, valid);
-  }
-}
-
-// What a tile of keys at positions in [kmin, kmax] holds for rows at
-// positions in [qmin, qmax]: 0 every pair hidden, 1 some hidden, 2 every pair visible.
-__device__ __forceinline__ int tile_state_of(int kmin, int kmax, int qmin, int qmax, int causal,
-                                             int window) {
-  if (!causal && window <= 0) return 2;
-  const bool hidden = (causal && kmin > qmax) ||
-                      (window > 0 && static_cast<long long>(qmin) - kmax >= window);
-  if (hidden) return 0;
-  const bool full = (!causal || kmax <= qmin) &&
-                    (window <= 0 || static_cast<long long>(qmax) - kmin < window);
-  return full ? 2 : 1;
-}
 
 // What a K/V tile holds for the rows with positions in [qmin, qmax]:
 // 0 every pair hidden, 1 some hidden, 2 every pair visible.  Computed by each
@@ -510,50 +415,6 @@ struct RowState {
   }
 };
 
-// S (16 rows x 8 NT keys) = Q rows [qrow0, +16) . K rows [krow0, +8 NT) over HD
-template <int HD, int NT>
-__device__ __forceinline__ void qk(float (&s)[NT][4], uint32_t qs, int qrow0, uint32_t ks,
-                                   int krow0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a0, a1, a2, a3;
-    ldsm_x4(a0, a1, a2, a3, qs + swz<HD>(qrow0 + (lane & 15), kk * 2 + (lane >> 4)));
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b0, b1, b2, b3;
-      const int r = krow0 + np * 16 + ((lane >> 4) << 3) + (lane & 7);
-      ldsm_x4(b0, b1, b2, b3, ks + swz<HD>(r, kk * 2 + ((lane >> 3) & 1)));
-      mma16816(s[2 * np], a0, a1, a2, a3, b0, b1);
-      mma16816(s[2 * np + 1], a0, a1, a2, a3, b2, b3);
-    }
-  }
-}
-
-// acc (16 rows x HD) += P (16 rows x 8 NT keys, in s) . V rows [vrow0, +8 NT)
-template <int HD, int NT>
-__device__ __forceinline__ void pv(float (&acc)[HD / 8][4], const float (&p)[NT][4], uint32_t vs,
-                                   int vrow0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a0 = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const int r = vrow0 + kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-#pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_t(b0, b1, b2, b3, vs + swz<HD>(r, dp * 2 + (lane >> 4)));
-      mma16816(acc[2 * dp], a0, a1, a2, a3, b0, b1);
-      mma16816(acc[2 * dp + 1], a0, a1, a2, a3, b2, b3);
-    }
-  }
-}
-
 // The mean of V over all sk keys of (b, kvh), feature by feature, into
 // meanv[hd] (f32, shared): the output of a row that sees no key.
 __device__ void mean_v(const bf16* __restrict__ v, long long b, int sk, int hkv, int kvh, int hd,
@@ -598,8 +459,9 @@ template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 2)
 attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ q_pos,
-                 const int* __restrict__ k_pos, bf16* __restrict__ o, int sq, int sk, int h,
-                 int hkv, int hd, float scale_log2, int causal, int window) {
+                 const int* __restrict__ k_pos, bf16* __restrict__ o, float* __restrict__ lse,
+                 int sq, int sk, int h, int hkv, int hd, float scale_log2, int causal,
+                 int window) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t qs = smem_u32(smem_raw);
   const uint32_t kv0 = qs + 2 * HD * kTileRows;
@@ -678,6 +540,10 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = i ? rb : ra;
     if (row >= rows) continue;
     const float inv = blind[i] ? 0.f : 1.f / rs.l[i];
+    if (lse != nullptr && tig == 0) {  // the quad shares m and (reduced) l: one writes
+      const int qi = row / g, head = kvh * g + (row - qi * g);
+      lse[(b * h + head) * sq + qi] = blind[i] ? kMasked : (rs.m[i] + log2f(rs.l[i])) * kLn2;
+    }
     bf16* orow = out_row(o, b, row, kvh, sq, h, hd, g);
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
@@ -693,8 +559,8 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 int tile_launch(const void* q, const void* k, const void* v, const void* q_pos, const void* k_pos,
-                void* o, int b, int sq, int sk, int h, int hkv, int hd, float scale, int causal,
-                int window, cudaStream_t stream) {
+                void* o, void* lse, int b, int sq, int sk, int h, int hkv, int hd, float scale,
+                int causal, int window, cudaStream_t stream) {
   static int smem_set = 0;
   constexpr size_t smem = tile_smem_bytes<HD>();
   cudaError_t err = allow_smem(attn_tile_kernel<HD>, smem, &smem_set);
@@ -703,8 +569,8 @@ int tile_launch(const void* q, const void* k, const void* v, const void* q_pos, 
   const dim3 grid(static_cast<unsigned>((rows + kTileRows - 1) / kTileRows), hkv, b);
   attn_tile_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<bf16*>(o), sq,
-      sk, h, hkv, hd, scale * kLog2e, causal, window);
+      static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<bf16*>(o),
+      static_cast<float*>(lse), sq, sk, h, hkv, hd, scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -972,39 +838,41 @@ bool shape_ok(int b, int sq, int sk, int h, int hkv, int hd) {
 }  // namespace
 
 // All launchers: q, o: (b, sq, h, hd); k, v: (b, sk, hkv, hd), contiguous, on
-// the current device; q_pos (sq,) and k_pos (sk,) int32.  Each launches on
-// `stream` and returns the cudaError_t of its launches (0 on success).
+// the current device; q_pos (sq,) and k_pos (sk,) int32; lse, where taken, a
+// (b, h, sq) f32 output or null.  Each launches on `stream` and returns the
+// cudaError_t of its launches (0 on success).
 
 // "general": bf16 when `bf16` is nonzero, f32 otherwise; any hd <= 256.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* q_pos, const void* k_pos, void* o, int b,
-                                      int sq, int sk, int h, int hkv, int hd, float scale,
+                                      const void* q_pos, const void* k_pos, void* o, void* lse,
+                                      int b, int sq, int sk, int h, int hkv, int hd, float scale,
                                       int causal, int window, int bf16, void* stream) {
   if (!shape_ok(b, sq, sk, h, hkv, hd)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return general_launch<__nv_bfloat16>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, hkv, hd, scale,
-                                         causal, window, s);
+    return general_launch<__nv_bfloat16>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd,
+                                         scale, causal, window, s);
   }
-  return general_launch<float>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, hkv, hd, scale, causal,
-                               window, s);
+  return general_launch<float>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, scale,
+                               causal, window, s);
 }
 
 // "tile": bf16, hd a multiple of 8 (padded to 64, 128 or 256), 16-byte aligned rows.
 extern "C" int flash_attention_tile_launch(const void* q, const void* k, const void* v,
-                                           const void* q_pos, const void* k_pos, void* o, int b,
-                                           int sq, int sk, int h, int hkv, int hd, float scale,
-                                           int causal, int window, void* stream) {
+                                           const void* q_pos, const void* k_pos, void* o,
+                                           void* lse, int b, int sq, int sk, int h, int hkv,
+                                           int hd, float scale, int causal, int window,
+                                           void* stream) {
   if (!shape_ok(b, sq, sk, h, hkv, hd) || hd % 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
-    return tile_launch<64>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, hkv, hd, scale, causal,
+    return tile_launch<64>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, scale, causal,
                            window, s);
   if (hd <= 128)
-    return tile_launch<128>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, hkv, hd, scale, causal,
-                           window, s);
-  return tile_launch<256>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, hkv, hd, scale, causal, window,
-                         s);
+    return tile_launch<128>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, scale, causal,
+                            window, s);
+  return tile_launch<256>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, scale, causal,
+                          window, s);
 }
 
 // "split": as "tile", over `nsplit` ranges of `tiles_per_split` (at most 4)

@@ -22,6 +22,12 @@ attention of ``repro/models/layers.py::flash_attention`` and
 (naive softmax in f32, as ``repro/kernels/ref.py::flash_attention_ref``,
 extended by positions and window); ``kernels/ops.py`` takes it for CPU
 tensors only.
+
+For training, :func:`flash_attention_lse` also returns each row's
+log-sum-exp (B, H, Sq) f32, the statistics the backward kernel
+(``kernels/flash_attention_bwd.py``) recomputes P from: the "tile" kernel
+writes it (or "general" for what "tile" does not take);
+``flash_attention_lse_ref`` is its plain version.
 """
 from __future__ import annotations
 
@@ -121,8 +127,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     shape = [i, i, i, i, i, i, ctypes.c_float, i, i]  # b sq sk h hkv hd scale causal window
-    lib.flash_attention_launch.argtypes = [p] * 6 + shape + [i, p]
-    lib.flash_attention_tile_launch.argtypes = [p] * 6 + shape + [p]
+    lib.flash_attention_launch.argtypes = [p] * 7 + shape + [i, p]  # q k v qpos kpos o lse
+    lib.flash_attention_tile_launch.argtypes = [p] * 7 + shape + [p]
     lib.flash_attention_split_launch.argtypes = [p] * 9 + shape + [i, i, p]
     for fn in (lib.flash_attention_launch, lib.flash_attention_tile_launch,
                lib.flash_attention_split_launch):
@@ -154,7 +160,19 @@ def flash_attention_variant(variant: str, q: torch.Tensor, k: torch.Tensor, v: t
     return _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale)
 
 
-def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale) -> torch.Tensor:
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        q_positions=None, k_positions=None, causal: bool = True,
+                        window: int = 0, scale: float | None = None):
+    """(o, lse) on the card: :func:`flash_attention` through "tile" (or
+    "general" where the tensor-core kernels do not take the input), which also
+    writes each row's log-sum-exp, lse (B, H, Sq) f32 (-1e30 for a row that
+    sees no key)."""
+    return _launch(None, q, k, v, q_positions, k_positions, causal, window, scale,
+                   with_lse=True)
+
+
+def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
+            with_lse: bool = False):
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention launches a CUDA kernel; got tensors on {q.device}")
@@ -165,7 +183,9 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale) -
     sk, hkv = k.shape[1], k.shape[2]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0
-    if variant is None:
+    if variant is None and with_lse:  # the kernels that write lse
+        variant = "tile" if tensor_cores_take(q.dtype, hd, aligned) else "general"
+    elif variant is None:
         variant = choose_variant(q.dtype, sq, h, hkv, hd, aligned)
     elif variant != "general" and not tensor_cores_take(q.dtype, hd, aligned):
         raise ValueError(f"flash_attention: the {variant!r} kernel takes 16-byte aligned bf16 "
@@ -175,12 +195,14 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale) -
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     lib = _lib()
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     args = (*ptrs, qp.data_ptr(), kp.data_ptr(), out.data_ptr())
+    lse_ptr = None if lse is None else lse.data_ptr()  # null: no lse (serving)
     shape = (b, sq, sk, h, hkv, hd, scale, int(causal), int(window))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if variant == "tile":
-            err = lib.flash_attention_tile_launch(*args, *shape, stream)
+            err = lib.flash_attention_tile_launch(*args, lse_ptr, *shape, stream)
         elif variant == "split":
             rows = sq * (h // hkv)
             splits, per = split_plan(sk, b, hkv, rows, _sm_count(q.device.index or 0))
@@ -192,14 +214,14 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale) -
                 part = (ml[0].data_ptr(), ml[1].data_ptr(), acc.data_ptr())
             err = lib.flash_attention_split_launch(*args, *part, *shape, splits, per, stream)
         else:
-            err = lib.flash_attention_launch(*args, *shape, int(q.dtype == torch.bfloat16),
-                                             stream)
+            err = lib.flash_attention_launch(*args, lse_ptr, *shape,
+                                             int(q.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(
             f"flash_attention launch failed: {lib.flash_attention_error_string(err).decode()}")
     flash_attention.launches += 1
     flash_attention.variant_launches[variant] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0  # every launch; the sum of variant_launches
@@ -226,6 +248,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_positions=None, k_positions=None, causal: bool = True,
                         window: int = 0, scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`flash_attention` (same checks, any device)."""
+    return flash_attention_lse_ref(q, k, v, q_positions=q_positions, k_positions=k_positions,
+                                   causal=causal, window=window, scale=scale)[0]
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            q_positions=None, k_positions=None, causal: bool = True,
+                            window: int = 0, scale: float | None = None):
+    """Plain PyTorch version of :func:`flash_attention_lse`: (o, lse)."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -238,4 +268,5 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = s.masked_fill(~visible(qp, kp, causal, window), NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(b, sq, h, hd).to(q.dtype)
+    lse = torch.logsumexp(s, dim=-1).reshape(b, h, sq)  # -1e30 (rounded) where no key is seen
+    return o.reshape(b, sq, h, hd).to(q.dtype), lse

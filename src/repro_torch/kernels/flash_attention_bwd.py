@@ -1,0 +1,132 @@
+"""The gradient of fused attention: the Hopper kernel and its plain version.
+
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, ...)
+
+for ``o = flash_attention(q, k, v, ...)`` (``kernels/flash_attention.py``)
+with the same positions, mask and scale, and ``lse`` (B, H, Sq) f32 the
+forward's row log-sum-exp of the scaled, masked scores (-1e30 for a row that
+sees no key).  ``dk`` and ``dv`` of kv head j sum over its g query heads.
+
+The JAX package has no backward kernel: it differentiates its pure-JAX
+chunked attention (``repro/models/layers.py::flash_attention``) with XLA's
+autodiff.  The port's forward is a hand-written kernel, so its gradient is
+one too: ``csrc/flash_attention_bwd.cu`` (CUDA C++ for ``sm_90a``, built by
+``kernels/_build.py``, bound with ``ctypes``), launched on PyTorch's current
+stream by :func:`flash_attention_bwd` for bf16 inputs with head_dim a
+multiple of 16 (at most 256), which covers every configuration of the repo;
+it raises on anything else and never falls back.  ``flash_attention_bwd_ref``
+is the plain PyTorch version (P recomputed from ``lse`` in f32);
+``kernels/ops.py`` takes it for CPU tensors only.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, _check, _positions, visible
+
+
+def kernel_takes(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the backward kernel takes such inputs: bf16, head_dim a
+    multiple of 16 and at most ``MAX_HEAD_DIM``."""
+    return dtype == torch.bfloat16 and hd % 16 == 0 and 16 <= hd <= MAX_HEAD_DIM
+
+
+@functools.cache  # the one cache of the loaded library
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # q k v o do lse qpos kpos dq dk dv delta, b sq sk h hkv hd scale causal window, stream
+    lib.flash_attention_bwd_launch.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, i, i, p]
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_bwd(q, k, v, o, do, lse) -> None:
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, q is {tuple(q.shape)} {q.dtype} on {q.device}")
+    b, sq, h, _ = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse must be ({b}, {h}, {sq}) float32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, q_positions=None, k_positions=None,
+                        causal: bool = True, window: int = 0, scale: float | None = None):
+    """(dq, dk, dv) on the card: contiguous, 16-byte aligned bf16 CUDA tensors
+    with head_dim a multiple of 16.  Launches the kernels on the current
+    stream without synchronising; raises on any input they do not take."""
+    _check_bwd(q, k, v, o, do, lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd launches a CUDA kernel; got tensors on {q.device}")
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if not kernel_takes(q.dtype, hd):
+        raise ValueError(f"flash_attention_bwd takes bf16 with head_dim a multiple of 16 in "
+                         f"[16, {MAX_HEAD_DIM}]; got {q.dtype}, head_dim {hd}")
+    tensors = (q, k, v, o, do, lse)
+    for name, t in zip(("q", "k", "v", "o", "do", "lse"), tensors):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must be 16-byte aligned")
+    qp = _positions(q_positions, sq, q.device)
+    kp = _positions(k_positions, sk, q.device)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    lib = _lib()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # rowsum(dO * O)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            *(t.data_ptr() for t in tensors), qp.data_ptr(), kp.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, hkv, hd, scale,
+            int(causal), int(window), stream)
+    if err:
+        raise RuntimeError("flash_attention_bwd launch failed: "
+                           f"{lib.flash_attention_bwd_error_string(err).decode()}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0  # one per call: the delta, dK/dV and dQ kernels together
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, q_positions=None, k_positions=None,
+                            causal: bool = True, window: int = 0, scale: float | None = None):
+    """Plain PyTorch version of :func:`flash_attention_bwd` (same checks, any
+    device): P = exp(s - lse) in f32 over the visible pairs, 1/Sk over every
+    key for a row that sees none (no score gradient there)."""
+    _check_bwd(q, k, v, o, do, lse)
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qp = _positions(q_positions, sq, q.device)
+    kp = _positions(k_positions, sk, q.device)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    vis = visible(qp, kp, causal, window)  # (Sq, Sk)
+    blind = ~vis.any(1)  # rows that see no key
+    qf = q.reshape(b, sq, hkv, g, hd).float()
+    kf, vf = k.float(), v.float()
+    dof = do.reshape(b, sq, hkv, g, hd).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    lse_r = lse.reshape(b, hkv, g, sq, 1)
+    p = torch.where(vis, torch.exp(s - lse_r), torch.zeros((), device=q.device))
+    p = torch.where(blind[:, None], torch.full((), 1.0 / sk, device=q.device), p)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    delta = (do.float() * o.float()).sum(-1)  # (B, Sq, H)
+    delta = delta.reshape(b, sq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    ds = torch.where(vis & ~blind[:, None], p * (dp - delta), torch.zeros((), device=q.device))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

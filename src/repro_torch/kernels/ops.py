@@ -4,12 +4,20 @@
 these wrappers.  A CUDA tensor goes to the hand-written kernel (which raises
 on what it does not take); the plain PyTorch version runs only because a
 tensor lies on the CPU.
+
+``flash_attention`` is differentiable: when autograd records (grad enabled
+and q, k or v requires grad) it runs as :class:`FlashAttention`, whose
+forward keeps the row log-sum-exp and whose backward is the hand-written
+backward kernel on the card (``kernels/flash_attention_bwd.py``), the plain
+versions on the CPU.  Calls without a gradient (serving) take the path they
+always took.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gf_matmul as _gf
 from repro_torch.kernels import sample_hash as _sh
 
@@ -32,7 +40,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions=None, k_positions=None, causal: bool = True,
                     window: int = 0, scale: float | None = None) -> torch.Tensor:
     """Attention with explicit positions: the CUDA kernel on the card, the
-    plain version on the CPU (see ``kernels/flash_attention.py``)."""
+    plain version on the CPU (see ``kernels/flash_attention.py``); under
+    autograd, :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_positions, k_positions, causal, window, scale)
     fn = _fa.flash_attention_ref if q.device.type == "cpu" else _fa.flash_attention
     return fn(q, k, v, q_positions=q_positions, k_positions=k_positions, causal=causal,
               window=window, scale=scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose gradient is the backward kernel: the forward saves
+    (q, k, v, o, lse); the backward computes (dq, dk, dv) from them and dO,
+    on the card by the kernels, on the CPU by the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, k_positions, causal, window, scale):
+        kw = dict(q_positions=q_positions, k_positions=k_positions, causal=causal,
+                  window=window, scale=scale)
+        cpu = q.device.type == "cpu"
+        fn = _fa.flash_attention_lse_ref if cpu else _fa.flash_attention_lse
+        o, lse = fn(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        fn = _fab.flash_attention_bwd_ref if q.device.type == "cpu" else _fab.flash_attention_bwd
+        dq, dk, dv = fn(q, k, v, o, do.contiguous(), lse, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

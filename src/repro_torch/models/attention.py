@@ -1,16 +1,19 @@
-"""GQA/MHA attention module: parameter specs and the decode path, as in
-``repro/models/attention.py``.
+"""GQA/MHA attention module: parameter specs and the train, prefill and
+decode paths, as in ``repro/models/attention.py``.
 
 The q/k/v/o projections are plain products (``torch.einsum``); the
-attention itself is ``layers.decode_attention``, which runs the
-hand-written kernel on the card.  The KV cache is updated in place (the JAX
-package donates the cache buffer to the same effect).
+attention itself is ``layers.flash_attention`` (full sequences, with a
+hand-written backward kernel under autograd) or ``layers.decode_attention``,
+both of which run the hand-written kernels on the card.  The KV cache is
+updated in place (the JAX package donates the cache buffer to the same
+effect).  Cross-attention (``kv_source``) is not ported (ROADMAP Queue 1
+item 4).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import apply_rope, cast, decode_attention
+from repro_torch.models.layers import MaskSpec, apply_rope, cast, decode_attention, flash_attention
 from repro_torch.sharding import ParamSpec
 
 UNWRITTEN = 2**30  # the position of a ring-buffer slot not written yet
@@ -50,6 +53,42 @@ def _out(params, o: torch.Tensor) -> torch.Tensor:
     if "bo" in params:
         res = res + cast(params["bo"])
     return res
+
+
+def _arange(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)  # int32: the kernel's type
+
+
+def attn_full(params, x: torch.Tensor, cfg, *, positions=None, mask: MaskSpec | None = None,
+              rope: bool = True, kv_source=None, kv_positions=None) -> torch.Tensor:
+    """Training / encoder path over a full sequence: x (B, S, D) -> (B, S, D)."""
+    if kv_source is not None:
+        raise NotImplementedError("attn_full: cross-attention (kv_source) is not ported "
+                                  "(ROADMAP Queue 1 item 4)")
+    s = x.shape[1]
+    mask = mask or MaskSpec(causal=True)
+    q, k, v = _qkv(params, x)
+    positions = _arange(s, x.device) if positions is None else positions
+    kv_positions = _arange(k.shape[1], x.device) if kv_positions is None else kv_positions
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, mask=mask, q_positions=positions, k_positions=kv_positions)
+    return _out(params, o)
+
+
+def attn_prefill(params, x: torch.Tensor, cfg, *, mask: MaskSpec | None = None,
+                 rope: bool = True):
+    """Like :func:`attn_full`, also returning the populated KV cache
+    ``{"k", "v"}`` (B, S, Hkv, hd), k after RoPE, as the JAX package's."""
+    mask = mask or MaskSpec(causal=True)
+    q, k, v = _qkv(params, x)
+    positions = _arange(x.shape[1], x.device)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, mask=mask, q_positions=positions, k_positions=positions)
+    return _out(params, o), {"k": k, "v": v}
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:

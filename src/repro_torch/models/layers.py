@@ -110,6 +110,9 @@ def flash_attention(q, k, v, *, mask: MaskSpec, q_positions=None, k_positions=No
     """q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd) with H % Hkv == 0 -> (B, Sq, H, hd).
 
     Positions default to ``arange``.  ``hd_v != hd`` (MLA) is not ported.
+    Differentiable: under autograd the gradient is the backward kernel on the
+    card (``kernels/ops.py::FlashAttention``), where the JAX package lets XLA
+    differentiate its chunked attention.
     """
     return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                q_positions=q_positions, k_positions=k_positions,

@@ -94,6 +94,16 @@ def params_from_numpy(tree, device=None) -> dict[str, torch.Tensor]:
     return {path: torch.from_numpy(np.array(leaf)).to(dev) for path, leaf in flatten(tree).items()}
 
 
+def state_from_numpy(state, device=None) -> dict:
+    """The JAX package's train state (``params``, ``m``, ``v`` as parameter
+    trees of numpy arrays, ``step`` a scalar) as the port's: flat dicts of
+    tensors and a 0-d int32 ``step``, on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    out = {key: params_from_numpy(state[key], device=dev) for key in ("params", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=dev)
+    return out
+
+
 class AxisCtx:
     """Counterpart of the JAX package's sharding context; one device, no mesh."""
 

@@ -12,6 +12,15 @@ Each kernel is held to its plain PyTorch version on the same inputs:
 outputs), in bf16 to one rounding step of the output (2^-7 relative and
 absolute): both round an f32 result to bf16, and the tensor-core kernels
 also round P to bf16 before the P V product (2^-9 relative per term).
+``flash_attention_bwd`` (bf16 only) within 2^-6 of each gradient's largest
+entry: the kernel rounds P and dS to bf16 as tensor-core operands (2^-9
+relative per term) and each gradient to bf16 once (observed <= 0.78%).
+A training step on the card against the CPU plain path, bf16 on both
+(rounded at different places): loss within 0.02; the gradients (one vector
+of every parameter) within three times bf16's own error on the CPU (bf16
+against f32 compute there) plus 1% of their norm.  At the initial weights
+the attention scores are one-hot to bf16 precision (ROADMAP Queue 3 item
+5), so the q/k gradients are rounding noise in any bf16 computation.
 """
 import numpy as np
 import pytest
@@ -19,6 +28,7 @@ import torch
 
 from repro_torch.core.clay import ClayCode
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import gf_matmul as gk
 from repro_torch.kernels import ops
 from repro_torch.kernels import sample_hash as sh
@@ -569,3 +579,151 @@ def test_sanitized_loop_on_the_card_keeps_the_digest(cuda, monkeypatch):
         assert isinstance(EventLoop()._san, Sanitizer) == armed
         digests.append(run_scenario("churn", smoke=True, emit=False, device=cuda).digest)
     assert digests[0] == digests[1] == "4b71c434b103b010"  # the JAX package's smoke digest
+
+
+# -- attention's backward kernel and training -------------------------------------------
+BWD_REL = 2**-6  # of each gradient's largest entry (see the module docstring)
+
+# (b, sq, sk, h, hkv, hd, causal, window, q_offset): causal GQA, window, Sq != Sk with a
+# ragged last tile, g = 1, rows that see no key (q_offset < 0), hd 16 / 64 / 128 / 256
+BWD_CASES = [
+    (2, 37, 37, 8, 2, 16, True, 0, 0), (1, 50, 50, 4, 2, 16, True, 7, 0),
+    (2, 19, 45, 4, 4, 16, False, 0, 0), (1, 33, 33, 3, 3, 32, True, 0, 0),
+    (2, 16, 46, 6, 2, 16, True, 0, 30), (1, 16, 24, 4, 2, 16, True, 0, -5),
+    (2, 21, 70, 12, 4, 16, True, 9, 49), (2, 300, 300, 24, 2, 128, True, 0, 0),
+    (1, 130, 200, 4, 2, 256, False, 0, 0), (2, 100, 333, 8, 2, 64, True, 0, 233),
+    (1, 1000, 1000, 24, 2, 128, True, 0, 0),
+]
+
+
+def _bwd_inputs(case, device):
+    b, sq, sk, h, hkv, hd, causal, window, q_offset = case
+    gen = torch.Generator(device=device).manual_seed(sum(map(abs, case)))
+    q = torch.randn((b, sq, h, hd), generator=gen, device=device).bfloat16()
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=device).bfloat16()
+    v = torch.randn((b, sk, hkv, hd), generator=gen, device=device).bfloat16()
+    do = torch.randn((b, sq, h, hd), generator=gen, device=device).bfloat16()
+    kw = dict(q_positions=torch.arange(q_offset, q_offset + sq, device=device),
+              causal=causal, window=window)
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_attention_backward_kernel_matches_plain_version(cuda, case):
+    q, k, v, do, kw = _bwd_inputs(case, cuda)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(o, fa.flash_attention_variant(
+        "tile" if fa.tensor_cores_take(q.dtype, q.shape[3]) else "general", q, k, v, **kw))
+    o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-5)
+    launches = fab.flash_attention_bwd.launches
+    got = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert fab.flash_attention_bwd.launches == launches + 1
+    want = fab.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_REL * float(w.float().abs().max()), (name, err)
+
+
+def test_autograd_through_ops_launches_the_backward_kernel(cuda):
+    """Gradients through ``ops.flash_attention`` on the card (forward "tile"
+    with lse, backward the kernel) against autograd through the plain
+    version in f32 on the CPU, from the same bf16 inputs."""
+    q, k, v, do, kw = _bwd_inputs((2, 64, 64, 8, 2, 64, True, 0, 0), cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    launches, tile = fab.flash_attention_bwd.launches, fa.flash_attention.variant_launches["tile"]
+    ops.flash_attention(*leaves, **kw).backward(do)
+    torch.cuda.synchronize()
+    assert fab.flash_attention_bwd.launches == launches + 1
+    assert fa.flash_attention.variant_launches["tile"] == tile + 1
+    ref = [t.detach().cpu().float().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention_ref(*ref, **{**kw, "q_positions": kw["q_positions"].cpu()}).backward(
+        do.cpu().float())
+    for leaf, r in zip(leaves, ref):
+        err = float((leaf.grad.float().cpu() - r.grad).abs().max())
+        assert err <= BWD_REL * float(r.grad.abs().max())
+
+
+def test_attention_backward_raises_instead_of_falling_back(cuda):
+    launches = fab.flash_attention_bwd.launches
+    for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 8)):
+        x = torch.zeros((1, 64, 2, hd), device=cuda, dtype=dtype)
+        lse = torch.zeros((1, 2, 64), device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            fab.flash_attention_bwd(x, x, x, x, x, lse)
+        leaf = x.clone().requires_grad_(True)
+        with pytest.raises(ValueError, match="head_dim"):
+            ops.flash_attention(leaf, x, x).sum().backward()
+    assert fab.flash_attention_bwd.launches == launches
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build
+    from repro_torch.sharding import flatten, init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_loss_fn, make_train_step
+
+    from repro_torch.models import layers
+
+    cfg = get_smoke("starcoder2-3b")
+    params = init_params(build(cfg).param_specs(), torch.Generator().manual_seed(3), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (4, 33), generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.bfloat16), ("cpu", torch.float32)):
+        p = {k: t.to(dev).requires_grad_(True) for k, t in params.items()}
+        layers.COMPUTE_DTYPE = dtype
+        try:
+            loss, _ = make_loss_fn(cfg)(p, {k: t.to(dev) for k, t in batch.items()})
+            grads = torch.autograd.grad(loss, list(p.values()))
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        out.append((float(loss.detach()), torch.cat([g.float().cpu().reshape(-1) for g in grads])))
+    (l_card, g_card), (l_cpu, g_cpu), (_, g_f32) = out
+    assert abs(l_card - l_cpu) <= 0.02
+    noise = float((g_cpu - g_f32).norm())  # bf16's own error on the CPU
+    assert float((g_card - g_cpu).norm()) <= 3 * noise + 0.01 * float(g_f32.norm())
+    launches = (fab.flash_attention_bwd.launches, gk.gf_matmul.launches)
+    step = make_train_step(cfg, num_microbatches=2)
+    state, metrics = step(opt.init_state({k: t.to(cuda) for k, t in params.items()}),
+                          {k: t.to(cuda) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    assert fab.flash_attention_bwd.launches == launches[0] + 2 * cfg.num_layers
+    assert int(state["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert all(bool(torch.isfinite(t).all()) for t in flatten(state).values())
+
+
+def test_train_driver_goes_through_every_kernel(cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import train
+
+    cfg = get_smoke("granite-8b")
+    launches = (gk.gf_matmul.launches, fa.flash_attention.launches,
+                fab.flash_attention_bwd.launches)
+    run = train(cfg, steps=16, batch=4, seq=48, ckpt_every=4, fail_at=6, device=cuda)
+    assert gk.gf_matmul.launches > launches[0] and fa.flash_attention.launches > launches[1]
+    assert fab.flash_attention_bwd.launches == launches[2] + cfg.num_layers * len(run.losses)
+    assert run.restored_equal and not run.repair_failures
+
+
+def test_prefetch_thread_decodes_on_the_card(cuda):
+    """The data pipeline's worker thread reads (and decodes on the card) the
+    batches the loop's thread would, in the same order."""
+    from repro_torch.data.pipeline import BlobTokenDataset, write_token_corpus
+    from repro_torch.launch.cluster import build_cluster
+
+    _, sps, rpc, client = build_cluster(device=cuda)
+    bid = write_token_corpus(client, np.arange(300_000, dtype=np.int32) % 49_152)
+    sps[client.contract.blobs[bid].placement[(0, 0)]].crash()  # every read decodes
+    fore = [x for x, _ in BlobTokenDataset(client, bid, batch=4, seq_len=500, seed=2)
+            .batches(6, background=False)]
+    rpc._cache.clear()
+    launches = gk.gf_matmul.launches
+    back = [x for x, _ in BlobTokenDataset(client, bid, batch=4, seq_len=500, seed=2)
+            .batches(6)]
+    torch.cuda.synchronize()
+    assert gk.gf_matmul.launches > launches
+    assert all(np.array_equal(a, b) for a, b in zip(fore, back)) and len(back) == 6
