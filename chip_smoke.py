@@ -31,7 +31,9 @@ the phase that caused it; any failure exits non-zero and prints no result:
    hd 128) and at edge cases (window, explicit positions with Sq != Sk and
    ragged tiles, hd 256, g = 1, rows that see no key), the forward with its
    row log-sum-exp equal to the forward without it, timed beside its bound
-   and SDPA's backward;
+   and SDPA's backward; each case's design ("wgmma" for hd <= 128, "mma"
+   above, from the launch counts), tiles and stages, and every backward
+   kernel's spill bytes from ptxas (a "wgmma" kernel that spills fails);
 3. the storage path at production size: a (10,6) Clay / 10 MiB-chunkset
    cluster of 24 SPs in 5 DCs, put a seeded blob, read it whole and at 3
    ranges across chunksets, crash 2 SPs and read again, mark one SP
@@ -578,6 +580,41 @@ def attention_bwd_bound_ms(q, k, vis) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def backward_cases() -> list[tuple]:
+    """Phase 2's cases of ``flash_attention_bwd``, on the card: (name, b, sq,
+    sk, h, hkv, hd, causal, window, q_positions, k_positions)."""
+    import torch
+
+    def ar(n, start=0):
+        return torch.arange(start, start + n, dtype=torch.int32, device="cuda")
+
+    return [
+        ("train_microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, 24, 2, 128,
+         True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
+        ("window", 2, 300, 300, 24, 2, 128, True, 64, ar(300), ar(300)),
+        # a block of queries at the end of a longer cache; Sq != Sk, ragged last tiles
+        ("explicit_positions_ragged", 2, 100, 333, 8, 2, 64, True, 0, ar(100, 233), ar(333)),
+        ("noncausal_hd256_sq_ne_sk", 1, 130, 200, 4, 2, 256, False, 0, ar(130), ar(200)),
+        ("g1_mha", 2, 257, 257, 8, 8, 128, True, 0, ar(257), ar(257)),
+        # queries -5..10: the first five see no key (weights 1/Sk, no score gradient)
+        ("rows_see_no_key", 1, 16, 24, 4, 2, 16, True, 0, ar(16, -5), ar(24)),
+    ]
+
+
+def ptxas_spills(lines: list[str]) -> dict[str, int]:
+    """Spill bytes (stores and loads) per kernel from ``_build.ptxas_report``
+    lines, keyed by the kernel's name and its first template argument
+    (``attn_bwd_dkdv_wgmma_kernel<128>``)."""
+    spills, name = {}, None
+    for ln in lines:
+        if "Compiling entry" in ln:
+            m = re.search(r"(attn_bwd_\w+?_kernel)(?:ILi(\d+)E)?", ln)
+            name = f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else m and m.group(1)
+        elif name and "spill" in ln:
+            spills[name] = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
+    return spills
+
+
 def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
     """cases: (name, b, sq, sk, h, hkv, hd, causal, window, q_positions, k_positions), bf16.
 
@@ -585,17 +622,24 @@ def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
     forward without it and its lse within ``LSE_ATOL`` of the plain
     version's; ``flash_attention_bwd`` against ``flash_attention_bwd_ref``
     (one batch element at a time) within ``BWD_TOL`` of each gradient's
-    largest entry.  The case named ``timed`` is also timed: the kernel in
-    turns with SDPA's backward (``library``, a yardstick the port never
-    calls; its forward is not timed) by CUDA events (``*host_ms``) and by
-    device time from a profiler trace (``ms``, ``library_ms``), the plain
-    version (per batch element, summed) by CUDA events."""
+    largest entry; the design that ran (``design_launches``: "wgmma" for hd
+    <= 128, "mma" above) with its tiles and stages.  The case named
+    ``timed`` is also timed: the kernel in turns with SDPA's backward
+    (``library``, a yardstick the port never calls; its forward is not
+    timed) by CUDA events (``*host_ms``) and by device time from a profiler
+    trace (``ms``, ``library_ms``), the plain version (per batch element,
+    summed) by CUDA events; its row carries each backward kernel's spill
+    bytes from ptxas.  Fails if a "wgmma" kernel spills."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
 
+    spills = ptxas_spills(_build.ptxas_report("flash_attention_bwd"))
+    if not spills or any(n for k, n in spills.items() if "wgmma" in k):
+        raise SystemExit(f"flash_attention_bwd: a wgmma kernel spills (or no ptxas report): {spills}")
     rows = []
     for name, b, sq, sk, h, hkv, hd, causal, window, qpos, kpos in cases:
         q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").bfloat16()
@@ -605,8 +649,10 @@ def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
         kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
         o, lse = fa.flash_attention_lse(q, k, v, **kw)
         same_o = torch.equal(o, fa.flash_attention_variant("tile", q, k, v, **kw))
+        before = dict(fab.flash_attention_bwd.design_launches)
         grads = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
         torch.cuda.synchronize()
+        ran = [d for d, c in fab.flash_attention_bwd.design_launches.items() if c > before[d]]
         lse_err = err = rel = 0.0
         for i in range(b):  # the plain version one batch element at a time (its f32 scores)
             sl = slice(i, i + 1)
@@ -619,7 +665,8 @@ def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
             del ref, lse_ref
         row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "causal": causal,
                "window": window, "forward_with_lse_equal": same_o, "lse_max_abs_err": lse_err,
-               "max_abs_err": err, "max_rel_err": rel, "tol": BWD_TOL}
+               "max_abs_err": err, "max_rel_err": rel, "tol": BWD_TOL,
+               "config": fab.kernel_config(hd)}
         if name == timed:
             vis = fa.visible(qpos, kpos, causal, window)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -645,11 +692,13 @@ def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
             bound, by = attention_bwd_bound_ms(q, k, vis)
             row.update(ms=dev["kernel"], host_ms=min(host["kernel"]), library_ms=dev["library"],
                        library_host_ms=min(host["library"]), plain_ms=_time_ms(plain, 1),
-                       bound_ms=bound, bound_by=by)
+                       bound_ms=bound, bound_by=by, spill_bytes=spills)
             del ot, qt, kt, vt
         print(json.dumps({"flash_attention_bwd_check": row}), flush=True)
         if not same_o or lse_err > LSE_ATOL or rel > BWD_TOL:
             raise SystemExit(f"flash_attention_bwd disagrees with its plain version in case {name}")
+        if ran != [fab.design(hd)] or row["config"]["design"] != fab.design(hd):
+            raise SystemExit(f"flash_attention_bwd ran {ran} at hd {hd}, not {fab.design(hd)!r}")
         rows.append(row)
         del q, k, v, do, o, lse, grads
     torch.cuda.synchronize()
@@ -1428,12 +1477,15 @@ def main(argv=None) -> int:
         for fn in wrappers.values():
             fn.launches = 0
         fa.reset_launches()
+        fab.reset_launches()
 
     def read_counts(path: str) -> dict[str, int]:
         path_launches[path] = {name: fn.launches for name, fn in wrappers.items()}
         variant_launches[path] = dict(fa.flash_attention.variant_launches)
         print(json.dumps({"path": path, "launches": path_launches[path],
-                          "flash_attention_variants": variant_launches[path]}), flush=True)
+                          "flash_attention_variants": variant_launches[path],
+                          "flash_attention_bwd_designs": fab.flash_attention_bwd.design_launches}),
+              flush=True)
         return path_launches[path]
 
     # -- 1. card, build ------------------------------------------------------------
@@ -1517,18 +1569,7 @@ def main(argv=None) -> int:
 
     _phase("flash_attention_bwd vs plain (bf16; phase 15's shape: B 4, S 4096, H 24, Hkv 2, "
            "hd 128)")
-    bwd_cases = [
-        ("train_microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, 24, 2, 128,
-         True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
-        ("window", 2, 300, 300, 24, 2, 128, True, 64, ar(300), ar(300)),
-        # a block of queries at the end of a longer cache; Sq != Sk, ragged last tiles
-        ("explicit_positions_ragged", 2, 100, 333, 8, 2, 64, True, 0, ar(100, 233), ar(333)),
-        ("noncausal_hd256_sq_ne_sk", 1, 130, 200, 4, 2, 256, False, 0, ar(130), ar(200)),
-        ("g1_mha", 2, 257, 257, 8, 8, 128, True, 0, ar(257), ar(257)),
-        # queries -5..10: the first five see no key (weights 1/Sk, no score gradient)
-        ("rows_see_no_key", 1, 16, 24, 4, 2, 16, True, 0, ar(16, -5), ar(24)),
-    ]
-    bwd_checks = check_flash_attention_bwd(bwd_cases, gen, timed="train_microbatch")
+    bwd_checks = check_flash_attention_bwd(backward_cases(), gen, timed="train_microbatch")
 
     # -- 3. the main path at production size -------------------------------------------
     _phase(f"slice: put/read a {args.blob_mib} MiB blob at (10,6), 10 MiB chunksets")

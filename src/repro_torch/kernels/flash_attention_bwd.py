@@ -14,9 +14,12 @@ one too: ``csrc/flash_attention_bwd.cu`` (CUDA C++ for ``sm_90a``, built by
 ``kernels/_build.py``, bound with ``ctypes``), launched on PyTorch's current
 stream by :func:`flash_attention_bwd` for bf16 inputs with head_dim a
 multiple of 16 (at most 256), which covers every configuration of the repo;
-it raises on anything else and never falls back.  ``flash_attention_bwd_ref``
-is the plain PyTorch version (P recomputed from ``lse`` in f32);
-``kernels/ops.py`` takes it for CPU tensors only.
+it raises on anything else and never falls back.  Its C launcher picks the
+design by head_dim: ``"wgmma"`` (TMA-fed warpgroup products, head_dim up to
+``WGMMA_MAX_HEAD_DIM``) or ``"mma"`` (the first design, above it); each
+launch is counted in ``flash_attention_bwd.design_launches``.
+``flash_attention_bwd_ref`` is the plain PyTorch version (P recomputed from
+``lse`` in f32); ``kernels/ops.py`` takes it for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -30,6 +33,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, _check, _positions, visible
 
 
+DESIGNS = ("wgmma", "mma")  # csrc/flash_attention_bwd.cu's flash_attention_bwd_design(hd)
+WGMMA_MAX_HEAD_DIM = 128  # the launcher's kWgmmaMaxHeadDim
+
+
+def design(hd: int) -> str:
+    """The design the launcher takes for head dim ``hd``: ``"wgmma"`` up to
+    ``WGMMA_MAX_HEAD_DIM`` (every configuration of the repo), ``"mma"`` above."""
+    return DESIGNS[0] if hd <= WGMMA_MAX_HEAD_DIM else DESIGNS[1]
+
+
 def kernel_takes(dtype: torch.dtype, hd: int) -> bool:
     """Whether the backward kernel takes such inputs: bf16, head_dim a
     multiple of 16 and at most ``MAX_HEAD_DIM``."""
@@ -40,9 +53,15 @@ def kernel_takes(dtype: torch.dtype, hd: int) -> bool:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    # q k v o do lse qpos kpos dq dk dv delta, b sq sk h hkv hd scale causal window, stream
+    # q k v o do lse qpos kpos dq dk dv scratch, b sq sk h hkv hd scale causal window, stream
     lib.flash_attention_bwd_launch.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, i, i, p]
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_scratch_bytes.argtypes = [i] * 5  # b sq sk h hd
+    lib.flash_attention_bwd_scratch_bytes.restype = ctypes.c_longlong
+    lib.flash_attention_bwd_design.argtypes = [i]
+    lib.flash_attention_bwd_design.restype = i
+    lib.flash_attention_bwd_config.argtypes = [i, ctypes.POINTER(i)]
+    lib.flash_attention_bwd_config.restype = None
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -84,21 +103,44 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, q_positions=None, k_positions=No
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     lib = _lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # rowsum(dO * O)
+    # rowsum(dO * O) and the tiles' statistics, written by the launch's first kernel
+    scratch = torch.empty(lib.flash_attention_bwd_scratch_bytes(b, sq, sk, h, hd),
+                          dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd_launch(
             *(t.data_ptr() for t in tensors), qp.data_ptr(), kp.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, hkv, hd, scale,
+            dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, sq, sk, h, hkv, hd, scale,
             int(causal), int(window), stream)
     if err:
         raise RuntimeError("flash_attention_bwd launch failed: "
                            f"{lib.flash_attention_bwd_error_string(err).decode()}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.design_launches[DESIGNS[lib.flash_attention_bwd_design(hd)]] += 1
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0  # one per call: the delta, dK/dV and dQ kernels together
+flash_attention_bwd.launches = 0  # one per call: the three kernels of a design together
+flash_attention_bwd.design_launches = dict.fromkeys(DESIGNS, 0)
+
+
+def reset_launches() -> None:
+    """Set the backward's launch counts to 0."""
+    flash_attention_bwd.launches = 0
+    flash_attention_bwd.design_launches = dict.fromkeys(DESIGNS, 0)
+
+
+def kernel_config(hd: int) -> dict:
+    """The launcher's tiles at head dim ``hd`` (builds the library): the design,
+    keys per dK/dV block, queries per tile it walks and its stages, rows per
+    dQ block, keys per tile it walks and its stages, threads per block."""
+    out = (ctypes.c_int * 8)()
+    _lib().flash_attention_bwd_config(hd, out)
+    keys = ("design", "dkdv_keys", "dkdv_query_tile", "dkdv_stages", "dq_rows", "dq_key_tile",
+            "dq_stages", "threads")
+    cfg = dict(zip(keys, out))
+    cfg["design"] = DESIGNS[cfg["design"]]
+    return cfg
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, q_positions=None, k_positions=None,

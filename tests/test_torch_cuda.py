@@ -585,7 +585,8 @@ def test_sanitized_loop_on_the_card_keeps_the_digest(cuda, monkeypatch):
 BWD_REL = 2**-6  # of each gradient's largest entry (see the module docstring)
 
 # (b, sq, sk, h, hkv, hd, causal, window, q_offset): causal GQA, window, Sq != Sk with a
-# ragged last tile, g = 1, rows that see no key (q_offset < 0), hd 16 / 64 / 128 / 256
+# ragged last tile, g = 1, rows that see no key (q_offset < 0), hd 16 / 64 / 96 / 128 / 256;
+# a window that crosses key tiles, Sk not a multiple of 128, phase 15's S and heads at B 1
 BWD_CASES = [
     (2, 37, 37, 8, 2, 16, True, 0, 0), (1, 50, 50, 4, 2, 16, True, 7, 0),
     (2, 19, 45, 4, 4, 16, False, 0, 0), (1, 33, 33, 3, 3, 32, True, 0, 0),
@@ -593,6 +594,10 @@ BWD_CASES = [
     (2, 21, 70, 12, 4, 16, True, 9, 49), (2, 300, 300, 24, 2, 128, True, 0, 0),
     (1, 130, 200, 4, 2, 256, False, 0, 0), (2, 100, 333, 8, 2, 64, True, 0, 233),
     (1, 1000, 1000, 24, 2, 128, True, 0, 0),
+    (2, 200, 260, 8, 2, 96, True, 0, 60), (2, 190, 190, 6, 3, 64, True, 0, 0),
+    (1, 520, 520, 8, 2, 128, True, 150, 0), (2, 150, 333, 6, 2, 128, False, 0, 0),
+    (1, 300, 450, 4, 2, 80, True, 0, -100),
+    (1, 4096, 4096, 24, 2, 128, True, 0, 0),
 ]
 
 
@@ -625,6 +630,30 @@ def test_attention_backward_kernel_matches_plain_version(cuda, case):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
         err = float((g.float() - w.float()).abs().max())
         assert err <= BWD_REL * float(w.float().abs().max()), (name, err)
+
+
+def test_attention_backward_is_deterministic(cuda):
+    """No atomics: two calls give the same bits (dQ written once by its owner)."""
+    q, k, v, do, kw = _bwd_inputs((2, 520, 520, 24, 2, 128, True, 0, 0), cuda)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    first = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    second = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("hd,design", [(16, "wgmma"), (64, "wgmma"), (96, "wgmma"),
+                                       (128, "wgmma"), (256, "mma")])
+def test_attention_backward_design_by_head_dim(cuda, hd, design):
+    """The launcher's rule: hd <= 128 the wgmma kernels, above them the mma ones."""
+    q, k, v, do, kw = _bwd_inputs((1, 70, 70, 4, 2, hd, True, 0, 0), cuda)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    before = dict(fab.flash_attention_bwd.design_launches)
+    fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    after = fab.flash_attention_bwd.design_launches
+    assert {d: after[d] - before[d] for d in after} == {d: int(d == design) for d in after}
+    assert fab.design(hd) == design == fab.kernel_config(hd)["design"]
 
 
 def test_autograd_through_ops_launches_the_backward_kernel(cuda):
