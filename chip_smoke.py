@@ -26,9 +26,12 @@ the phase that caused it; any failure exits non-zero and prints no result:
    (the ``ms`` they report), attention in turns with
    its earlier CUDA-core kernel and ``scaled_dot_product_attention`` (a
    yardstick the port never calls), with the kernel the dispatch rule picked,
-   also at phase 15's microbatch; ``flash_attention_bwd`` against its plain
-   version within ``BWD_TOL`` at phase 15's shape (B 4, S 4096, H 24, Hkv 2,
-   hd 128) and at edge cases (window, explicit positions with Sq != Sk and
+   also at phase 15's microbatch and at phase 16's shapes (hymba: a GQA
+   group of 5, hd 64, its training step, serving step and long-mode decode
+   over a wrapped and an unfilled 2,048-slot ring; qwen3-moe's prefill);
+   ``flash_attention_bwd`` against its plain version within ``BWD_TOL`` at
+   phase 15's shape (B 4, S 4096, H 24, Hkv 2, hd 128), at phase 16's (B 1,
+   S 4096, H 25, Hkv 5, hd 64) and at edge cases (window, explicit positions with Sq != Sk and
    ragged tiles, hd 256, g = 1, rows that see no key), the forward with its
    row log-sum-exp equal to the forward without it, timed beside its bound
    and SDPA's backward; each case's design ("wgmma" for hd <= 128, "mma"
@@ -112,12 +115,28 @@ the phase that caused it; any failure exits non-zero and prints no result:
    losses, ``gf_matmul`` and attention launches, a backward launch per
    layer, microbatch and step; then one step under the profiler and a
    1 x 256 loss and gradient on the card against the CPU plain path;
-16. the script's seconds, the card again, one JSON line per kernel, then the
+16. the MoE, SSM, hybrid and embedding-input families (``families_phase``,
+   counted as the path ``families``): hymba-1.5b at its published widths,
+   depth cut to 4 layers, served from Shelby (publish, an SP crashed, the
+   restore equal to the published weights, batch 4 x (8 + 16)), three warm
+   generations, the same prompts in long mode (the same tokens), one
+   long-mode generation over 2,100 positions past the 2,048-slot ring
+   (finite logits, a "split" launch per layer and position), two training
+   steps at 1 x 4096 (a "wgmma" backward per layer and step); qwen3-moe at
+   its published widths cut to 1 layer, a 1 x 512 prefill (each expert's
+   load, the drops); phi-3-vision-smoke through ``launch/train.py``'s
+   ``train`` (stub embeddings from the corpus blob, an SP crash, the
+   restore, the repair); then the card against the CPU plain path: hymba
+   teacher-forced and its 1 x 256 gradient, qwen3-moe's prefill logits,
+   falcon-mamba, qwen3-moe and phi-3-vision at smoke widths (gradient and 8
+   decode positions), hymba-smoke in long mode over 48 positions;
+17. the script's seconds, the card again, one JSON line per kernel, then the
    result line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -169,6 +188,16 @@ TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 1, 256  # the card-vs-CPU step
 # precision and the q/k gradients are rounding noise in any bf16 computation
 TRAIN_LOSS_ATOL, TRAIN_NOISE_FACTOR, TRAIN_GRAD_FLOOR = 0.02, 3.0, 0.01
 SERVE_ARCH, SERVE_LAYERS = "yi-9b", 2  # published widths; depth cut from 48 (host-bound publish)
+# phase 16: the MoE, SSM, hybrid and embedding-input families
+FAMILY_ARCH, FAMILY_LAYERS = "hymba-1.5b", 4  # published widths; depth cut from 32
+FAMILY_WARM = 3  # warm generations of the served hybrid, the median reported
+FAMILY_LONG_POSITIONS = 2100  # one long-mode generation past hymba's 2,048-slot ring
+FAMILY_TRAIN_SEQ = 4096  # one sequence of train_4k's length
+FAMILY_TRAIN_STEPS = 2
+FAMILY_MOE_ARCH, FAMILY_MOE_LAYERS, FAMILY_MOE_SEQ = "qwen3-moe-30b-a3b", 1, 512  # from 48
+FAMILY_SMOKE_ARCHS = ("falcon-mamba-7b", "qwen3-moe-30b-a3b", "phi-3-vision-4.2b")
+FAMILY_SMOKE_BATCH, FAMILY_SMOKE_SEQ, FAMILY_SMOKE_DECODE = 2, 64, 8
+FAMILY_SMOKE_LONG = 48  # positions past hymba-smoke's 32-slot window
 # warm decode is host-bound and single generations swing by a third: the median of nine
 WARM_GENERATIONS = 9
 CHURN_EPOCHS = 3
@@ -591,6 +620,9 @@ def backward_cases() -> list[tuple]:
     return [
         ("train_microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, 24, 2, 128,
          True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
+        # phase 16's hymba step: a GQA group of 5, hd 64
+        ("hymba_train", 1, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_SEQ, 25, 5, 64, True, 0,
+         ar(FAMILY_TRAIN_SEQ), ar(FAMILY_TRAIN_SEQ)),
         ("window", 2, 300, 300, 24, 2, 128, True, 64, ar(300), ar(300)),
         # a block of queries at the end of a longer cache; Sq != Sk, ragged last tiles
         ("explicit_positions_ragged", 2, 100, 333, 8, 2, 64, True, 0, ar(100, 233), ar(333)),
@@ -615,7 +647,7 @@ def ptxas_spills(lines: list[str]) -> dict[str, int]:
     return spills
 
 
-def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
+def check_flash_attention_bwd(cases, gen, timed: tuple[str, ...]) -> list[dict]:
     """cases: (name, b, sq, sk, h, hkv, hd, causal, window, q_positions, k_positions), bf16.
 
     Each case: the forward with its row log-sum-exp ("tile") equal to the
@@ -623,8 +655,8 @@ def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
     version's; ``flash_attention_bwd`` against ``flash_attention_bwd_ref``
     (one batch element at a time) within ``BWD_TOL`` of each gradient's
     largest entry; the design that ran (``design_launches``: "wgmma" for hd
-    <= 128, "mma" above) with its tiles and stages.  The case named
-    ``timed`` is also timed: the kernel in turns with SDPA's backward
+    <= 128, "mma" above) with its tiles and stages.  The cases named in
+    ``timed`` are also timed: the kernel in turns with SDPA's backward
     (``library``, a yardstick the port never calls; its forward is not
     timed) by CUDA events (``*host_ms``) and by device time from a profiler
     trace (``ms``, ``library_ms``), the plain version (per batch element,
@@ -667,7 +699,7 @@ def check_flash_attention_bwd(cases, gen, timed: str) -> list[dict]:
                "window": window, "forward_with_lse_equal": same_o, "lse_max_abs_err": lse_err,
                "max_abs_err": err, "max_rel_err": rel, "tol": BWD_TOL,
                "config": fab.kernel_config(hd)}
-        if name == timed:
+        if name in timed:
             vis = fa.visible(qpos, kpos, causal, window)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
             assert causal and not window and sq == sk  # SDPA's own causal mask is the same here
@@ -1273,38 +1305,54 @@ def scenario_phase(gk, device: str = "cuda") -> dict:
 SERVE_LOGIT_ATOL = 0.15  # bf16 logits, card vs CPU: the two round products differently
 
 
-def serve_card_vs_cpu(cfg, run, steps: int = 2) -> dict:
-    """The served model, teacher-forced on the first ``steps`` tokens of its
-    own outputs, decoded on the card and on the CPU plain path from the same
-    restored weights: bf16 logits within ``SERVE_LOGIT_ATOL``."""
+def decode_card_vs_cpu(cfg, params, toks, *, long_mode: bool = False) -> dict:
+    """``toks`` (B, T) teacher-forced through ``decode_step`` from empty caches
+    on the card (``params``) and on the CPU plain path (a copy): bf16 logits
+    within ``SERVE_LOGIT_ATOL`` at every position, finite on the card, and the
+    card's argmax equal to the CPU's wherever the CPU's top-2 margin exceeds
+    twice that (``greedy_equal`` of ``greedy_compared``)."""
     import torch
 
     from repro_torch.models.model import build
 
     model = build(cfg)
-    weights = {"cuda": run.served, "cpu": {k: t.cpu() for k, t in run.served.items()}}
+    weights = {"cuda": params, "cpu": {k: t.cpu() for k, t in params.items()}}
+    b, steps = toks.shape
     caches = {dev: {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-                    for k, s in model.cache_specs(run.outputs.shape[0], steps).items()}
+                    for k, s in model.cache_specs(b, steps, long_mode=long_mode).items()}
               for dev in weights}
-    toks = torch.as_tensor(run.outputs[:, :steps], dtype=torch.int64)
+    toks = torch.as_tensor(toks, dtype=torch.int64)
     worst = scale = 0.0
+    compared = equal = 0
     with torch.inference_mode():
         for pos in range(steps):
             logits = {}
-            for dev, params in weights.items():
-                out, caches[dev] = model.decode_step(params, caches[dev],
-                                                     toks[:, pos:pos + 1].to(dev), pos)
-                logits[dev] = out.float().cpu()
+            for dev, p in weights.items():
+                out, caches[dev] = model.decode_step(p, caches[dev], toks[:, pos:pos + 1].to(dev),
+                                                     pos, long_mode=long_mode)
+                logits[dev] = out.float().cpu()[:, 0, :cfg.vocab]
             if not torch.isfinite(logits["cuda"]).all():
-                raise SystemExit("non-finite logits on the card")
+                raise SystemExit(f"{cfg.name}: non-finite logits on the card at position {pos}")
             worst = max(worst, float((logits["cuda"] - logits["cpu"]).abs().max()))
             scale = max(scale, float(logits["cpu"].abs().max()))
-    row = {"arch": cfg.name, "layers": cfg.num_layers, "steps": steps,
-           "max_abs_logit_err": worst, "max_abs_logit": scale, "atol": SERVE_LOGIT_ATOL}
+            top2 = logits["cpu"].topk(2, dim=-1).values
+            clear = top2[:, 0] - top2[:, 1] > 2 * SERVE_LOGIT_ATOL
+            compared += int(clear.sum())
+            equal += int((logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1))[clear].sum())
+    del weights, caches
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": b, "steps": steps,
+            "long_mode": long_mode, "max_abs_logit_err": worst, "max_abs_logit": scale,
+            "atol": SERVE_LOGIT_ATOL, "greedy_compared": compared, "greedy_equal": equal}
+
+
+def serve_card_vs_cpu(cfg, run, steps: int = 2) -> dict:
+    """The served model, teacher-forced on the first ``steps`` tokens of its
+    own outputs, decoded on the card and on the CPU plain path from the same
+    restored weights: bf16 logits within ``SERVE_LOGIT_ATOL``."""
+    row = decode_card_vs_cpu(cfg, run.served, run.outputs[:, :steps])
     print(json.dumps({"serve_card_vs_cpu": row}), flush=True)
-    if worst > SERVE_LOGIT_ATOL:
+    if row["max_abs_logit_err"] > SERVE_LOGIT_ATOL:
         raise SystemExit("the served model's decode on the card disagrees with the CPU plain path")
-    del weights
     return row
 
 
@@ -1318,11 +1366,24 @@ def model_flops(cfg, params: int, batch: int, seq: int) -> float:
         * cfg.num_layers
 
 
-def train_card_vs_cpu(cfg, params, seed: int) -> dict:
-    """One loss and gradient at TRAIN_CMP_BATCH x TRAIN_CMP_SEQ from the
-    trained parameters on the card (bf16) and on the CPU plain path, in bf16
-    and with f32 compute (the models' COMPUTE_DTYPE set to f32 for that pass):
-    the card within TRAIN_NOISE_FACTOR times the CPU's own bf16 error."""
+def model_batch(cfg, toks, device) -> dict:
+    """A loss batch from (B, S + 1) tokens on ``device``: the next token as
+    the label; the inputs tokens, or for an embedding-input model the stub
+    frontend's embeddings of them (``train/loop.py``)."""
+    from repro_torch.train.loop import stub_embeddings
+
+    x, y = toks[:, :-1].to(device), toks[:, 1:].to(device)
+    if cfg.input_mode == "embeddings":
+        return {"embeddings": stub_embeddings(x, cfg.d_model), "labels": y}
+    return {"tokens": x, "labels": y}
+
+
+def train_card_vs_cpu(cfg, params, seed: int, batch: int = TRAIN_CMP_BATCH,
+                      seq: int = TRAIN_CMP_SEQ, label: str = "train_card_vs_cpu") -> dict:
+    """One loss and gradient at ``batch`` x ``seq`` from ``params`` on the
+    card (bf16) and on the CPU plain path, in bf16 and with f32 compute (the
+    models' COMPUTE_DTYPE set to f32 for that pass): the card within
+    TRAIN_NOISE_FACTOR times the CPU's own bf16 error."""
     import torch
 
     from repro_torch.models import layers
@@ -1330,16 +1391,16 @@ def train_card_vs_cpu(cfg, params, seed: int) -> dict:
 
     loss_fn = make_loss_fn(cfg)
     gen = torch.Generator().manual_seed(seed)
-    toks = torch.randint(0, cfg.vocab, (TRAIN_CMP_BATCH, TRAIN_CMP_SEQ + 1), generator=gen)
+    toks = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=gen)
     out, times = {}, {}
     for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16), ("cpu", torch.float32)):
         name = f"{dev}_{str(dtype)[6:]}"
         leaves = {k: t.detach().to(dev).requires_grad_(True) for k, t in params.items()}
-        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
         t, layers.COMPUTE_DTYPE = time.perf_counter(), dtype
         try:
-            loss, _ = loss_fn(leaves, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            loss, _ = loss_fn(leaves, model_batch(cfg, toks, dev))
+            # a table the loss never reads (embedding inputs) gets zeros, as the step's
+            grads = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
         finally:
             layers.COMPUTE_DTYPE = torch.bfloat16
         out[name] = (float(loss.detach()), torch.cat([g.float().cpu().reshape(-1) for g in grads]))
@@ -1348,16 +1409,17 @@ def train_card_vs_cpu(cfg, params, seed: int) -> dict:
     (l_card, g_card), (l_cpu, g_cpu), (l_f32, g_f32) = out.values()
     norm = float(g_f32.norm())
     dist, noise = float((g_card - g_cpu).norm()), float((g_cpu - g_f32).norm())
-    row = {"batch": TRAIN_CMP_BATCH, "seq": TRAIN_CMP_SEQ, "loss_card": l_card,
+    row = {"arch": cfg.name, "batch": batch, "seq": seq, "loss_card": l_card,
            "loss_cpu": l_cpu, "loss_cpu_f32": l_f32,
            "grad_rel_dist_card_cpu": dist / norm, "grad_rel_err_cpu_bf16_vs_f32": noise / norm,
            "grad_rel_dist_card_vs_f32": float((g_card - g_f32).norm()) / norm,
            "loss_atol": TRAIN_LOSS_ATOL, "noise_factor": TRAIN_NOISE_FACTOR,
            "grad_floor": TRAIN_GRAD_FLOOR, "s": times}
-    print(json.dumps({"train_card_vs_cpu": row}), flush=True)
-    if (abs(l_card - l_cpu) > TRAIN_LOSS_ATOL
+    print(json.dumps({label: row}), flush=True)
+    if not np.isfinite(l_card) or (abs(l_card - l_cpu) > TRAIN_LOSS_ATOL
             or dist > TRAIN_NOISE_FACTOR * noise + TRAIN_GRAD_FLOOR * norm):
-        raise SystemExit("a training step on the card disagrees with the CPU plain path")
+        raise SystemExit(f"{cfg.name}: a training step on the card disagrees with the CPU "
+                         "plain path")
     return row
 
 
@@ -1440,6 +1502,263 @@ def train_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
     row["card_vs_cpu"] = train_card_vs_cpu(cfg, params, seed)
     del params
     torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def recorded_routes(records: list):
+    """Record each MoE layer's router input, weights and chosen experts
+    (``models/moe.py::_route``) while the block runs."""
+    from repro_torch.models import moe
+
+    real = moe._route
+
+    def recording(x, w, k):
+        out = real(x, w, k)
+        records.append((x.detach(), w.detach(), out[0].detach()))
+        return out
+
+    moe._route = recording
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def expert_load(cfg, records) -> list[dict]:
+    """Per recorded MoE layer: each expert's routed assignments, the capacity,
+    the assignments dropped past it, and the smallest router margin (the
+    top-k-th probability against the next) over the tokens."""
+    import torch
+
+    from repro_torch.models.moe import capacity_of
+
+    rows = []
+    for x, w, idx in records:
+        k = cfg.moe.top_k
+        load = torch.bincount(idx.reshape(-1), minlength=cfg.moe.num_experts).cpu()
+        cap = capacity_of(x.shape[0], cfg)
+        probs = torch.softmax(x.float() @ w.float(), dim=-1).topk(k + 1, dim=-1).values
+        rows.append({"tokens": x.shape[0], "capacity": cap, "load": load.tolist(),
+                     "dropped": int((load - cap).clamp(min=0).sum()),
+                     "experts_used": int((load > 0).sum()),
+                     "min_router_margin": float((probs[:, k - 1] - probs[:, k]).min())})
+    return rows
+
+
+def families_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
+    """The MoE, SSM, hybrid and embedding-input families on the card.
+
+    Counted as the path ``families``: hymba at its published widths, depth
+    cut to FAMILY_LAYERS, served from Shelby (``launch/serve.py``'s
+    ``serve``: publish, an SP crashed, a verified k-of-n restore, batch 4 x
+    (8 + 16)), FAMILY_WARM warm generations, the same prompts through
+    ``ServeEngine(long_mode=True)`` (its ring never wraps at 25 positions:
+    the tokens equal), one long-mode generation over FAMILY_LONG_POSITIONS
+    positions (``make_decode_step(long_mode=True)``: the ring wraps), two
+    ``make_train_step`` steps at 1 x FAMILY_TRAIN_SEQ, qwen3-moe at its
+    published widths cut to FAMILY_MOE_LAYERS layer(s) prefilling 1 x
+    FAMILY_MOE_SEQ (each expert's load and the drops reported), and
+    ``launch/train.py``'s ``train`` on phi-3-vision-smoke (stub embeddings
+    through the blob pipeline, an SP crash, the restore, the repair).  Then,
+    uncounted, the card against the CPU plain path: hymba teacher-forced two
+    steps and a 1 x 256 loss and gradient; qwen3-moe's prefill logits;
+    falcon-mamba, qwen3-moe and phi-3-vision at smoke widths (loss, gradient,
+    8 decode positions); hymba-smoke in long mode over FAMILY_SMOKE_LONG
+    positions, past its 32-slot window."""
+    import torch
+
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import loss_fell, train
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get(FAMILY_ARCH), num_layers=FAMILY_LAYERS)
+    qcfg = dataclasses.replace(get(FAMILY_MOE_ARCH), num_layers=FAMILY_MOE_LAYERS)
+    print(json.dumps({"families_config": {
+        "hybrid": {"arch": cfg.name, "d_model": cfg.d_model, "heads": cfg.num_heads,
+                   "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
+                   "d_inner": cfg.ssm.d_inner, "state": cfg.ssm.state, "vocab": cfg.vocab,
+                   "long_window": cfg.long_window, "params": build(cfg).param_count(),
+                   "layers": f"{cfg.num_layers} (cut from {get(FAMILY_ARCH).num_layers})"},
+        "moe": {"arch": qcfg.name, "d_model": qcfg.d_model, "heads": qcfg.num_heads,
+                "kv_heads": qcfg.num_kv_heads, "head_dim": qcfg.head_dim_,
+                "experts": qcfg.moe.num_experts, "top_k": qcfg.moe.top_k,
+                "expert_d_ff": qcfg.moe.expert_d_ff, "vocab": qcfg.vocab,
+                "params": build(qcfg).param_count(),
+                "layers": f"{qcfg.num_layers} (cut from {get(FAMILY_MOE_ARCH).num_layers})"},
+        "smoke": list(FAMILY_SMOKE_ARCHS)}}), flush=True)
+    row: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # count the families path only
+
+    # 1. hymba served from Shelby, warm generations, long mode
+    batch, prompt, gen = 4, 8, 16
+    run = serve(cfg, batch=batch, prompt_len=prompt, gen=gen, kill_sp=True, device="cuda",
+                seed=seed)
+    torch.cuda.synchronize()
+    if not all(torch.equal(run.served[k], run.published[k]) for k in run.published):
+        raise SystemExit("hymba: restored weights differ from the published ones")
+    engine = ServeEngine(cfg, run.served, max_len=prompt + gen + 1)
+    warm_s = []
+    for _ in range(FAMILY_WARM):
+        t = time.perf_counter()
+        warm = engine.generate(run.prompts, num_tokens=gen)
+        warm_s.append(time.perf_counter() - t)
+    ring = ServeEngine(cfg, run.served, max_len=prompt + gen + 1, long_mode=True)
+    long_out = ring.generate(run.prompts, num_tokens=gen)
+    if not (np.array_equal(warm, run.outputs) and np.array_equal(long_out, run.outputs)):
+        raise SystemExit("hymba: warm or long-mode generation differs from the served tokens")
+    decode = make_decode_step(cfg, long_mode=True)
+    cache = {k: torch.zeros(s.shape, dtype=s.dtype, device="cuda") for k, s in
+             build(cfg).cache_specs(1, FAMILY_LONG_POSITIONS + 1, long_mode=True).items()}
+    given = torch.as_tensor(run.prompts[:1], dtype=torch.int64, device="cuda")
+    tok, finite = given[:, :1], torch.ones((), dtype=torch.bool, device="cuda")
+    split0 = fa.flash_attention.variant_launches["split"]
+    t = time.perf_counter()
+    for pos in range(FAMILY_LONG_POSITIONS):
+        logits, cache = decode(run.served, cache, tok, pos)
+        finite &= torch.isfinite(logits).all()
+        tok = given[:, pos + 1:pos + 2] if pos + 1 < prompt else \
+            logits[:, -1].argmax(-1, keepdim=True).clamp_(max=cfg.vocab - 1)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t
+    long_split = fa.flash_attention.variant_launches["split"] - split0
+    row["serve"] = {
+        "weight_bytes": run.record.total_bytes, "publish_s": run.publish_s,
+        "publish_GB/s": run.record.total_bytes / run.publish_s / 1e9,
+        "restore_s": run.restore_s, "restore_GB/s": run.record.total_bytes / run.restore_s / 1e9,
+        "restored_equal": True, "first_decode_s": run.decode_s, "warm_decode_s": warm_s,
+        "decode_tok/s": run.decoded_tokens / sorted(warm_s)[FAMILY_WARM // 2],
+        "long_mode_tokens_equal": True, "long_positions": FAMILY_LONG_POSITIONS,
+        "long_cache_slots": int(cache["k"].shape[2]), "long_s": long_s,
+        "long_tok/s": FAMILY_LONG_POSITIONS / long_s, "long_split_launches": long_split,
+        "long_logits_finite": bool(finite)}
+    print(json.dumps({"families_serve": row["serve"]}), flush=True)
+    if not bool(finite) or long_split != FAMILY_LONG_POSITIONS * cfg.num_layers:
+        raise SystemExit(f"hymba long mode: finite {bool(finite)}, {long_split} split launches "
+                         f"for {FAMILY_LONG_POSITIONS} positions x {cfg.num_layers} layers")
+    del engine, ring, cache
+
+    # 2. hymba's training step at 1 x FAMILY_TRAIN_SEQ
+    gen_card = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(build(cfg).param_specs(), gen_card, device="cuda")
+    state = opt.init_state(params)
+    toks = torch.randint(0, cfg.vocab, (1, FAMILY_TRAIN_SEQ + 1), generator=gen_card,
+                         device="cuda")
+    step_fn = make_train_step(cfg)
+    fwd0, bwd0 = fa.flash_attention.variant_launches["tile"], fab.flash_attention_bwd.launches
+    wgmma0 = fab.flash_attention_bwd.design_launches["wgmma"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for _ in range(FAMILY_TRAIN_STEPS):
+        t = time.perf_counter()
+        state, metrics = step_fn(state, model_batch(cfg, toks, "cuda"))
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t)
+    backward = fab.flash_attention_bwd.launches - bwd0
+    forward = fa.flash_attention.variant_launches["tile"] - fwd0
+    wgmma = fab.flash_attention_bwd.design_launches["wgmma"] - wgmma0
+    row["train"] = {"batch": 1, "seq": FAMILY_TRAIN_SEQ, "losses": losses, "step_s": step_s,
+                    "tokens/s": FAMILY_TRAIN_SEQ / step_s[-1],
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "attention_forward_launches": forward, "attention_backward_launches": backward,
+                    "backward_wgmma_launches": wgmma}
+    print(json.dumps({"families_train": row["train"]}), flush=True)
+    want = FAMILY_TRAIN_STEPS * cfg.num_layers
+    if not all(np.isfinite(losses)) or backward != want or wgmma != want or forward != 2 * want:
+        raise SystemExit(f"hymba training: losses {losses}, forward {forward}, backward "
+                         f"{backward} (wgmma {wgmma}); {want} backward expected")
+    trained = state["params"]
+    del state, params, metrics
+
+    # 3. qwen3-moe's prefill at published widths
+    qparams = init_params(build(qcfg).param_specs(), gen_card, device="cuda")
+    qtoks = torch.randint(0, qcfg.vocab, (1, FAMILY_MOE_SEQ), generator=gen_card, device="cuda")
+    routes: list = []
+    with recorded_routes(routes):
+        t = time.perf_counter()
+        qlogits, qcache = make_prefill_step(qcfg)(qparams, {"tokens": qtoks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+    row["moe"] = {"prefill_s": prefill_s, "cache_shape": list(qcache["k"].shape),
+                  "layers": expert_load(qcfg, routes)}
+    print(json.dumps({"families_moe": row["moe"]}), flush=True)
+    del qcache, routes
+
+    # 4. launch/train.py's flow on phi-3-vision-smoke: stub embeddings from the blob corpus
+    # (its CLI's loss check is reported, not gated: on random tokens at smoke size the
+    # head and tail means of the loss differ by noise)
+    vcfg = get_smoke("phi-3-vision-4.2b")
+    vrun = train(vcfg, steps=16, batch=4, seq=48, ckpt_every=4, fail_at=6, device="cuda",
+                 seed=seed)
+    torch.cuda.synchronize()
+    row["embeddings_train"] = {"losses": vrun.losses, "loss_fell": loss_fell(vrun.losses),
+                               "restored_step": vrun.restored_step,
+                               "restored_equal": vrun.restored_equal, "repairs": len(vrun.repairs),
+                               "repair_failures": len(vrun.repair_failures)}
+    print(json.dumps({"families_embeddings_train": row["embeddings_train"]}), flush=True)
+    if (not all(np.isfinite(vrun.losses)) or not vrun.restored_equal or not vrun.repairs
+            or vrun.repair_failures or not all(r.verified for r in vrun.repairs)):
+        raise SystemExit(f"phi-3-vision training: {row['embeddings_train']}")
+    del vrun
+
+    counts = read_counts("families")
+    designs = dict(fab.flash_attention_bwd.design_launches)
+    row["launches"] = counts
+    row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if (counts["gf_matmul"] == 0 or variant_launches["families"]["tile"] == 0
+            or variant_launches["families"]["split"] == 0 or designs["wgmma"] == 0):
+        raise SystemExit(f"the families path's launches are off: {counts}, "
+                         f"attention {variant_launches['families']}, backward {designs}")
+
+    # 5. the card against the CPU plain path (uncounted)
+    row["serve_card_vs_cpu"] = serve_card_vs_cpu(cfg, run)
+    row["train_card_vs_cpu"] = train_card_vs_cpu(cfg, trained, seed,
+                                                 label="families_train_card_vs_cpu")
+    del run, trained
+    qcpu = {k: t.cpu() for k, t in qparams.items()}
+    with torch.inference_mode():
+        qref, _ = make_prefill_step(qcfg)(qcpu, {"tokens": qtoks.cpu()})
+    card_l, cpu_l = qlogits.float().cpu()[..., :qcfg.vocab], qref.float()[..., :qcfg.vocab]
+    err = float((card_l - cpu_l).abs().max())
+    row["moe"]["prefill_card_vs_cpu"] = {"max_abs_logit_err": err, "atol": SERVE_LOGIT_ATOL,
+                                         "max_abs_logit": float(cpu_l.abs().max())}
+    print(json.dumps({"families_moe_card_vs_cpu": row["moe"]["prefill_card_vs_cpu"]}), flush=True)
+    if not torch.isfinite(card_l).all() or err > SERVE_LOGIT_ATOL:
+        raise SystemExit("qwen3-moe's prefill on the card disagrees with the CPU plain path")
+    del qparams, qcpu, qlogits, qref, card_l, cpu_l
+    torch.cuda.empty_cache()
+    gen_cpu = torch.Generator().manual_seed(seed)
+    for arch in FAMILY_SMOKE_ARCHS + ("hymba-1.5b",):
+        scfg = get_smoke(arch)
+        sparams = init_params(build(scfg).param_specs(), gen_cpu, device="cpu")
+        sparams = {k: t.cuda() for k, t in sparams.items()}
+        stoks = torch.randint(0, scfg.vocab, (FAMILY_SMOKE_BATCH, FAMILY_SMOKE_LONG),
+                              generator=gen_cpu).numpy()
+        if arch == "hymba-1.5b":  # long mode past the window, wrapped
+            dec = decode_card_vs_cpu(scfg, sparams, stoks, long_mode=True)
+        else:
+            row[f"{arch}_train_card_vs_cpu"] = train_card_vs_cpu(
+                scfg, sparams, seed, batch=FAMILY_SMOKE_BATCH, seq=FAMILY_SMOKE_SEQ,
+                label="families_smoke_train_card_vs_cpu")
+            dec = decode_card_vs_cpu(scfg, sparams, stoks[:, :FAMILY_SMOKE_DECODE])
+        row[f"{arch}_decode_card_vs_cpu"] = dec
+        print(json.dumps({"families_smoke_decode_card_vs_cpu": dec}), flush=True)
+        if dec["max_abs_logit_err"] > SERVE_LOGIT_ATOL or dec["greedy_equal"] != dec["greedy_compared"]:
+            raise SystemExit(f"{arch}: decode on the card disagrees with the CPU plain path")
+    row["s"] = time.perf_counter() - t_phase
+    print(json.dumps({"families": {"s": row["s"], "launches": counts, "backward_designs": designs,
+                                   "max_memory_allocated": row["max_memory_allocated"]}}),
+          flush=True)
     return row
 
 
@@ -1564,12 +1883,27 @@ def main(argv=None) -> int:
         # phase 15's forward: a microbatch of starcoder2-3b (H 24, Hkv 2) at train_4k
         ("train_microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, 24, 2, 128,
          True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
+        # phase 16: hymba (H 25, Hkv 5: a GQA group of 5, hd 64) at its training step, its
+        # serving step, and its long-mode decode over the 2,048-slot ring (window 2048)
+        # after the ring wrapped and before it filled (unwritten slots at UNWRITTEN)
+        ("hymba_train", 1, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_SEQ, 25, 5, 64, True, 0,
+         ar(FAMILY_TRAIN_SEQ), ar(FAMILY_TRAIN_SEQ)),
+        ("hymba_serve_decode", serve_batch, 1, serve_slots, 25, 5, 64, True, 0,
+         ar(1, serve_prompt + serve_gen - 2), ar(serve_slots)),
+        ("hymba_ring_wrapped", 1, 1, 2048, 25, 5, 64, True, 2048, ar(1, FAMILY_LONG_POSITIONS - 1),
+         ring_positions(FAMILY_LONG_POSITIONS - 1, 2048, "cuda")),
+        ("hymba_ring_unwritten", 1, 1, 2048, 25, 5, 64, True, 2048, ar(1, 1500),
+         ring_positions(1500, 2048, "cuda")),
+        # phase 16's qwen3-moe prefill (H 32, Hkv 4, hd 128)
+        ("qwen3_prefill", 1, FAMILY_MOE_SEQ, FAMILY_MOE_SEQ, 32, 4, 128, True, 0,
+         ar(FAMILY_MOE_SEQ), ar(FAMILY_MOE_SEQ)),
     ]
     attn_checks = check_flash_attention(attn_cases, gen)
 
     _phase("flash_attention_bwd vs plain (bf16; phase 15's shape: B 4, S 4096, H 24, Hkv 2, "
-           "hd 128)")
-    bwd_checks = check_flash_attention_bwd(backward_cases(), gen, timed="train_microbatch")
+           "hd 128; phase 16's: B 1, S 4096, H 25, Hkv 5, hd 64)")
+    bwd_checks = check_flash_attention_bwd(backward_cases(), gen,
+                                           timed=("train_microbatch", "hymba_train"))
 
     # -- 3. the main path at production size -------------------------------------------
     _phase(f"slice: put/read a {args.blob_mib} MiB blob at (10,6), 10 MiB chunksets")
@@ -1842,7 +2176,12 @@ def main(argv=None) -> int:
     _phase(f"train: {TRAIN_ARCH} at published widths, {TRAIN_LAYERS} layers, through Shelby")
     train_phase(args.seed, zero_counts, read_counts, variant_launches)
 
-    # -- 16. the kernels line and the result ----------------------------------------------
+    # -- 16. the MoE, SSM, hybrid and embedding-input families --------------------------------
+    _phase(f"families: {FAMILY_ARCH} at published widths, {FAMILY_LAYERS} layers, served from "
+           f"Shelby, long mode, a training step; {FAMILY_MOE_ARCH} prefill; smoke families")
+    families_phase(args.seed, zero_counts, read_counts, variant_launches)
+
+    # -- 17. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),
@@ -1876,7 +2215,10 @@ def main(argv=None) -> int:
             line[-1].update(
                 host_ms=row["host_ms"], library_host_ms=row["library_host_ms"],
                 max_rel_err=max(r["max_rel_err"] for r in bwd_checks),
-                cases={r["case"]: r["max_rel_err"] for r in bwd_checks})
+                cases={r["case"]: r["max_rel_err"] for r in bwd_checks},
+                timed_cases={r["case"]: {key: r[key] for key in (
+                    "ms", "host_ms", "library_ms", "plain_ms", "bound_ms", "bound_by")}
+                    for r in bwd_checks if "ms" in r})
         if name == "gf_matmul":  # the repair and DAS shapes beside the put's encode
             by_shape = {(r["m"], r["k"], r["n"]): r for r in checks}
             line[-1]["shapes"] = {

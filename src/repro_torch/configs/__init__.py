@@ -3,9 +3,9 @@
 ``get(name)`` returns the full published config, ``get_smoke(name)`` a
 reduced same-family config for CPU tests, as in ``repro/configs``;
 ``"shelby"`` names the storage deployment (``configs/shelby.py``).  The port
-serves the dense, token-input architectures so far; the others raise
-``NotImplementedError`` until their families are ported (ROADMAP Queue 1,
-the LM stack).
+builds the dense, MoE, SSM and hybrid families and embedding inputs;
+``deepseek-v2-lite-16b`` (MLA) and ``whisper-tiny`` (encoder-decoder) raise
+``NotImplementedError`` until theirs are ported (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -25,10 +25,14 @@ ALL_ARCHS = [
 ]
 
 _MODULES = {
+    "qwen3-moe-30b-a3b": "qwen3_moe",
+    "hymba-1.5b": "hymba",
+    "falcon-mamba-7b": "falcon_mamba",
     "starcoder2-3b": "starcoder2",
     "granite-8b": "granite",
     "yi-9b": "yi",
     "command-r-plus-104b": "command_r_plus",
+    "phi-3-vision-4.2b": "phi3_vision",
     "shelby": "shelby",
 }
 
@@ -37,8 +41,8 @@ def _module(name: str):
     if name not in _MODULES:
         if name in ALL_ARCHS:
             raise NotImplementedError(
-                f"{name}: only the dense, token-input architectures "
-                f"({', '.join(_MODULES)}) are ported; the rest is ROADMAP Queue 1, the LM stack")
+                f"{name}: its family is not ported (ported: {', '.join(_MODULES)}); "
+                "ROADMAP Queue 1 item 4, the LM stack")
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 

@@ -1,8 +1,8 @@
 """ArchConfig: one dataclass describes every architecture of the JAX package.
 
-A copy of ``repro/configs/base.py``'s dataclasses.  The port builds only the
-dense family so far (``models/model.py``); the MoE, MLA and SSM configs are
-here as the field types of ``ArchConfig``.
+A copy of ``repro/configs/base.py``'s dataclasses.  The port builds the
+dense, MoE, SSM and hybrid families (``models/model.py``); ``MLAConfig`` is
+here as a field type of ``ArchConfig`` until MLA is ported.
 """
 from __future__ import annotations
 

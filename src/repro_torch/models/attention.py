@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import MaskSpec, apply_rope, cast, decode_attention, flash_attention
+from repro_torch.models.layers import (MaskSpec, apply_norm, apply_rope, cast, decode_attention,
+                                       flash_attention)
 from repro_torch.sharding import ParamSpec
 
 UNWRITTEN = 2**30  # the position of a ring-buffer slot not written yet
@@ -45,6 +46,9 @@ def _qkv(params, x: torch.Tensor):
         q = q + cast(params["bq"])
         k = k + cast(params["bk"])
         v = v + cast(params["bv"])
+    if "q_norm" in params:  # qwen3-style per-head q/k RMSNorm, over head_dim
+        q = apply_norm({"scale": params["q_norm"]}, q, "rmsnorm")
+        k = apply_norm({"scale": params["k_norm"]}, k, "rmsnorm")
     return q, k, v
 
 

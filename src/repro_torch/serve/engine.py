@@ -27,17 +27,18 @@ class ServeEngine:
     """``params`` is the port's flat parameter dict; the engine runs on its device."""
 
     def __init__(self, cfg: ArchConfig, params: dict[str, torch.Tensor], *,
-                 ctx: AxisCtx | None = None, max_len: int = 256):
+                 ctx: AxisCtx | None = None, max_len: int = 256, long_mode: bool = False):
         self.cfg = cfg
         self.params = params
         self.ctx = ctx or AxisCtx()
         self.max_len = max_len
+        self.long_mode = long_mode
         self.model = build(cfg)
         self.device = next(iter(params.values())).device
         self.stats = ServeStats()
 
     def _empty_cache(self, batch: int) -> dict[str, torch.Tensor]:
-        specs = self.model.cache_specs(batch, self.max_len)
+        specs = self.model.cache_specs(batch, self.max_len, long_mode=self.long_mode)
         return {name: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
                 for name, s in specs.items()}
 
@@ -51,7 +52,8 @@ class ServeEngine:
         out = [given[:, i] for i in range(p)]
         tok = given[:, :1]
         for pos in range(p + num_tokens - 1):
-            logits, cache = self.model.decode_step(self.params, cache, tok, pos, self.ctx)
+            logits, cache = self.model.decode_step(self.params, cache, tok, pos, self.ctx,
+                                                   long_mode=self.long_mode)
             if pos + 1 < p:
                 tok = given[:, pos + 1 : pos + 2]
             else:

@@ -120,11 +120,19 @@ class Trainer:
         return state, report
 
     def _to_batch(self, x: np.ndarray, y: np.ndarray) -> dict[str, torch.Tensor]:
-        if self.cfg.family == "encdec" or self.cfg.input_mode != "tokens":
-            raise NotImplementedError(f"{self.cfg.name}: only token inputs are ported "
-                                      "(ROADMAP Queue 1 item 4)")
-        return {"tokens": torch.as_tensor(x, dtype=torch.int64, device=self.device),
-                "labels": torch.as_tensor(y, dtype=torch.int64, device=self.device)}
+        tokens = torch.as_tensor(x, dtype=torch.int64, device=self.device)
+        labels = torch.as_tensor(y, dtype=torch.int64, device=self.device)
+        if self.cfg.input_mode == "embeddings":
+            return {"embeddings": stub_embeddings(tokens, self.cfg.d_model), "labels": labels}
+        return {"tokens": tokens, "labels": labels}
+
+
+def stub_embeddings(tokens: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The JAX package's stub frontend (``repro/train/loop.py``): each token id
+    as the f32 value ``(id % 17) / 17`` broadcast to ``d_model``, made on the
+    tokens' device; the bytes equal the reference's numpy array's."""
+    emb = (tokens[..., None] % 17).to(torch.float32) / 17.0
+    return emb.expand(*tokens.shape, d_model)
 
 
 def _to_device(tree, device: torch.device):

@@ -37,7 +37,9 @@ def make_train_step(cfg: ArchConfig, ctx=None, adamw: opt.AdamWConfig | None = N
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
         with torch.enable_grad():
             loss, _ = loss_fn(leaves, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            # a parameter the loss never reads (an embedding-input model's
+            # table, read by decode only) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
         return loss.detach(), dict(zip(leaves, grads))
 
     def train_step(state, batch):
@@ -76,12 +78,10 @@ def make_prefill_step(cfg: ArchConfig, ctx=None):
 
 
 def make_decode_step(cfg: ArchConfig, ctx=None, *, long_mode: bool = False):
-    if long_mode:
-        raise NotImplementedError(f"make_decode_step: long_mode {_NOT_PORTED}")
     model = build(cfg)
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos, ctx)
+        return model.decode_step(params, cache, tokens, pos, ctx, long_mode=long_mode)
 
     return decode_step

@@ -398,6 +398,9 @@ ATTN_CASES = [  # b, sq, sk, h, hkv, hd, causal, window, q_offset
     (2, 1, 2048, 16, 2, 256, True, 0, 2047), (1, 64, 200, 2, 2, 256, True, 0, 136),
     # decode split over keys with whole splits hidden (slots past pos 1000)
     (16, 1, 4096, 32, 4, 128, True, 0, 1000),
+    # hymba (a GQA group of 5: a "tile" block's 64 rows cross query boundaries) and qwen3
+    (2, 512, 512, 25, 5, 64, True, 0, 0), (4, 1, 25, 25, 5, 64, True, 0, 22),
+    (1, 512, 512, 32, 4, 128, True, 0, 0),
 ]
 
 
@@ -598,6 +601,8 @@ BWD_CASES = [
     (1, 520, 520, 8, 2, 128, True, 150, 0), (2, 150, 333, 6, 2, 128, False, 0, 0),
     (1, 300, 450, 4, 2, 80, True, 0, -100),
     (1, 4096, 4096, 24, 2, 128, True, 0, 0),
+    # hymba's training shape at S 512 (a GQA group of 5, hd 64) and qwen3's (hd 128)
+    (2, 512, 512, 25, 5, 64, True, 0, 0), (1, 512, 512, 32, 4, 128, True, 0, 0),
 ]
 
 
@@ -756,3 +761,126 @@ def test_prefetch_thread_decodes_on_the_card(cuda):
     torch.cuda.synchronize()
     assert gk.gf_matmul.launches > launches
     assert all(np.array_equal(a, b) for a, b in zip(fore, back)) and len(back) == 6
+
+
+# -- the MoE, SSM, hybrid and embedding-input families -------------------------------------
+@pytest.mark.parametrize("pos", [1500, 2047, 2048, 2099, 4095 + 64])
+def test_split_decode_over_a_wrapped_ring(cuda, pos):
+    """hymba's long-mode decode: 2,048 ring slots, window 2048, H 25 / Hkv 5,
+    hd 64; before the ring fills (slots at UNWRITTEN), at the wrap and past
+    it (tiles holding positions out of slot order): "split", as the plain
+    version."""
+    from repro_torch.models.attention import UNWRITTEN, ring_positions
+
+    gen = torch.Generator(device=cuda).manual_seed(pos)
+    q = torch.randn((1, 1, 25, 64), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((1, 2048, 5, 64), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((1, 2048, 5, 64), generator=gen, device=cuda).bfloat16()
+    kpos = ring_positions(pos, 2048, cuda)
+    assert bool((kpos == UNWRITTEN).any()) == (pos < 2047)
+    kw = dict(q_positions=torch.tensor([pos], dtype=torch.int32, device=cuda), k_positions=kpos,
+              causal=True, window=2048)
+    split = fa.flash_attention.variant_launches["split"]
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.variant_launches["split"] == split + 1
+    torch.testing.assert_close(out, fa.flash_attention_ref(q, k, v, **kw), atol=2**-7, rtol=2**-7)
+
+
+def test_qk_norm_attention_on_the_card_matches_the_cpu(cuda):
+    """qwen3's attention at its widths (d 2048, H 32 / Hkv 4, hd 128) with its
+    per-head q/k RMSNorm, forward and gradient, on the card ("tile" and the
+    backward kernel) against the CPU plain path from the same bf16 inputs:
+    the output and the gradients (one vector) each within three times bf16's
+    own error on the CPU (bf16 against f32 compute there) plus 1% of its norm."""
+    from repro_torch.configs import get
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers
+    from repro_torch.sharding import ParamSpec, init_params
+
+    cfg = get("qwen3-moe-30b-a3b")
+    specs = {**A.attn_specs(cfg), "q_norm": ParamSpec((cfg.head_dim_,), ("head_dim",), init="ones"),
+             "k_norm": ParamSpec((cfg.head_dim_,), ("head_dim",), init="ones")}
+    gen = torch.Generator().manual_seed(5)
+    params = init_params(specs, gen, device="cpu")
+    params["q_norm"] += 0.1 * torch.randn(cfg.head_dim_, generator=gen)
+    params["k_norm"] += 0.1 * torch.randn(cfg.head_dim_, generator=gen)
+    x = torch.randn((1, 256, cfg.d_model), generator=gen).bfloat16()
+    outs = []
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.bfloat16), ("cpu", torch.float32)):
+        p = {k: t.to(dev).requires_grad_(True) for k, t in params.items()}
+        layers.COMPUTE_DTYPE = dtype
+        try:
+            out = A.attn_full(p, x.to(dev).to(dtype), cfg)
+            grads = torch.autograd.grad(out.float().square().mean(), list(p.values()))
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        outs.append((out.detach().float().cpu(), torch.cat([g.float().cpu().reshape(-1)
+                                                            for g in grads])))
+    (o_card, g_card), (o_cpu, g_cpu), (o_f32, g_f32) = outs
+    for card, cpu, exact in ((o_card, o_cpu, o_f32), (g_card, g_cpu, g_f32)):
+        noise = float((cpu - exact).norm())
+        assert float((card - cpu).norm()) <= 3 * noise + 0.01 * float(exact.norm())
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
+def test_family_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """Each family's decode step at smoke widths, teacher-forced over 40
+    positions (in long mode: hymba-smoke's 32-slot ring wraps), on the card
+    and on the CPU plain path: bf16 logits within 0.15, caches updated in
+    place on both."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+
+    cfg = get_smoke(arch)
+    model = build(cfg)
+    params = init_params(model.param_specs(), torch.Generator().manual_seed(3), device="cpu")
+    on_card = {k: t.to(cuda) for k, t in params.items()}
+    caches = [{k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+               for k, s in model.cache_specs(2, 40, long_mode=True).items()} for dev in ("cpu", cuda)]
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(4))
+    for pos in range(40):
+        want, caches[0] = model.decode_step(params, caches[0], toks[:, pos:pos + 1], pos,
+                                            long_mode=True)
+        got, caches[1] = model.decode_step(on_card, caches[1], toks[:, pos:pos + 1].to(cuda), pos,
+                                           long_mode=True)
+        torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.15, rtol=0)
+    for name, c in caches[1].items():
+        assert bool(torch.isfinite(c).all()) and c.abs().sum() > 0, name
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
+def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Each family's loss and gradient at smoke widths on the card against the
+    CPU plain path, bf16 on both: loss within 0.02, gradients within three
+    times bf16's own error on the CPU plus 1% of their norm."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import layers
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+    from repro_torch.train.loop import stub_embeddings
+    from repro_torch.train.step import make_loss_fn
+
+    cfg = get_smoke(arch)
+    params = init_params(build(cfg).param_specs(), torch.Generator().manual_seed(3), device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=torch.Generator().manual_seed(4))
+    out = []
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.bfloat16), ("cpu", torch.float32)):
+        p = {k: t.to(dev).requires_grad_(True) for k, t in params.items()}
+        x, y = toks[:, :-1].to(dev), toks[:, 1:].to(dev)
+        batch = ({"embeddings": stub_embeddings(x, cfg.d_model), "labels": y}
+                 if cfg.input_mode == "embeddings" else {"tokens": x, "labels": y})
+        layers.COMPUTE_DTYPE = dtype
+        try:
+            loss, _ = make_loss_fn(cfg)(p, batch)
+            grads = torch.autograd.grad(loss, list(p.values()), materialize_grads=True)
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        out.append((float(loss.detach()), torch.cat([g.float().cpu().reshape(-1) for g in grads])))
+    (l_card, g_card), (l_cpu, g_cpu), (_, g_f32) = out
+    assert abs(l_card - l_cpu) <= 0.02
+    noise = float((g_cpu - g_f32).norm())
+    assert float((g_card - g_cpu).norm()) <= 3 * noise + 0.01 * float(g_f32.norm())

@@ -40,7 +40,10 @@ def test_port_files_exist():
                 "src/repro_torch/kernels/flash_attention_bwd.py",
                 "src/repro_torch/train/optimizer.py", "src/repro_torch/train/step.py",
                 "src/repro_torch/train/loop.py", "src/repro_torch/data/pipeline.py",
-                "src/repro_torch/launch/train.py", "chip_smoke.py"):
+                "src/repro_torch/launch/train.py", "src/repro_torch/models/moe.py",
+                "src/repro_torch/models/mamba.py", "src/repro_torch/configs/hymba.py",
+                "src/repro_torch/configs/qwen3_moe.py", "src/repro_torch/configs/falcon_mamba.py",
+                "src/repro_torch/configs/phi3_vision.py", "chip_smoke.py"):
         assert rel in names
 
 
@@ -123,6 +126,19 @@ def test_round_trip_with_jax_and_reference_blocked():
         trainer = Trainer(cfg, num_microbatches=2, device="cpu")
         state, rep = trainer.run(trainer.init_state(), iter([(x, y)]), 1)
         assert int(state["step"]) == 1 and np.isfinite(rep.final_loss)
+
+        # one train step and one decode step of each family the port builds
+        for arch in ("phi-3-vision-4.2b", "qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b"):
+            fcfg = get_smoke(arch)
+            trainer = Trainer(fcfg, device="cpu")
+            state, rep = trainer.run(trainer.init_state(), iter([(x, y)]), 1)
+            assert int(state["step"]) == 1 and np.isfinite(rep.final_loss), arch
+            fmodel = build(fcfg)
+            cache = {k: torch.zeros(s.shape, dtype=s.dtype)
+                     for k, s in fmodel.cache_specs(2, 4, long_mode=True).items()}
+            logits, _ = fmodel.decode_step(state["params"], cache, torch.tensor([[1], [2]]), 0,
+                                           long_mode=True)
+            assert bool(torch.isfinite(logits).all()), arch
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -43,6 +43,8 @@ from repro_torch.sharding import flatten, params_from_numpy, unflatten
 from repro_torch.storage import checkpoint as tck
 
 DENSE = ["yi-9b", "granite-8b", "starcoder2-3b", "command-r-plus-104b"]
+FAMILIES = ["phi-3-vision-4.2b", "qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b"]
+UNPORTED = ["deepseek-v2-lite-16b", "whisper-tiny"]  # MLA and encoder-decoder
 F32_ATOL = 1e-4
 BF16_ATOL = 0.15
 
@@ -76,7 +78,7 @@ def _teacher_forced(arch: str, compute: str, steps: int = 12, b: int = 2):
 
 
 # -- configs and parameter trees --------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_configs_match_reference(arch):
     for jcfg, tcfg in ((jget_full(arch), tconfigs.get(arch)), (jget(arch), tconfigs.get_smoke(arch))):
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
@@ -84,18 +86,18 @@ def test_configs_match_reference(arch):
 
 
 def test_other_architectures_raise():
-    for arch in tconfigs.ALL_ARCHS:
-        if arch in DENSE:
-            continue
-        with pytest.raises(NotImplementedError, match="Queue 1, the LM stack"):
+    assert set(tconfigs.ALL_ARCHS) == set(DENSE + FAMILIES + UNPORTED)
+    for arch in UNPORTED:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4, the LM stack"):
             tconfigs.get(arch)
         with pytest.raises(NotImplementedError):
             tconfigs.get_smoke(arch)
     with pytest.raises(KeyError):
         tconfigs.get("no-such-model")
-    with pytest.raises(NotImplementedError):
-        DecoderLM(ArchConfig(name="m", family="moe", num_layers=1, d_model=8, num_heads=2,
-                             num_kv_heads=1, d_ff=8, vocab=16))
+    for family in ("mla_moe", "encdec"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            DecoderLM(ArchConfig(name="m", family=family, num_layers=1, d_model=8, num_heads=2,
+                                 num_kv_heads=1, d_ff=8, vocab=16))
 
 
 @pytest.mark.parametrize("arch", DENSE)

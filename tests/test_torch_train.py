@@ -327,8 +327,7 @@ def test_microbatches_average_the_gradients():
 
 def test_unported_options_raise():
     cfg = tconfigs.get_smoke("granite-8b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tstep.make_decode_step(cfg, long_mode=True)
+    tstep.make_decode_step(cfg, long_mode=True)  # long mode is ported
     mesh_ctx = TAxisCtx()
     mesh_ctx.mesh = object()
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
@@ -341,8 +340,18 @@ def test_unported_options_raise():
         TA.attn_full(layer0, x, cfg, kv_source=x)
     import dataclasses
 
+    tbuild(dataclasses.replace(cfg, use_qk_norm=True))  # qwen3's qk-norm is ported
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tbuild(dataclasses.replace(cfg, use_qk_norm=True))
+        tbuild(dataclasses.replace(cfg, family="mla_moe"))
+    from repro_torch.models import moe as TMoE
+
+    moe_cfg = tconfigs.get_smoke("qwen3-moe-30b-a3b")
+    moe_layer = {k.split(".", 2)[2]: torch.zeros(v.shape[1:])
+                 for k, v in tbuild(moe_cfg).param_specs().items() if k.startswith("blocks.moe.")}
+    ep_ctx = TAxisCtx()
+    ep_ctx.mesh = type("Mesh", (), {"shape": {"data": 1, "model": 2}})()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        TMoE.apply_moe(moe_layer, torch.zeros((1, 2, moe_cfg.d_model)), moe_cfg, ep_ctx)
 
 
 # -- train-state checkpoints across packages --------------------------------------------------
