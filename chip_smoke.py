@@ -28,10 +28,15 @@ the phase that caused it; any failure exits non-zero and prints no result:
    yardstick the port never calls), with the kernel the dispatch rule picked,
    also at phase 15's microbatch and at phase 16's shapes (hymba: a GQA
    group of 5, hd 64, its training step, serving step and long-mode decode
-   over a wrapped and an unfilled 2,048-slot ring; qwen3-moe's prefill);
-   ``flash_attention_bwd`` against its plain version within ``BWD_TOL`` at
-   phase 15's shape (B 4, S 4096, H 24, Hkv 2, hd 128), at phase 16's (B 1,
-   S 4096, H 25, Hkv 5, hd 64) and at edge cases (window, explicit positions with Sq != Sk and
+   over a wrapped and an unfilled 2,048-slot ring; qwen3-moe's prefill) and
+   at phase 17's (whisper-tiny non-causal over 1,500 frames: its encoder,
+   its cross-attention in training and in decode; deepseek's MLA at hd 192 /
+   hd_v 128 through ``models/layers.py``, V zero-padded, beside SDPA at
+   Ev 128); ``flash_attention_bwd`` against its plain version within
+   ``BWD_TOL`` at phase 15's shape (B 4, S 4096, H 24, Hkv 2, hd 128), at
+   phase 16's (B 1, S 4096, H 25, Hkv 5, hd 64), at phase 17's (B 1, S
+   4096, H 16, hd 192: the "mma" design, whose ptxas registers and spills
+   phase 1 prints) and at edge cases (window, explicit positions with Sq != Sk and
    ragged tiles, hd 256, g = 1, rows that see no key), the forward with its
    row log-sum-exp equal to the forward without it, timed beside its bound
    and SDPA's backward; each case's design ("wgmma" for hd <= 128, "mma"
@@ -117,7 +122,7 @@ the phase that caused it; any failure exits non-zero and prints no result:
    1 x 256 loss and gradient on the card against the CPU plain path;
 16. the MoE, SSM, hybrid and embedding-input families (``families_phase``,
    counted as the path ``families``): hymba-1.5b at its published widths,
-   depth cut to 4 layers, served from Shelby (publish, an SP crashed, the
+   depth cut to 2 layers, served from Shelby (publish, an SP crashed, the
    restore equal to the published weights, batch 4 x (8 + 16)), three warm
    generations, the same prompts in long mode (the same tokens), one
    long-mode generation over 2,100 positions past the 2,048-slot ring
@@ -130,7 +135,24 @@ the phase that caused it; any failure exits non-zero and prints no result:
    teacher-forced and its 1 x 256 gradient, qwen3-moe's prefill logits,
    falcon-mamba, qwen3-moe and phi-3-vision at smoke widths (gradient and 8
    decode positions), hymba-smoke in long mode over 48 positions;
-17. the script's seconds, the card again, one JSON line per kernel, then the
+17. MLA and the encoder-decoder (``mla_encdec_phase``, counted as the path
+   ``mla_encdec``): whisper-tiny at its published size (56,477,184
+   parameters, nothing cut) served from Shelby over seeded stub frames
+   (publish, an SP crashed, the restore equal to the published weights,
+   batch 4 x (8 + 16)), three warm generations (the same tokens), two
+   training steps at 8 x 448 over 1,500 zero frames ("wgmma" backward);
+   deepseek-v2-lite at its published widths cut to 2 layers (its dense layer
+   and one MLA + MoE layer, 1,085,287,424 parameters made on the card): a 1
+   x 4096 prefill ("tile" at hd 192; each expert's load, the drops), the
+   absorbed decode of batch 4 x (8 + 16) (no attention kernel), two training
+   steps at 1 x 4096 ("mma" backward); then the card against the CPU plain
+   path: whisper's decode (over zero frames; over the seeded ones, and
+   deepseek's 1 x 256 prefill logits, within 0.15 plus three times the
+   CPU's own bf16 error: attention one-hot at init, ROADMAP Queue 3 item 5)
+   and 1 x 64 gradient over seeded frames, deepseek's decode and 1 x 128
+   gradient, both at smoke widths (whisper-smoke's decode relative to the
+   CPU's own error too);
+18. the script's seconds, the card again, one JSON line per kernel, then the
    result line.
 """
 from __future__ import annotations
@@ -189,7 +211,7 @@ TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 1, 256  # the card-vs-CPU step
 TRAIN_LOSS_ATOL, TRAIN_NOISE_FACTOR, TRAIN_GRAD_FLOOR = 0.02, 3.0, 0.01
 SERVE_ARCH, SERVE_LAYERS = "yi-9b", 2  # published widths; depth cut from 48 (host-bound publish)
 # phase 16: the MoE, SSM, hybrid and embedding-input families
-FAMILY_ARCH, FAMILY_LAYERS = "hymba-1.5b", 4  # published widths; depth cut from 32
+FAMILY_ARCH, FAMILY_LAYERS = "hymba-1.5b", 2  # published widths; depth cut from 32
 FAMILY_WARM = 3  # warm generations of the served hybrid, the median reported
 FAMILY_LONG_POSITIONS = 2100  # one long-mode generation past hymba's 2,048-slot ring
 FAMILY_TRAIN_SEQ = 4096  # one sequence of train_4k's length
@@ -198,6 +220,15 @@ FAMILY_MOE_ARCH, FAMILY_MOE_LAYERS, FAMILY_MOE_SEQ = "qwen3-moe-30b-a3b", 1, 512
 FAMILY_SMOKE_ARCHS = ("falcon-mamba-7b", "qwen3-moe-30b-a3b", "phi-3-vision-4.2b")
 FAMILY_SMOKE_BATCH, FAMILY_SMOKE_SEQ, FAMILY_SMOKE_DECODE = 2, 64, 8
 FAMILY_SMOKE_LONG = 48  # positions past hymba-smoke's 32-slot window
+# phase 17: MLA (deepseek-v2-lite) and the encoder-decoder (whisper-tiny)
+ENCDEC_ARCH = "whisper-tiny"  # its published config, nothing cut
+ENCDEC_WARM = 3  # warm generations, the median reported
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 448  # 448: whisper's published text context
+ENCDEC_CMP_SEQ = 64  # the card-vs-CPU gradient: 1 x 64 tokens over 1,500 seeded frames
+MLA_ARCH, MLA_LAYERS = "deepseek-v2-lite-16b", 2  # published widths; depth cut from 27
+MLA_SEQ = 4096  # train_4k's sequence: the prefill and the training steps
+MLA_CMP_PREFILL, MLA_CMP_SEQ = 256, 128  # the card-vs-CPU prefill logits and gradient
+MLA_ENCDEC_SMOKE = (MLA_ARCH, ENCDEC_ARCH)
 # warm decode is host-bound and single generations swing by a third: the median of nine
 WARM_GENERATIONS = 9
 CHURN_EPOCHS = 3
@@ -597,6 +628,74 @@ def check_flash_attention(cases, gen) -> list[dict]:
     return rows
 
 
+def check_padded_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int, gen) -> dict:
+    """MLA's attention at q/k head dim ``hd`` and v head dim ``hd_v``, causal,
+    MHA, bf16, through ``models/layers.py::flash_attention`` (V zero-padded to
+    hd, the "tile" kernel, the output sliced back): against the plain version
+    on the same inputs (``flash_attention_ref`` on the padded V, sliced)
+    within ``ATTN_TOL``.  Device ms of the whole call (``ms``: the pad and the
+    kernel) and of the kernel alone on an already padded V (``kernel_ms``),
+    beside SDPA at Ev = hd_v with no padding (``library_ms``), the plain
+    version and the bound of the unpadded work (2 (hd + hd_v) operations per
+    visible pair and head; q, k, v and o moved once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, s, h, hd_v), generator=gen, device="cuda").bfloat16()
+    vp = F.pad(v, (0, hd - hd_v))
+    mask, scale = layers.MaskSpec(causal=True), hd ** -0.5
+    before = dict(fa.flash_attention.variant_launches)
+    out = layers.flash_attention(q, k, v, mask=mask, scale=scale)
+    ran = [n for n, c in fa.flash_attention.variant_launches.items() if c > before[n]]
+    ref = fa.flash_attention_ref(q, k, vp, scale=scale)[..., :hd_v]
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    atol, rtol = ATTN_TOL["bfloat16"]
+    bad = int((err > atol + rtol * ref.float().abs()).sum())
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def call():
+        return layers.flash_attention(q, k, v, mask=mask, scale=scale)
+
+    def kern():
+        return fa.flash_attention(q, k, vp, scale=scale)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+
+    lib_err = float((lib().transpose(1, 2).float() - ref.float()).abs().max())
+    host = {"call": [_time_ms(call, 5)], "library": [_time_ms(lib, 5)]}
+    host["library"].append(_time_ms(lib, 5))
+    host["call"].append(_time_ms(call, 5))
+    dev = {what: _device_ms(fn, 5)[0] for what, fn in (("call", call), ("kernel", kern),
+                                                         ("library", lib))}
+    pairs = s * (s + 1) // 2
+    ops_ms = 2.0 * (hd + hd_v) * pairs * b * h / H100_BF16_FLOPS * 1e3
+    nbytes = (2 * q.numel() + 2 * v.numel()) * q.element_size() + 8 * s  # q k v o, positions
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    bound, by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    row = {"case": name, "shape": [b, s, s, h, h, hd], "hd_v": hd_v, "causal": True, "window": 0,
+           "dtype": "bfloat16", "variant": ran[0] if len(ran) == 1 else ran, "violations": bad,
+           "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
+           "ms": dev["call"], "kernel_ms": dev["kernel"], "host_ms": min(host["call"]),
+           "previous_ms": None, "library_ms": dev["library"],
+           "library_host_ms": min(host["library"]),
+           "plain_ms": _time_ms(lambda: fa.flash_attention_ref(
+               q, k, F.pad(v, (0, hd - hd_v)), scale=scale)[..., :hd_v], 2),
+           "bound_ms": bound, "bound_by": by}
+    print(json.dumps({"flash_attention_check": row}), flush=True)
+    if bad or ran != ["tile"]:
+        raise SystemExit(f"flash_attention at hd {hd} / hd_v {hd_v}: {bad} violations, ran {ran}")
+    del q, k, v, vp, out, ref
+    torch.cuda.synchronize()
+    return row
+
+
 def attention_bwd_bound_ms(q, k, vis) -> tuple[float, str]:
     """Least time for attention's gradient with the (Sq, Sk) visibility
     ``vis``: five products of 2 * hd operations per visible (query, key) pair
@@ -623,6 +722,8 @@ def backward_cases() -> list[tuple]:
         # phase 16's hymba step: a GQA group of 5, hd 64
         ("hymba_train", 1, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_SEQ, 25, 5, 64, True, 0,
          ar(FAMILY_TRAIN_SEQ), ar(FAMILY_TRAIN_SEQ)),
+        # phase 17's deepseek step: MLA's q/k head dim 192 (V zero-padded to it), MHA
+        ("mla_train", 1, MLA_SEQ, MLA_SEQ, 16, 16, 192, True, 0, ar(MLA_SEQ), ar(MLA_SEQ)),
         ("window", 2, 300, 300, 24, 2, 128, True, 64, ar(300), ar(300)),
         # a block of queries at the end of a longer cache; Sq != Sk, ragged last tiles
         ("explicit_positions_ragged", 2, 100, 333, 8, 2, 64, True, 0, ar(100, 233), ar(333)),
@@ -645,6 +746,19 @@ def ptxas_spills(lines: list[str]) -> dict[str, int]:
         elif name and "spill" in ln:
             spills[name] = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
     return spills
+
+
+def ptxas_registers(lines: list[str]) -> dict[str, int]:
+    """Registers per kernel from ``_build.ptxas_report`` lines, keyed as
+    :func:`ptxas_spills` keys them."""
+    regs, name = {}, None
+    for ln in lines:
+        if "Compiling entry" in ln:
+            m = re.search(r"(attn_bwd_\w+?_kernel)(?:ILi(\d+)E)?", ln)
+            name = f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else m and m.group(1)
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            regs[name] = int(m.group(1))
+    return regs
 
 
 def check_flash_attention_bwd(cases, gen, timed: tuple[str, ...]) -> list[dict]:
@@ -1303,55 +1417,79 @@ def scenario_phase(gk, device: str = "cuda") -> dict:
 
 
 SERVE_LOGIT_ATOL = 0.15  # bf16 logits, card vs CPU: the two round products differently
+# where attention is one-hot at the JAX package's init (ROADMAP Queue 3 item 5: scores
+# spread ~64 over 1,500 or 4,096 keys) a bf16 rounding flips rows' winners in any bf16
+# computation: there the card is held within SERVE_LOGIT_ATOL plus this many times the
+# CPU's own bf16 error (its bf16 against f32 compute), as the gradients are
+LOGIT_NOISE_FACTOR = 3.0
 
 
-def decode_card_vs_cpu(cfg, params, toks, *, long_mode: bool = False) -> dict:
+def decode_card_vs_cpu(cfg, params, toks, *, long_mode: bool = False, frames=None,
+                       exact: bool = False) -> dict:
     """``toks`` (B, T) teacher-forced through ``decode_step`` from empty caches
     on the card (``params``) and on the CPU plain path (a copy): bf16 logits
-    within ``SERVE_LOGIT_ATOL`` at every position, finite on the card, and the
-    card's argmax equal to the CPU's wherever the CPU's top-2 margin exceeds
-    twice that (``greedy_equal`` of ``greedy_compared``)."""
+    within ``atol`` at every position, finite on the card, and the card's
+    argmax equal to the CPU's wherever the CPU's top-2 margin exceeds twice
+    that (``greedy_equal`` of ``greedy_compared``).  ``atol`` is
+    ``SERVE_LOGIT_ATOL``, or with ``exact`` that plus ``LOGIT_NOISE_FACTOR``
+    times the CPU's own bf16 error (its bf16 logits against a pass with f32
+    compute and caches).  An encoder-decoder's ``frames`` (B, enc_seq,
+    d_model) are encoded on each side into its cache's ``enc_out``, as the
+    serving engine does."""
     import torch
 
+    from repro_torch.models import layers
     from repro_torch.models.model import build
 
     model = build(cfg)
-    weights = {"cuda": params, "cpu": {k: t.cpu() for k, t in params.items()}}
     b, steps = toks.shape
-    caches = {dev: {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-                    for k, s in model.cache_specs(b, steps, long_mode=long_mode).items()}
-              for dev in weights}
     toks = torch.as_tensor(toks, dtype=torch.int64)
-    worst = scale = 0.0
-    compared = equal = 0
-    with torch.inference_mode():
-        for pos in range(steps):
-            logits = {}
-            for dev, p in weights.items():
-                out, caches[dev] = model.decode_step(p, caches[dev], toks[:, pos:pos + 1].to(dev),
-                                                     pos, long_mode=long_mode)
-                logits[dev] = out.float().cpu()[:, 0, :cfg.vocab]
-            if not torch.isfinite(logits["cuda"]).all():
-                raise SystemExit(f"{cfg.name}: non-finite logits on the card at position {pos}")
-            worst = max(worst, float((logits["cuda"] - logits["cpu"]).abs().max()))
-            scale = max(scale, float(logits["cpu"].abs().max()))
-            top2 = logits["cpu"].topk(2, dim=-1).values
-            clear = top2[:, 0] - top2[:, 1] > 2 * SERVE_LOGIT_ATOL
-            compared += int(clear.sum())
-            equal += int((logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1))[clear].sum())
-    del weights, caches
+    cpu_params = {k: t.cpu() for k, t in params.items()}
+    runs = [("cuda", params, torch.bfloat16), ("cpu", cpu_params, torch.bfloat16)]
+    runs += [("cpu", cpu_params, torch.float32)] if exact else []
+    logits = []
+    for dev, p, dtype in runs:
+        cache = {k: torch.zeros(s.shape, dtype=torch.float32 if dtype == torch.float32 else s.dtype,
+                                device=dev)
+                 for k, s in model.cache_specs(b, steps, long_mode=long_mode).items()}
+        out = []
+        layers.COMPUTE_DTYPE = dtype
+        try:
+            with torch.inference_mode():
+                if frames is not None:
+                    enc = model.encode(p, torch.as_tensor(frames, device=dev))
+                    cache["enc_out"] = enc.to(cache["enc_out"].dtype)
+                for pos in range(steps):
+                    step, cache = model.decode_step(p, cache, toks[:, pos:pos + 1].to(dev), pos,
+                                                    long_mode=long_mode)
+                    out.append(step.float().cpu()[:, 0, :cfg.vocab])
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        logits.append(torch.stack(out))
+        del cache
+    card, cpu = logits[0], logits[1]
+    if not torch.isfinite(card).all():
+        raise SystemExit(f"{cfg.name}: non-finite logits on the card")
+    own = float((cpu - logits[2]).abs().max()) if exact else None
+    atol = SERVE_LOGIT_ATOL + (LOGIT_NOISE_FACTOR * own if exact else 0.0)
+    top2 = cpu.topk(2, dim=-1).values
+    clear = top2[..., 0] - top2[..., 1] > 2 * atol
+    del cpu_params
     return {"arch": cfg.name, "layers": cfg.num_layers, "batch": b, "steps": steps,
-            "long_mode": long_mode, "max_abs_logit_err": worst, "max_abs_logit": scale,
-            "atol": SERVE_LOGIT_ATOL, "greedy_compared": compared, "greedy_equal": equal}
+            "long_mode": long_mode, "max_abs_logit_err": float((card - cpu).abs().max()),
+            "max_abs_logit": float(cpu.abs().max()), "cpu_bf16_vs_f32_logit_err": own,
+            "atol": atol, "greedy_compared": int(clear.sum()),
+            "greedy_equal": int((card.argmax(-1) == cpu.argmax(-1))[clear].sum())}
 
 
-def serve_card_vs_cpu(cfg, run, steps: int = 2) -> dict:
+def serve_card_vs_cpu(cfg, run, steps: int = 2, frames=None, exact: bool = False) -> dict:
     """The served model, teacher-forced on the first ``steps`` tokens of its
     own outputs, decoded on the card and on the CPU plain path from the same
-    restored weights: bf16 logits within ``SERVE_LOGIT_ATOL``."""
-    row = decode_card_vs_cpu(cfg, run.served, run.outputs[:, :steps])
+    restored weights (an encoder-decoder over its ``frames``): bf16 logits
+    within the ``atol`` of :func:`decode_card_vs_cpu`."""
+    row = decode_card_vs_cpu(cfg, run.served, run.outputs[:, :steps], frames=frames, exact=exact)
     print(json.dumps({"serve_card_vs_cpu": row}), flush=True)
-    if row["max_abs_logit_err"] > SERVE_LOGIT_ATOL:
+    if row["max_abs_logit_err"] > row["atol"]:
         raise SystemExit("the served model's decode on the card disagrees with the CPU plain path")
     return row
 
@@ -1368,22 +1506,31 @@ def model_flops(cfg, params: int, batch: int, seq: int) -> float:
 
 def model_batch(cfg, toks, device) -> dict:
     """A loss batch from (B, S + 1) tokens on ``device``: the next token as
-    the label; the inputs tokens, or for an embedding-input model the stub
+    the label; the inputs tokens (an encoder-decoder's beside the stub audio
+    frontend's zero frames), or for an embedding-input model the stub
     frontend's embeddings of them (``train/loop.py``)."""
+    import torch
+
     from repro_torch.train.loop import stub_embeddings
 
     x, y = toks[:, :-1].to(device), toks[:, 1:].to(device)
+    if cfg.is_encdec:
+        frames = torch.zeros((x.shape[0], cfg.enc_seq, cfg.d_model), device=device)
+        return {"frames": frames, "tokens": x, "labels": y}
     if cfg.input_mode == "embeddings":
         return {"embeddings": stub_embeddings(x, cfg.d_model), "labels": y}
     return {"tokens": x, "labels": y}
 
 
 def train_card_vs_cpu(cfg, params, seed: int, batch: int = TRAIN_CMP_BATCH,
-                      seq: int = TRAIN_CMP_SEQ, label: str = "train_card_vs_cpu") -> dict:
+                      seq: int = TRAIN_CMP_SEQ, label: str = "train_card_vs_cpu",
+                      frames=None) -> dict:
     """One loss and gradient at ``batch`` x ``seq`` from ``params`` on the
     card (bf16) and on the CPU plain path, in bf16 and with f32 compute (the
     models' COMPUTE_DTYPE set to f32 for that pass): the card within
-    TRAIN_NOISE_FACTOR times the CPU's own bf16 error."""
+    TRAIN_NOISE_FACTOR times the CPU's own bf16 error, everything finite.
+    An encoder-decoder reads ``frames`` (batch, enc_seq, d_model), or the
+    trainer's zero frames."""
     import torch
 
     from repro_torch.models import layers
@@ -1398,7 +1545,10 @@ def train_card_vs_cpu(cfg, params, seed: int, batch: int = TRAIN_CMP_BATCH,
         leaves = {k: t.detach().to(dev).requires_grad_(True) for k, t in params.items()}
         t, layers.COMPUTE_DTYPE = time.perf_counter(), dtype
         try:
-            loss, _ = loss_fn(leaves, model_batch(cfg, toks, dev))
+            inputs = model_batch(cfg, toks, dev)
+            if frames is not None:
+                inputs["frames"] = torch.as_tensor(frames, device=dev)
+            loss, _ = loss_fn(leaves, inputs)
             # a table the loss never reads (embedding inputs) gets zeros, as the step's
             grads = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
         finally:
@@ -1416,7 +1566,8 @@ def train_card_vs_cpu(cfg, params, seed: int, batch: int = TRAIN_CMP_BATCH,
            "loss_atol": TRAIN_LOSS_ATOL, "noise_factor": TRAIN_NOISE_FACTOR,
            "grad_floor": TRAIN_GRAD_FLOOR, "s": times}
     print(json.dumps({label: row}), flush=True)
-    if not np.isfinite(l_card) or (abs(l_card - l_cpu) > TRAIN_LOSS_ATOL
+    if not np.isfinite([l_card, dist, noise, norm]).all() or (
+            abs(l_card - l_cpu) > TRAIN_LOSS_ATOL
             or dist > TRAIN_NOISE_FACTOR * noise + TRAIN_GRAD_FLOOR * norm):
         raise SystemExit(f"{cfg.name}: a training step on the card disagrees with the CPU "
                          "plain path")
@@ -1762,6 +1913,280 @@ def families_phase(seed: int, zero_counts, read_counts, variant_launches) -> dic
     return row
 
 
+def train_steps(cfg, state, batch, design: str, attentions: int) -> tuple[dict, dict]:
+    """Two ``make_train_step`` steps on ``batch`` (its peak memory from a
+    reset): ``attentions`` attention calls a forward pass, each a "tile"
+    launch, run again in its backward under per-layer recomputation, and one
+    backward launch of ``design`` each.  Returns (row, the new state)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.train.step import make_train_step
+
+    step_fn = make_train_step(cfg)
+    fwd0, bwd0 = fa.flash_attention.variant_launches["tile"], fab.flash_attention_bwd.launches
+    design0 = fab.flash_attention_bwd.design_launches[design]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t)
+    forward = fa.flash_attention.variant_launches["tile"] - fwd0
+    backward = fab.flash_attention_bwd.launches - bwd0
+    ran = fab.flash_attention_bwd.design_launches[design] - design0
+    b, s = batch["labels"].shape
+    row = {"arch": cfg.name, "batch": b, "seq": s, "losses": losses, "step_s": step_s,
+           "tokens/s": b * s / step_s[-1], "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "attention_forward_launches": forward, "attention_backward_launches": backward,
+           f"backward_{design}_launches": ran}
+    print(json.dumps({"mla_encdec_train": row}), flush=True)
+    want = 2 * attentions
+    if not all(np.isfinite(losses)) or backward != want or ran != want or forward != 2 * want:
+        raise SystemExit(f"{cfg.name} training: losses {losses}, forward {forward}, backward "
+                         f"{backward} ({design} {ran}); {want} backward expected")
+    return row, state
+
+
+def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
+    """MLA and the encoder-decoder on the card, counted as the path ``mla_encdec``.
+
+    whisper-tiny at its published config (nothing cut) served from Shelby
+    (``launch/serve.py``'s ``serve`` over seeded stub frames of enc_seq x
+    d_model: publish, an SP crashed, a verified k-of-n restore, batch 4 x (8
+    + 16)), ENCDEC_WARM warm generations (the same tokens), two
+    ``make_train_step`` steps at ENCDEC_TRAIN_BATCH x ENCDEC_TRAIN_SEQ over
+    zero frames; deepseek-v2-lite at its published widths, depth cut to
+    MLA_LAYERS (its leading dense layer and one MLA + MoE layer), made on the
+    card from a seed: a 1 x MLA_SEQ prefill (each expert's load, the drops),
+    the absorbed decode of batch 4 x (8 + 16) (plain products: no attention
+    kernel), two ``make_train_step`` steps at 1 x MLA_SEQ.  Then, uncounted,
+    the card against the CPU plain path: whisper teacher-forced two steps over
+    zero frames (within SERVE_LOGIT_ATOL) and over the seeded ones (within
+    that plus LOGIT_NOISE_FACTOR times the CPU's own bf16 error), its 1 x
+    ENCDEC_CMP_SEQ gradient over the first seeded frames at the initial
+    weights; deepseek's 1 x MLA_CMP_PREFILL
+    prefill logits (relative to the CPU's own bf16 error too), two decode
+    steps and its 1 x MLA_CMP_SEQ gradient; both at smoke widths (loss,
+    gradient, 8 decode positions)."""
+    import torch
+
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import layers
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_prefill_step
+
+    t_phase = time.perf_counter()
+    wcfg = get(ENCDEC_ARCH)
+    dcfg = dataclasses.replace(get(MLA_ARCH), num_layers=MLA_LAYERS)
+    m = dcfg.mla
+    print(json.dumps({"mla_encdec_config": {
+        "encdec": {"arch": wcfg.name, "d_model": wcfg.d_model, "heads": wcfg.num_heads,
+                   "head_dim": wcfg.head_dim_, "d_ff": wcfg.d_ff, "enc_layers": wcfg.enc_layers,
+                   "dec_layers": wcfg.num_layers, "enc_seq": wcfg.enc_seq, "vocab": wcfg.vocab,
+                   "params": build(wcfg).param_count(), "cut": "nothing"},
+        "mla": {"arch": dcfg.name, "d_model": dcfg.d_model, "heads": dcfg.num_heads,
+                "qk_head_dim": m.qk_nope_head_dim + m.qk_rope_head_dim,
+                "v_head_dim": m.v_head_dim, "kv_lora_rank": m.kv_lora_rank,
+                "experts": dcfg.moe.num_experts, "top_k": dcfg.moe.top_k,
+                "shared": dcfg.moe.num_shared, "vocab": dcfg.vocab,
+                "params": build(dcfg).param_count(),
+                "layers": f"{dcfg.num_layers} (cut from {get(MLA_ARCH).num_layers}: the leading "
+                          "dense layer and one MLA + MoE layer)"},
+        "smoke": list(MLA_ENCDEC_SMOKE)}}), flush=True)
+    row: dict = {}
+    zero_counts()  # count this path only
+
+    def launched(before: dict) -> dict:
+        return {n: c - before[n] for n, c in fa.flash_attention.variant_launches.items()}
+
+    # 1. whisper-tiny served from Shelby at its full size
+    batch, prompt, gen = 4, 8, 16
+    frames = np.random.default_rng(seed).standard_normal(
+        (batch, wcfg.enc_seq, wcfg.d_model)).astype(np.float32)
+    before = dict(fa.flash_attention.variant_launches)
+    run = serve(wcfg, batch=batch, prompt_len=prompt, gen=gen, kill_sp=True, device="cuda",
+                seed=seed, frames=frames)
+    torch.cuda.synchronize()
+    if not all(torch.equal(run.served[k], run.published[k]) for k in run.published):
+        raise SystemExit("whisper: restored weights differ from the published ones")
+    if not ((run.outputs >= 0) & (run.outputs < wcfg.vocab)).all():
+        raise SystemExit("whisper: generated token ids out of the vocabulary")
+    engine = ServeEngine(wcfg, run.served, max_len=prompt + gen + 1)
+    warm_s = []
+    for _ in range(ENCDEC_WARM):
+        t = time.perf_counter()
+        warm = engine.generate(run.prompts, num_tokens=gen, frames=frames)
+        warm_s.append(time.perf_counter() - t)
+        if not np.array_equal(warm, run.outputs):
+            raise SystemExit("whisper: a warm generation differs from the served tokens")
+    serve_launches = launched(before)
+    gens, steps = 1 + ENCDEC_WARM, prompt + gen - 1
+    # per generation: the encoder's layers once ("tile"), then per step and decoder layer
+    # self- and cross-attention ("split" at Sq = 1)
+    want = {"tile": gens * wcfg.enc_layers, "split": gens * steps * wcfg.num_layers * 2,
+            "general": 0}
+    row["serve"] = {
+        "weight_bytes": run.record.total_bytes, "publish_s": run.publish_s,
+        "publish_GB/s": run.record.total_bytes / run.publish_s / 1e9,
+        "restore_s": run.restore_s, "restore_GB/s": run.record.total_bytes / run.restore_s / 1e9,
+        "restored_equal": True, "first_generation_s": run.decode_s, "warm_generation_s": warm_s,
+        "decode_tok/s": run.decoded_tokens / sorted(warm_s)[ENCDEC_WARM // 2],
+        "attention_launches": serve_launches}
+    print(json.dumps({"mla_encdec_serve": row["serve"]}), flush=True)
+    if serve_launches != want:
+        raise SystemExit(f"whisper serving launched {serve_launches}, not {want}")
+    del engine
+
+    # 2. whisper's training steps at ENCDEC_TRAIN_BATCH x ENCDEC_TRAIN_SEQ over zero frames
+    gen_card = torch.Generator(device="cuda").manual_seed(seed)
+    wparams = init_params(build(wcfg).param_specs(), gen_card, device="cuda")
+    toks = torch.randint(0, wcfg.vocab, (ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ + 1),
+                         generator=gen_card, device="cuda")
+    row["encdec_train"], state = train_steps(wcfg, opt.init_state(wparams),
+                                             model_batch(wcfg, toks, "cuda"), "wgmma",
+                                             wcfg.enc_layers + 2 * wcfg.num_layers)
+    del state
+
+    # 3. deepseek-v2-lite at its published widths, depth MLA_LAYERS
+    dparams = init_params(build(dcfg).param_specs(), gen_card, device="cuda")
+    dtoks = torch.randint(0, dcfg.vocab, (1, MLA_SEQ + 1), generator=gen_card, device="cuda")
+    routes: list = []
+    before = dict(fa.flash_attention.variant_launches)
+    with recorded_routes(routes):
+        t = time.perf_counter()
+        _, dcache = make_prefill_step(dcfg)(dparams, {"tokens": dtoks[:, :MLA_SEQ]})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+    prefill_launches = launched(before)
+    row["mla_prefill"] = {"seq": MLA_SEQ, "prefill_s": prefill_s,
+                          "cache_shapes": {k: list(v.shape) for k, v in dcache.items()},
+                          "attention_launches": prefill_launches,
+                          "layers": expert_load(dcfg, routes)}
+    print(json.dumps({"mla_encdec_mla_prefill": row["mla_prefill"]}), flush=True)
+    if prefill_launches != {"tile": MLA_LAYERS, "split": 0, "general": 0}:
+        raise SystemExit(f"deepseek prefill launched {prefill_launches}")
+    del dcache, routes
+    prompts = np.random.default_rng(seed).integers(0, dcfg.vocab, (batch, prompt)).astype(np.int32)
+    engine = ServeEngine(dcfg, dparams, max_len=prompt + gen + 1)
+    before = dict(fa.flash_attention.variant_launches)
+    decode_s = []
+    for _ in range(1 + ENCDEC_WARM):
+        t = time.perf_counter()
+        dout = engine.generate(prompts, num_tokens=gen)
+        decode_s.append(time.perf_counter() - t)
+    decode_launches = launched(before)
+    row["mla_decode"] = {"batch": batch, "first_generation_s": decode_s[0],
+                         "warm_generation_s": decode_s[1:],
+                         "decode_tok/s": batch * steps / sorted(decode_s[1:])[ENCDEC_WARM // 2],
+                         "cache_bytes_per_token_per_layer": 2 * (m.kv_lora_rank
+                                                                 + m.qk_rope_head_dim),
+                         "attention_launches": decode_launches}
+    print(json.dumps({"mla_encdec_mla_decode": row["mla_decode"]}), flush=True)
+    if not ((dout >= 0) & (dout < dcfg.vocab)).all() or any(decode_launches.values()):
+        raise SystemExit(f"deepseek decode: tokens in range {((dout >= 0) & (dout < dcfg.vocab)).all()}, "
+                         f"attention launches {decode_launches} (the absorbed decode has none)")
+    del engine
+    state = opt.init_state(dparams)
+    del dparams
+    row["mla_train"], state = train_steps(dcfg, state, model_batch(dcfg, dtoks, "cuda"), "mma",
+                                          MLA_LAYERS)
+    dtrained = state["params"]
+    del state
+
+    counts = read_counts("mla_encdec")
+    designs = dict(fab.flash_attention_bwd.design_launches)
+    row["launches"] = counts
+    attn = variant_launches["mla_encdec"]
+    if (counts["gf_matmul"] == 0 or attn["tile"] == 0 or attn["split"] == 0
+            or designs["mma"] == 0 or designs["wgmma"] == 0):
+        raise SystemExit(f"the mla_encdec path's launches are off: {counts}, attention {attn}, "
+                         f"backward {designs}")
+
+    # 4. the card against the CPU plain path (uncounted).  Whisper over the stub frames
+    # the JAX package's trainer feeds (zeros: a constant encoding) within SERVE_LOGIT_ATOL,
+    # and over the served seeded frames relative to the CPU's own bf16 error: there the
+    # encoder's attention is one-hot over 1,500 keys (LOGIT_NOISE_FACTOR's comment)
+    row["encdec_serve_card_vs_cpu"] = serve_card_vs_cpu(wcfg, run, frames=np.zeros_like(frames))
+    row["encdec_serve_card_vs_cpu_frames"] = serve_card_vs_cpu(wcfg, run, frames=frames,
+                                                               exact=True)
+    del run
+    # over the seeded frames: on zero frames every LayerNorm of the encoder normalises
+    # zeros, each multiplies the gradient by 1/sqrt(eps) = 1000 and the f32 norm of the
+    # encoder's gradient (~8e27) overflows in any computation
+    row["encdec_train_card_vs_cpu"] = train_card_vs_cpu(
+        wcfg, wparams, seed, batch=1, seq=ENCDEC_CMP_SEQ, label="mla_encdec_train_card_vs_cpu",
+        frames=frames[:1])
+    del wparams
+    # deepseek's prefill: causal attention one-hot at init over up to MLA_CMP_PREFILL keys
+    ptoks = dtoks[:, :MLA_CMP_PREFILL]
+    cpu_params = {k: t.cpu() for k, t in dtrained.items()}
+    out = []
+    for p, dev, dtype in ((dtrained, "cuda", torch.bfloat16), (cpu_params, "cpu", torch.bfloat16),
+                          (cpu_params, "cpu", torch.float32)):
+        layers.COMPUTE_DTYPE = dtype
+        try:
+            with torch.inference_mode():
+                logit, _ = make_prefill_step(dcfg)(p, {"tokens": ptoks.to(dev)})
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        out.append(logit.float().cpu()[..., :dcfg.vocab])
+    del cpu_params
+    card_l, cpu_l, f32_l = out
+    err, own = float((card_l - cpu_l).abs().max()), float((cpu_l - f32_l).abs().max())
+    atol = SERVE_LOGIT_ATOL + LOGIT_NOISE_FACTOR * own
+    row["mla_prefill_card_vs_cpu"] = {"seq": MLA_CMP_PREFILL, "max_abs_logit_err": err,
+                                      "cpu_bf16_vs_f32_logit_err": own, "atol": atol,
+                                      "max_abs_logit": float(cpu_l.abs().max())}
+    print(json.dumps({"mla_encdec_prefill_card_vs_cpu": row["mla_prefill_card_vs_cpu"]}),
+          flush=True)
+    if not torch.isfinite(card_l).all() or err > atol:
+        raise SystemExit("deepseek's prefill on the card disagrees with the CPU plain path")
+    dec = decode_card_vs_cpu(dcfg, dtrained, dout[:, :2])
+    row["mla_decode_card_vs_cpu"] = dec
+    print(json.dumps({"mla_encdec_decode_card_vs_cpu": dec}), flush=True)
+    if dec["max_abs_logit_err"] > SERVE_LOGIT_ATOL:
+        raise SystemExit("deepseek's decode on the card disagrees with the CPU plain path")
+    row["mla_train_card_vs_cpu"] = train_card_vs_cpu(
+        dcfg, dtrained, seed, batch=1, seq=MLA_CMP_SEQ, label="mla_encdec_train_card_vs_cpu")
+    del dtrained, card_l, cpu_l, f32_l
+    torch.cuda.empty_cache()
+    gen_cpu = torch.Generator().manual_seed(seed)
+    for arch in MLA_ENCDEC_SMOKE:
+        scfg = get_smoke(arch)
+        sparams = init_params(build(scfg).param_specs(), gen_cpu, device="cpu")
+        sparams = {k: t.cuda() for k, t in sparams.items()}
+        stoks = torch.randint(0, scfg.vocab, (FAMILY_SMOKE_BATCH, FAMILY_SMOKE_SEQ + 1),
+                              generator=gen_cpu)
+        row[f"{arch}_train_card_vs_cpu"] = train_card_vs_cpu(
+            scfg, sparams, seed, batch=FAMILY_SMOKE_BATCH, seq=FAMILY_SMOKE_SEQ,
+            label="mla_encdec_smoke_train_card_vs_cpu")
+        sframes = None
+        if scfg.is_encdec:
+            sframes = torch.randn((FAMILY_SMOKE_BATCH, scfg.enc_seq, scfg.d_model),
+                                  generator=gen_cpu).numpy()
+        dec = decode_card_vs_cpu(scfg, sparams, stoks[:, :FAMILY_SMOKE_DECODE].numpy(),
+                                 frames=sframes, exact=scfg.is_encdec)
+        row[f"{arch}_decode_card_vs_cpu"] = dec
+        print(json.dumps({"mla_encdec_smoke_decode_card_vs_cpu": dec}), flush=True)
+        if dec["max_abs_logit_err"] > dec["atol"] or dec["greedy_equal"] != dec["greedy_compared"]:
+            raise SystemExit(f"{arch}: decode on the card disagrees with the CPU plain path")
+    row["s"] = time.perf_counter() - t_phase
+    print(json.dumps({"mla_encdec": {"s": row["s"], "launches": counts,
+                                     "attention_variants": attn, "backward_designs": designs}}),
+          flush=True)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blob-mib", type=int, default=1024, help="blob size in MiB (default 1024)")
@@ -1791,6 +2216,7 @@ def main(argv=None) -> int:
     path_launches: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
 
     variant_launches: dict[str, dict[str, int]] = {}  # path -> attention kernel -> launches
+    design_launches: dict[str, dict[str, int]] = {}  # path -> backward design -> launches
 
     def zero_counts() -> None:
         for fn in wrappers.values():
@@ -1801,6 +2227,7 @@ def main(argv=None) -> int:
     def read_counts(path: str) -> dict[str, int]:
         path_launches[path] = {name: fn.launches for name, fn in wrappers.items()}
         variant_launches[path] = dict(fa.flash_attention.variant_launches)
+        design_launches[path] = dict(fab.flash_attention_bwd.design_launches)
         print(json.dumps({"path": path, "launches": path_launches[path],
                           "flash_attention_variants": variant_launches[path],
                           "flash_attention_bwd_designs": fab.flash_attention_bwd.design_launches}),
@@ -1840,6 +2267,11 @@ def main(argv=None) -> int:
         "spill_bytes": sum(int(x) for ln in ptxas["flash_attention_bwd"]
                            for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))}}),
           flush=True)
+    # the "mma" design at hd > 128, which MLA's hd 192 takes (phase 17)
+    regs, spills = (f(ptxas["flash_attention_bwd"]) for f in (ptxas_registers, ptxas_spills))
+    print(json.dumps({"flash_attention_bwd_mma_ptxas": {
+        name: {"registers": regs.get(name), "spill_bytes": spills.get(name)}
+        for name in ("attn_bwd_dkdv_kernel<256>", "attn_bwd_dq_kernel<256>")}}), flush=True)
 
     # -- 2. kernels against their plain versions --------------------------------------
     _phase("gf_matmul vs plain")
@@ -1897,13 +2329,23 @@ def main(argv=None) -> int:
         # phase 16's qwen3-moe prefill (H 32, Hkv 4, hd 128)
         ("qwen3_prefill", 1, FAMILY_MOE_SEQ, FAMILY_MOE_SEQ, 32, 4, 128, True, 0,
          ar(FAMILY_MOE_SEQ), ar(FAMILY_MOE_SEQ)),
+        # phase 17's whisper-tiny (H 6, hd 64), non-causal over 1,500 frames: its encoder at
+        # the training batch, its cross-attention in training (448 tokens) and in decode
+        ("whisper_encoder", ENCDEC_TRAIN_BATCH, 1500, 1500, 6, 6, 64, False, 0, ar(1500),
+         ar(1500)),
+        ("whisper_cross_train", ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, 1500, 6, 6, 64, False, 0,
+         ar(ENCDEC_TRAIN_SEQ), ar(1500)),
+        ("whisper_cross_decode", serve_batch, 1, 1500, 6, 6, 64, False, 0, ar(1), ar(1500)),
     ]
     attn_checks = check_flash_attention(attn_cases, gen)
+    # phase 17's deepseek: MLA at hd 192 / hd_v 128 (V padded), H 16 = Hkv, 1 x 4096
+    attn_checks.append(check_padded_attention("mla_train", 1, MLA_SEQ, 16, 192, 128, gen))
 
     _phase("flash_attention_bwd vs plain (bf16; phase 15's shape: B 4, S 4096, H 24, Hkv 2, "
-           "hd 128; phase 16's: B 1, S 4096, H 25, Hkv 5, hd 64)")
+           "hd 128; phase 16's: B 1, S 4096, H 25, Hkv 5, hd 64; phase 17's: B 1, S 4096, "
+           "H 16, hd 192)")
     bwd_checks = check_flash_attention_bwd(backward_cases(), gen,
-                                           timed=("train_microbatch", "hymba_train"))
+                                           timed=("train_microbatch", "hymba_train", "mla_train"))
 
     # -- 3. the main path at production size -------------------------------------------
     _phase(f"slice: put/read a {args.blob_mib} MiB blob at (10,6), 10 MiB chunksets")
@@ -2181,7 +2623,13 @@ def main(argv=None) -> int:
            f"Shelby, long mode, a training step; {FAMILY_MOE_ARCH} prefill; smoke families")
     families_phase(args.seed, zero_counts, read_counts, variant_launches)
 
-    # -- 17. the kernels line and the result ----------------------------------------------
+    # -- 17. MLA and the encoder-decoder -------------------------------------------------------
+    _phase(f"mla_encdec: {ENCDEC_ARCH} at its published size served from Shelby and trained; "
+           f"{MLA_ARCH} at published widths, {MLA_LAYERS} layers: prefill, absorbed decode, "
+           "training; card vs CPU")
+    mla_encdec_phase(args.seed, zero_counts, read_counts, variant_launches)
+
+    # -- 18. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),
@@ -2214,6 +2662,7 @@ def main(argv=None) -> int:
         if name == "flash_attention_bwd":  # device ms above; host ms and the other cases
             line[-1].update(
                 host_ms=row["host_ms"], library_host_ms=row["library_host_ms"],
+                design_launches_by_path=design_launches,
                 max_rel_err=max(r["max_rel_err"] for r in bwd_checks),
                 cases={r["case"]: r["max_rel_err"] for r in bwd_checks},
                 timed_cases={r["case"]: {key: r[key] for key in (

@@ -2,10 +2,8 @@
 
 ``get(name)`` returns the full published config, ``get_smoke(name)`` a
 reduced same-family config for CPU tests, as in ``repro/configs``;
-``"shelby"`` names the storage deployment (``configs/shelby.py``).  The port
-builds the dense, MoE, SSM and hybrid families and embedding inputs;
-``deepseek-v2-lite-16b`` (MLA) and ``whisper-tiny`` (encoder-decoder) raise
-``NotImplementedError`` until theirs are ported (ROADMAP Queue 1 item 4).
+``"shelby"`` names the storage deployment (``configs/shelby.py``).  Every
+architecture of the JAX package is registered.
 """
 from __future__ import annotations
 
@@ -25,6 +23,7 @@ ALL_ARCHS = [
 ]
 
 _MODULES = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "qwen3-moe-30b-a3b": "qwen3_moe",
     "hymba-1.5b": "hymba",
     "falcon-mamba-7b": "falcon_mamba",
@@ -33,16 +32,13 @@ _MODULES = {
     "yi-9b": "yi",
     "command-r-plus-104b": "command_r_plus",
     "phi-3-vision-4.2b": "phi3_vision",
+    "whisper-tiny": "whisper_tiny",
     "shelby": "shelby",
 }
 
 
 def _module(name: str):
     if name not in _MODULES:
-        if name in ALL_ARCHS:
-            raise NotImplementedError(
-                f"{name}: its family is not ported (ported: {', '.join(_MODULES)}); "
-                "ROADMAP Queue 1 item 4, the LM stack")
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 

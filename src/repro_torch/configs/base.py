@@ -1,8 +1,7 @@
 """ArchConfig: one dataclass describes every architecture of the JAX package.
 
-A copy of ``repro/configs/base.py``'s dataclasses.  The port builds the
-dense, MoE, SSM and hybrid families (``models/model.py``); ``MLAConfig`` is
-here as a field type of ``ArchConfig`` until MLA is ported.
+A copy of ``repro/configs/base.py``'s dataclasses; the port builds every
+family (``models/model.py``).
 """
 from __future__ import annotations
 
@@ -78,3 +77,7 @@ class ArchConfig:
         """Vocab padded to a multiple of 256, as the JAX package pads it (its
         embedding table and logits shard over a model axis)."""
         return -(-self.vocab // 256) * 256
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "encdec"

@@ -10,7 +10,9 @@ deployment (which has no DAS plane), on one device:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \\
       --batch 4 --prompt-len 8 --gen 16 [--kill-sp] [--device cpu]
 
-``--device`` defaults to the card and raises without one.
+``--device`` defaults to the card and raises without one.  An
+encoder-decoder (``--arch whisper-tiny``) is served over seeded stub frames
+(B, enc_seq, d_model), where the JAX package's CLI passes none.
 """
 from __future__ import annotations
 
@@ -52,7 +54,10 @@ def _synchronize(device: torch.device) -> None:
 
 
 def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 8, gen: int = 16,
-          kill_sp: bool = False, device=None, seed: int = 7) -> ServeRun:
+          kill_sp: bool = False, device=None, seed: int = 7, frames=None) -> ServeRun:
+    """Publish seeded weights, optionally crash an SP, restore them k-of-n and
+    generate greedily; ``frames`` (batch, enc_seq, d_model) for an
+    encoder-decoder, passed to ``ServeEngine.generate``."""
     dev = resolve_device(device)
     contract, sps, rpc, client = build_cluster(num_sps=8, device=dev)
 
@@ -82,7 +87,7 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 8, gen: int = 16
     engine = ServeEngine(cfg, served, max_len=prompt_len + gen + 1)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
     t1 = time.perf_counter()
-    out = engine.generate(prompts, num_tokens=gen)  # ends with a copy to the host
+    out = engine.generate(prompts, num_tokens=gen, frames=frames)  # ends with a copy to the host
     decode_s = time.perf_counter() - t1
     tok = engine.stats.decoded_tokens
     print(f"[serve] batch {out.shape}: {tok} tokens in {decode_s:.2f}s "
@@ -105,8 +110,12 @@ def main(argv=None) -> np.ndarray:
                     help="torch device (default: the card; 'cpu' runs the plain path)")
     args = ap.parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    frames = None
+    if cfg.is_encdec:
+        frames = np.random.default_rng(1).standard_normal(
+            (args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     return serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-                 kill_sp=args.kill_sp, device=args.device).outputs
+                 kill_sp=args.kill_sp, device=args.device, frames=frames).outputs
 
 
 if __name__ == "__main__":

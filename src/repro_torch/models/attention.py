@@ -6,8 +6,8 @@ attention itself is ``layers.flash_attention`` (full sequences, with a
 hand-written backward kernel under autograd) or ``layers.decode_attention``,
 both of which run the hand-written kernels on the card.  The KV cache is
 updated in place (the JAX package donates the cache buffer to the same
-effect).  Cross-attention (``kv_source``) is not ported (ROADMAP Queue 1
-item 4).
+effect).  Cross-attention (the encoder-decoder's) takes its keys and values
+from ``kv_source`` and runs non-causal with Sq != Sk.
 """
 from __future__ import annotations
 
@@ -20,7 +20,9 @@ from repro_torch.sharding import ParamSpec
 UNWRITTEN = 2**30  # the position of a ring-buffer slot not written yet
 
 
-def attn_specs(cfg, layers: int | None = None) -> dict[str, ParamSpec]:
+def attn_specs(cfg, layers: int | None = None, cross: bool = False) -> dict[str, ParamSpec]:
+    """q/k/v/o projections (and biases); ``cross`` changes nothing, as in the
+    JAX package: cross-attention's tree has the same leaves."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     lead = (layers,) if layers else ()
     lax_ = ("layers",) if layers else ()
@@ -38,10 +40,11 @@ def attn_specs(cfg, layers: int | None = None) -> dict[str, ParamSpec]:
     return out
 
 
-def _qkv(params, x: torch.Tensor):
+def _qkv(params, x: torch.Tensor, kv_source=None):
+    kv_in = x if kv_source is None else kv_source
     q = torch.einsum("bsd,dhk->bshk", x, cast(params["wq"]))
-    k = torch.einsum("bsd,dhk->bshk", x, cast(params["wk"]))
-    v = torch.einsum("bsd,dhk->bshk", x, cast(params["wv"]))
+    k = torch.einsum("bsd,dhk->bshk", kv_in, cast(params["wk"]))
+    v = torch.einsum("bsd,dhk->bshk", kv_in, cast(params["wv"]))
     if "bq" in params:
         q = q + cast(params["bq"])
         k = k + cast(params["bk"])
@@ -65,13 +68,12 @@ def _arange(n: int, device) -> torch.Tensor:
 
 def attn_full(params, x: torch.Tensor, cfg, *, positions=None, mask: MaskSpec | None = None,
               rope: bool = True, kv_source=None, kv_positions=None) -> torch.Tensor:
-    """Training / encoder path over a full sequence: x (B, S, D) -> (B, S, D)."""
-    if kv_source is not None:
-        raise NotImplementedError("attn_full: cross-attention (kv_source) is not ported "
-                                  "(ROADMAP Queue 1 item 4)")
+    """Training / encoder path over a full sequence: x (B, S, D) -> (B, S, D).
+    ``kv_source`` (B, Sk, D): cross-attention, keys and values projected from
+    it (the JAX package passes ``rope=False`` and a non-causal mask)."""
     s = x.shape[1]
     mask = mask or MaskSpec(causal=True)
-    q, k, v = _qkv(params, x)
+    q, k, v = _qkv(params, x, kv_source)
     positions = _arange(s, x.device) if positions is None else positions
     kv_positions = _arange(k.shape[1], x.device) if kv_positions is None else kv_positions
     if rope:

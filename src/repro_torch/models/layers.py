@@ -11,6 +11,7 @@ the tolerance that costs).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +20,7 @@ from repro_torch.kernels import ops
 from repro_torch.sharding import ParamSpec
 
 COMPUTE_DTYPE = torch.bfloat16
+HEAD_DIM_GRANULE = 16  # bf16 head dims the tensor-core attention kernels take: multiples of this
 
 
 def cast(x: torch.Tensor) -> torch.Tensor:
@@ -107,16 +109,35 @@ class MaskSpec:
 
 def flash_attention(q, k, v, *, mask: MaskSpec, q_positions=None, k_positions=None,
                     scale: float | None = None) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd) with H % Hkv == 0 -> (B, Sq, H, hd).
+    """q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v) with
+    H % Hkv == 0 and hd_v <= hd -> (B, Sq, H, hd_v).
 
-    Positions default to ``arange``.  ``hd_v != hd`` (MLA) is not ported.
+    Positions default to ``arange``; the scale to 1/sqrt(hd).  The kernels
+    take one head dim for q, k and v, and the tensor-core ones (and the
+    backward kernel) bf16 head dims that are multiples of ``HEAD_DIM_GRANULE``:
+    V is zero-padded to hd (MLA: hd 192, hd_v 128) and, in bf16, all three to
+    the next multiple of the granule (MLA-smoke's hd 24), then the output is
+    sliced back.  Zero columns change no score and give output columns of
+    P 0 = 0; under autograd the padding's gradient is dropped.
     Differentiable: under autograd the gradient is the backward kernel on the
     card (``kernels/ops.py::FlashAttention``), where the JAX package lets XLA
     differentiate its chunked attention.
     """
-    return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               q_positions=q_positions, k_positions=k_positions,
-                               causal=mask.causal, window=mask.window, scale=scale)
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if hd_v > hd:
+        raise ValueError(f"flash_attention: hd_v {hd_v} exceeds the q/k head dim {hd}")
+    width = hd
+    if q.dtype == torch.bfloat16:
+        width = -(-hd // HEAD_DIM_GRANULE) * HEAD_DIM_GRANULE
+    if width != hd:
+        q, k = F.pad(q, (0, width - hd)), F.pad(k, (0, width - hd))
+        scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    if width != hd_v:
+        v = F.pad(v, (0, width - hd_v))
+    o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            q_positions=q_positions, k_positions=k_positions,
+                            causal=mask.causal, window=mask.window, scale=scale)
+    return o[..., :hd_v]
 
 
 def decode_attention(q, k_cache, v_cache, k_positions, cur_pos: int, *, window: int = 0,

@@ -1,4 +1,4 @@
-"""Model assembly for the port: the decoder-only LM families of ``repro/models/model.py``.
+"""Model assembly for the port: every architecture of ``repro/models/model.py``.
 
 ``build(cfg)`` returns a model object exposing:
 
@@ -8,25 +8,31 @@
 * ``cache_specs(batch, cache_len, long_mode=)``   — flat dict of ParamSpec for the cache
 * ``decode_step(params, cache, tokens, pos, long_mode=)`` — one-token serve step
 
-Families ``dense`` (attention + MLP), ``moe`` (attention + routed experts,
-``models/moe.py``), ``ssm`` (Mamba blocks alone, ``models/mamba.py``) and
-``hybrid`` (attention and Mamba side by side, their normed outputs
-averaged, + MLP), with token or embedding inputs (a stub frontend's
-vectors; decode embeds the generated tokens).  ``mla_moe`` and ``encdec``
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 4).
+``DecoderLM`` builds the families ``dense`` (attention + MLP), ``moe``
+(attention + routed experts, ``models/moe.py``), ``mla_moe`` (Multi-head
+Latent Attention, ``models/mla.py``, + routed and shared experts, after
+``first_dense_layers`` MLA + MLP layers kept apart as ``dense0``), ``ssm``
+(Mamba blocks alone, ``models/mamba.py``) and ``hybrid`` (attention and
+Mamba side by side, their normed outputs averaged, + MLP), with token or
+embedding inputs (a stub frontend's vectors; decode embeds the generated
+tokens).  ``EncDecLM`` is the encoder-decoder (whisper): a non-causal
+encoder over the stub frontend's frames, a decoder of causal
+self-attention, cross-attention to the encoder's output and an MLP.
 
 Parameters are the port's flat dict (``sharding.py``): every layer's weights
 stacked on a leading ``layers`` axis, as the JAX package scans them, so
 checkpoints are byte-identical across packages; the layers run in a Python
 loop over that axis.  Under autograd each layer is recomputed in the
 backward pass (``torch.utils.checkpoint``, the JAX package's per-layer
-``jax.checkpoint``); the MoE aux loss is summed over the layers.
+``jax.checkpoint``); the MoE aux loss is summed over the MoE layers.
 
 Long mode (``long_window > 0``): the KV cache holds ``min(cache_len,
 long_window)`` slots, written as a ring, and attention sees a sliding window
 of ``long_window`` positions; the SSM state is carried whole.  Prefill, as
-the JAX package's, returns no SSM state (ROADMAP Queue 3 item 6): its cache
-is ``{"k", "v"}`` for the attention families and empty for ``ssm``.
+the JAX package's, returns no SSM state and no cache of the leading dense
+layers (ROADMAP Queue 3 items 6, 7): its cache is ``{"k", "v"}`` for the
+attention families, ``{"c_kv", "k_rope"}`` of the MoE layers for
+``mla_moe`` and empty for ``ssm``.
 """
 from __future__ import annotations
 
@@ -38,13 +44,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import MaskSpec, apply_mlp, apply_norm, cast, mlp_specs, norm_specs
 from repro_torch.sharding import ParamSpec, flatten, unflatten
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "mla_moe", "ssm", "hybrid")
 ATTENTION_FAMILIES = ("dense", "moe", "hybrid")
 SSM_FAMILIES = ("ssm", "hybrid")
+MOE_FAMILIES = ("moe", "mla_moe")
 
 
 def _embed_specs(cfg: ArchConfig) -> dict[str, ParamSpec]:
@@ -77,16 +85,38 @@ def _layer(tree: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-class DecoderLM:
+def _layers(tree: dict) -> int:
+    """The depth of a stacked tree: its leaves' leading axis."""
+    leaf = next(iter(tree.values()))
+    return _layers(leaf) if isinstance(leaf, dict) else leaf.shape[0]
+
+
+def _per_layer(fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when grad is on (the JAX
+    package's per-layer ``jax.checkpoint``): one layer's activations held."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+class _Model:
+    """What both model classes share: the config and the parameter count."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+
+    def param_count(self) -> int:
+        return sum(math.prod(s.shape) for s in self.param_specs().values())
+
+
+class DecoderLM(_Model):
     def __init__(self, cfg: ArchConfig):
         if cfg.family not in FAMILIES or cfg.input_mode not in ("tokens", "embeddings"):
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} with {cfg.input_mode} inputs is not ported "
-                f"(the port builds {', '.join(FAMILIES)}; ROADMAP Queue 1 item 4, the LM stack)")
-        if cfg.moe is not None and cfg.moe.first_dense_layers:
-            raise NotImplementedError(f"{cfg.name}: leading dense layers (MLA's) are not ported "
-                                      "(ROADMAP Queue 1 item 4e)")
-        self.cfg = cfg
+            raise ValueError(f"{cfg.name}: DecoderLM builds the families {', '.join(FAMILIES)} "
+                             f"with token or embedding inputs, not {cfg.family!r} with "
+                             f"{cfg.input_mode} inputs (build() gives encdec its EncDecLM)")
+        super().__init__(cfg)
+        self.n_dense0 = cfg.moe.first_dense_layers if cfg.moe else 0
 
     # -- parameter tree ------------------------------------------------------------
     def _block_specs(self, layers: int) -> dict:
@@ -99,6 +129,8 @@ class DecoderLM:
                 hd = cfg.head_dim_
                 out["attn"]["q_norm"] = ParamSpec((layers, hd), ("layers", "head_dim"), init="ones")
                 out["attn"]["k_norm"] = ParamSpec((layers, hd), ("layers", "head_dim"), init="ones")
+        if fam == "mla_moe":
+            out["mla"] = mla_mod.mla_specs(cfg, layers)
         if fam in SSM_FAMILIES:
             out["ssm"] = ssm_mod.ssm_specs(cfg, layers=layers)
         if fam == "hybrid":
@@ -109,18 +141,24 @@ class DecoderLM:
             if not cfg.parallel_block:  # command-r shares ln1 across attn+mlp
                 out["ln2"] = norm_specs(cfg.d_model, cfg.norm, layers=layers)
             out["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, layers=layers, bias=cfg.use_bias)
-        elif fam == "moe":
+        elif fam in MOE_FAMILIES:
             out["ln2"] = norm_specs(cfg.d_model, cfg.norm, layers=layers)
             out["moe"] = moe_mod.moe_specs(cfg, layers)
         return out
 
     def param_specs(self) -> dict[str, ParamSpec]:
         cfg = self.cfg
-        return flatten({**_embed_specs(cfg), "final_norm": norm_specs(cfg.d_model, cfg.norm),
-                        "blocks": self._block_specs(cfg.num_layers)})
-
-    def param_count(self) -> int:
-        return sum(math.prod(s.shape) for s in self.param_specs().values())
+        specs = {**_embed_specs(cfg), "final_norm": norm_specs(cfg.d_model, cfg.norm),
+                 "blocks": self._block_specs(cfg.num_layers - self.n_dense0)}
+        if self.n_dense0:  # MLA + a SwiGLU MLP of first_dense_d_ff
+            d0 = self.n_dense0
+            specs["dense0"] = {
+                "ln1": norm_specs(cfg.d_model, cfg.norm, layers=d0),
+                "mla": mla_mod.mla_specs(cfg, d0),
+                "ln2": norm_specs(cfg.d_model, cfg.norm, layers=d0),
+                "mlp": mlp_specs(cfg.d_model, cfg.moe.first_dense_d_ff, "swiglu", layers=d0),
+            }
+        return flatten(specs)
 
     # -- one block ------------------------------------------------------------------
     def _mix(self, block, a_out, s_out) -> torch.Tensor:
@@ -134,10 +172,12 @@ class DecoderLM:
                           + apply_norm(block["ln_ssm_out"], s_out, cfg.norm))
         return a_out
 
-    def _second_half(self, block, h: torch.Tensor, x: torch.Tensor, mixed: torch.Tensor, ctx):
+    def _second_half(self, block, h: torch.Tensor, x: torch.Tensor, mixed: torch.Tensor, ctx,
+                     dense: bool = False):
         """The residual stream after the block: (h, aux), given the block's
         input ``h``, its normed input ``x`` and the mixer's output; aux is the
-        MoE's aux loss, None for the other families."""
+        MoE's aux loss, None for the other families and for a leading dense
+        layer (``dense``: MLA + MLP)."""
         cfg = self.cfg
         aux = None
         if cfg.parallel_block:  # command-r: attn and mlp read the same norm
@@ -146,33 +186,48 @@ class DecoderLM:
         if cfg.family == "ssm":
             return h, aux
         x2 = apply_norm(block["ln2"], h, cfg.norm)
-        if cfg.family == "moe":
+        if cfg.family in MOE_FAMILIES and not dense:
             m_out, aux = moe_mod.apply_moe(block["moe"], x2, cfg, ctx)
         else:
             m_out = apply_mlp(block["mlp"], x2, cfg.mlp)
         return h + m_out, aux
 
-    def _block_full(self, block, h: torch.Tensor, mask: MaskSpec, ctx):
+    def _mixer_full(self, block, x: torch.Tensor, mask: MaskSpec, cache: bool):
+        """The token mixer over the full sequence: (output, cache entries of
+        the layer, empty unless ``cache``)."""
         cfg = self.cfg
-        x = apply_norm(block["ln1"], h, cfg.norm)
+        kv: dict = {}
         a_out = s_out = None
-        if cfg.family in ATTENTION_FAMILIES:
+        if cfg.family == "mla_moe":  # also the leading dense layers
+            a_out, kv = mla_mod.apply_mla_full(block["mla"], x, cfg)
+        elif cfg.family in ATTENTION_FAMILIES and cache:
+            a_out, kv = attn.attn_prefill(block["attn"], x, cfg, mask=mask)
+        elif cfg.family in ATTENTION_FAMILIES:
             a_out = attn.attn_full(block["attn"], x, cfg, mask=mask)
         if cfg.family in SSM_FAMILIES:
             s_out = ssm_mod.apply_ssm(block["ssm"], x, cfg)
-        return self._second_half(block, h, x, self._mix(block, a_out, s_out), ctx)
+        return self._mix(block, a_out, s_out), kv if cache else {}
 
-    def _run_stack(self, blocks, h: torch.Tensor, mask: MaskSpec, ctx):
-        """Every layer over the full sequence, returning (h, summed aux); under
-        autograd each layer's activations are recomputed in the backward pass
-        (the JAX package's ``_ckpt``), so one layer's are held at a time."""
+    def _block_full(self, block, h: torch.Tensor, mask: MaskSpec, ctx, dense: bool = False):
+        x = apply_norm(block["ln1"], h, self.cfg.norm)
+        mixed, _ = self._mixer_full(block, x, mask, cache=False)
+        return self._second_half(block, h, x, mixed, ctx, dense)
+
+    def _run_dense0(self, p, h: torch.Tensor, mask: MaskSpec, ctx) -> torch.Tensor:
+        """The leading dense layers (MLA + MLP), recomputed under autograd."""
+        for i in range(self.n_dense0):
+            h, _ = _per_layer(self._block_full, _layer(p["dense0"], i), h, mask, ctx, True)
+        return h
+
+    def _run_stack(self, p, h: torch.Tensor, mask: MaskSpec, ctx):
+        """Every layer over the full sequence, returning (h, aux summed over
+        the MoE layers); under autograd each layer's activations are
+        recomputed in the backward pass (the JAX package's ``_ckpt``), so one
+        layer's are held at a time."""
+        h = self._run_dense0(p, h, mask, ctx)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for i in range(self.cfg.num_layers):
-            lp = _layer(blocks, i)
-            if torch.is_grad_enabled():
-                h, aux_i = checkpoint(self._block_full, lp, h, mask, ctx, use_reentrant=False)
-            else:
-                h, aux_i = self._block_full(lp, h, mask, ctx)
+        for i in range(_layers(p["blocks"])):
+            h, aux_i = _per_layer(self._block_full, _layer(p["blocks"], i), h, mask, ctx)
             if aux_i is not None:
                 aux = aux + aux_i
         return h, aux
@@ -190,8 +245,7 @@ class DecoderLM:
         ``router_aux_weight`` times the aux loss per layer."""
         cfg = self.cfg
         p = unflatten(params)
-        h, aux = self._run_stack(p["blocks"], self._inputs_to_h(p, batch), MaskSpec(causal=True),
-                                 ctx)
+        h, aux = self._run_stack(p, self._inputs_to_h(p, batch), MaskSpec(causal=True), ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
         loss = _xent(_logits(p, h, cfg), batch["labels"])
         if cfg.moe:
@@ -201,37 +255,36 @@ class DecoderLM:
     # -- public: prefill ------------------------------------------------------------------
     def prefill(self, params: dict[str, torch.Tensor], batch, ctx=None):
         """Returns (last-position logits (B, 1, padded_vocab), cache): ``{"k",
-        "v"}`` (layers, B, S, Hkv, hd) for the attention families, ``{}`` for
-        ``ssm`` (no SSM state, as the JAX package's prefill)."""
+        "v"}`` (layers, B, S, Hkv, hd) for the attention families, ``{"c_kv",
+        "k_rope"}`` (layers, B, S, *) of the MoE layers for ``mla_moe`` (none
+        of the leading dense layers), ``{}`` for ``ssm`` (no SSM state), as
+        the JAX package's prefill."""
         cfg = self.cfg
         p = unflatten(params)
-        h = self._inputs_to_h(p, batch)
         mask = MaskSpec(causal=True)
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
+        h = self._run_dense0(p, self._inputs_to_h(p, batch), mask, ctx)
+        caches: dict[str, list] = {}
+        for i in range(_layers(p["blocks"])):
             lp = _layer(p["blocks"], i)
             x = apply_norm(lp["ln1"], h, cfg.norm)
-            a_out = s_out = None
-            if cfg.family in ATTENTION_FAMILIES:
-                a_out, kv = attn.attn_prefill(lp["attn"], x, cfg, mask=mask)
-                ks.append(kv["k"])
-                vs.append(kv["v"])
-            if cfg.family in SSM_FAMILIES:
-                s_out = ssm_mod.apply_ssm(lp["ssm"], x, cfg)
-            h, _ = self._second_half(lp, h, x, self._mix(lp, a_out, s_out), ctx)
+            mixed, kv = self._mixer_full(lp, x, mask, cache=True)
+            for name, t in kv.items():
+                caches.setdefault(name, []).append(t)
+            h, _ = self._second_half(lp, h, x, mixed, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else {}
-        return _logits(p, h[:, -1:], cfg), cache
+        return _logits(p, h[:, -1:], cfg), {k: torch.stack(v) for k, v in caches.items()}
 
     # -- public: decode -------------------------------------------------------------------
     def cache_specs(self, batch: int, cache_len: int, *,
                     long_mode: bool = False) -> dict[str, ParamSpec]:
         """The decode cache: ``k``/``v`` (layers, B, slots, Hkv, hd) bf16 with
-        ``slots = min(cache_len, long_window)`` in long mode; ``conv`` (layers,
-        B, conv_width - 1, d_inner) bf16 and ``h_ssm`` (layers, B, d_inner,
+        ``slots = min(cache_len, long_window)`` in long mode; ``c_kv``/
+        ``k_rope`` (layers, B, cache_len, *) bf16 for MLA, with ``c_kv0``/
+        ``k_rope0`` for the leading dense layers; ``conv`` (layers, B,
+        conv_width - 1, d_inner) bf16 and ``h_ssm`` (layers, B, d_inner,
         state) f32 for the SSM families."""
         cfg = self.cfg
-        L = cfg.num_layers
+        L = cfg.num_layers - self.n_dense0
         out = {}
         eff_len = min(cache_len, cfg.long_window) if (long_mode and cfg.long_window) else cache_len
         if cfg.family in ATTENTION_FAMILIES:
@@ -239,6 +292,15 @@ class DecoderLM:
             axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
             for name in ("k", "v"):
                 out[name] = ParamSpec(shape, axes, dtype=torch.bfloat16, init="zeros")
+        if cfg.family == "mla_moe":
+            shapes = mla_mod.init_mla_cache_shape(cfg, batch, cache_len)
+            axes = {"c_kv": ("layers", "batch", "cache_seq", "kv_lora"),
+                    "k_rope": ("layers", "batch", "cache_seq", None)}
+            for suffix, n in (("", L), ("0", self.n_dense0)):
+                if n:
+                    for name in ("c_kv", "k_rope"):
+                        out[name + suffix] = ParamSpec((n,) + shapes[name], axes[name],
+                                                       dtype=torch.bfloat16, init="zeros")
         if cfg.family in SSM_FAMILIES:
             shapes = ssm_mod.init_ssm_cache_shape(cfg, batch)
             out["conv"] = ParamSpec((L,) + shapes["conv"], ("layers", "batch", "conv", "ssm_inner"),
@@ -257,13 +319,23 @@ class DecoderLM:
         window = cfg.long_window if (long_mode and cfg.long_window) else 0
         p = unflatten(params)
         h = cast(p["embed"][tokens])
-        for i in range(cfg.num_layers):
-            lp, lc = _layer(p["blocks"], i), _layer(cache, i)
+        for i in range(self.n_dense0):
+            lp = _layer(p["dense0"], i)
+            x = apply_norm(lp["ln1"], h, cfg.norm)
+            a_out, _ = mla_mod.apply_mla_decode(
+                lp["mla"], x, {"c_kv": cache["c_kv0"][i], "k_rope": cache["k_rope0"][i]}, pos, cfg)
+            h, _ = self._second_half(lp, h, x, a_out, ctx, dense=True)
+        main = {k: v for k, v in cache.items() if not k.endswith("0")}
+        for i in range(_layers(p["blocks"])):
+            lp, lc = _layer(p["blocks"], i), _layer(main, i)
             x = apply_norm(lp["ln1"], h, cfg.norm)
             a_out = s_out = None
             if cfg.family in ATTENTION_FAMILIES:
                 a_out, _ = attn.attn_decode(lp["attn"], x, {"k": lc["k"], "v": lc["v"]}, pos, cfg,
                                             window=window)
+            if cfg.family == "mla_moe":
+                a_out, _ = mla_mod.apply_mla_decode(
+                    lp["mla"], x, {"c_kv": lc["c_kv"], "k_rope": lc["k_rope"]}, pos, cfg)
             if cfg.family in SSM_FAMILIES:
                 s_out, _ = ssm_mod.apply_ssm_decode(lp["ssm"], x,
                                                     {"conv": lc["conv"], "h": lc["h_ssm"]}, cfg)
@@ -272,5 +344,136 @@ class DecoderLM:
         return _logits(p, h, cfg), cache
 
 
-def build(cfg: ArchConfig) -> DecoderLM:
-    return DecoderLM(cfg)
+class EncDecLM(_Model):
+    """The encoder-decoder (whisper-style; the stub audio frontend supplies
+    the frames' embeddings), as ``repro/models/model.py::EncDecLM``.
+
+    ``encode`` runs the non-causal encoder over the frames (B, enc_seq,
+    d_model); every decoder layer attends causally to its own tokens, then,
+    non-causal and without RoPE, to the encoder's output.  The decode cache
+    holds the self-attention's ``k``/``v`` and the encoder's output
+    ``enc_out``; each step recomputes cross-attention's keys and values from
+    ``enc_out`` in every layer, as the JAX package does."""
+
+    def param_specs(self) -> dict[str, ParamSpec]:
+        cfg = self.cfg
+        el, dl = cfg.enc_layers, cfg.num_layers
+        enc = {
+            "ln1": norm_specs(cfg.d_model, cfg.norm, layers=el),
+            "attn": attn.attn_specs(cfg, layers=el),
+            "ln2": norm_specs(cfg.d_model, cfg.norm, layers=el),
+            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, layers=el, bias=cfg.use_bias),
+        }
+        dec = {
+            "ln1": norm_specs(cfg.d_model, cfg.norm, layers=dl),
+            "self_attn": attn.attn_specs(cfg, layers=dl),
+            "ln_x": norm_specs(cfg.d_model, cfg.norm, layers=dl),
+            "cross_attn": attn.attn_specs(cfg, layers=dl, cross=True),
+            "ln2": norm_specs(cfg.d_model, cfg.norm, layers=dl),
+            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, layers=dl, bias=cfg.use_bias),
+        }
+        return flatten({**_embed_specs(cfg), "enc_blocks": enc,
+                        "enc_norm": norm_specs(cfg.d_model, cfg.norm), "dec_blocks": dec,
+                        "final_norm": norm_specs(cfg.d_model, cfg.norm)})
+
+    def _enc_layer(self, lp, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = apply_norm(lp["ln1"], h, cfg.norm)
+        h = h + attn.attn_full(lp["attn"], x, cfg, mask=MaskSpec(causal=False))
+        return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm), cfg.mlp)
+
+    def _encode(self, p, frames: torch.Tensor) -> torch.Tensor:
+        h = cast(frames)
+        for i in range(self.cfg.enc_layers):
+            h = _per_layer(self._enc_layer, _layer(p["enc_blocks"], i), h)
+        return apply_norm(p["enc_norm"], h, self.cfg.norm)
+
+    def encode(self, params: dict[str, torch.Tensor], frames: torch.Tensor,
+               ctx=None) -> torch.Tensor:
+        """frames: (B, S_enc, D), the stub frontend's output -> the encoder's
+        states (B, S_enc, D) in the compute dtype."""
+        return self._encode(unflatten(params), frames)
+
+    def _cross(self, lp, h: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+        """Cross-attention and the MLP: the second and third parts of a decoder layer."""
+        cfg = self.cfg
+        xx = apply_norm(lp["ln_x"], h, cfg.norm)
+        h = h + attn.attn_full(lp["cross_attn"], xx, cfg, mask=MaskSpec(causal=False),
+                               rope=False, kv_source=enc_out)
+        return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm), cfg.mlp)
+
+    def _dec_layer(self, lp, h: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+        x = apply_norm(lp["ln1"], h, self.cfg.norm)
+        h = h + attn.attn_full(lp["self_attn"], x, self.cfg, mask=MaskSpec(causal=True))
+        return self._cross(lp, h, enc_out)
+
+    def loss(self, params: dict[str, torch.Tensor], batch, ctx=None):
+        """batch: ``{"frames" (B, S_enc, D), "tokens", "labels" (B, S)}``.
+        Returns (loss, metrics): the mean cross-entropy (aux 0)."""
+        cfg = self.cfg
+        p = unflatten(params)
+        enc_out = self._encode(p, batch["frames"])
+        h = cast(p["embed"])[batch["tokens"]]
+        for i in range(cfg.num_layers):
+            h = _per_layer(self._dec_layer, _layer(p["dec_blocks"], i), h, enc_out)
+        h = apply_norm(p["final_norm"], h, cfg.norm)
+        loss = _xent(_logits(p, h, cfg), batch["labels"])
+        return loss, {"xent": loss, "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+
+    def prefill(self, params: dict[str, torch.Tensor], batch, ctx=None):
+        """The encoder over ``batch["frames"]`` and the decoder over one BOS
+        token (id 0): (logits (B, 1, padded_vocab), cache ``{"k", "v"}``
+        (layers, B, 1, Hkv, hd) and ``"enc_out"``), as the JAX package's."""
+        cfg = self.cfg
+        p = unflatten(params)
+        enc_out = self._encode(p, batch["frames"])
+        h = cast(p["embed"])[torch.zeros((enc_out.shape[0], 1), dtype=torch.int64,
+                                         device=enc_out.device)]
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            lp = _layer(p["dec_blocks"], i)
+            x = apply_norm(lp["ln1"], h, cfg.norm)
+            a_out, kv = attn.attn_prefill(lp["self_attn"], x, cfg, mask=MaskSpec(causal=True))
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+            h = self._cross(lp, h + a_out, enc_out)
+        h = apply_norm(p["final_norm"], h, cfg.norm)
+        return _logits(p, h[:, -1:], cfg), {"k": torch.stack(ks), "v": torch.stack(vs),
+                                            "enc_out": enc_out}
+
+    def cache_specs(self, batch: int, cache_len: int, *,
+                    long_mode: bool = False) -> dict[str, ParamSpec]:
+        """``k``/``v`` (layers, B, cache_len, Hkv, hd) and ``enc_out`` (B,
+        enc_seq, d_model), all bf16."""
+        cfg = self.cfg
+        shape = (cfg.num_layers,) + attn.init_cache_shape(cfg, batch, cache_len)
+        axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+        return {
+            "k": ParamSpec(shape, axes, dtype=torch.bfloat16, init="zeros"),
+            "v": ParamSpec(shape, axes, dtype=torch.bfloat16, init="zeros"),
+            "enc_out": ParamSpec((batch, cfg.enc_seq, cfg.d_model),
+                                 ("batch", "frames", "embed_act"), dtype=torch.bfloat16,
+                                 init="zeros"),
+        }
+
+    def decode_step(self, params: dict[str, torch.Tensor], cache: dict[str, torch.Tensor],
+                    tokens: torch.Tensor, pos: int, ctx=None, *, long_mode: bool = False):
+        """tokens (B, 1); the cache's ``enc_out`` set by the caller (the
+        engine encodes the frames into it).  Returns (logits, cache), ``k``/
+        ``v`` updated in place."""
+        cfg = self.cfg
+        p = unflatten(params)
+        h = cast(p["embed"][tokens])
+        enc_out = cache["enc_out"]
+        for i in range(cfg.num_layers):
+            lp = _layer(p["dec_blocks"], i)
+            x = apply_norm(lp["ln1"], h, cfg.norm)
+            a_out, _ = attn.attn_decode(lp["self_attn"], x,
+                                        {"k": cache["k"][i], "v": cache["v"][i]}, pos, cfg)
+            h = self._cross(lp, h + a_out, enc_out)
+        h = apply_norm(p["final_norm"], h, cfg.norm)
+        return _logits(p, h, cfg), cache
+
+
+def build(cfg: ArchConfig) -> DecoderLM | EncDecLM:
+    return EncDecLM(cfg) if cfg.is_encdec else DecoderLM(cfg)

@@ -3,8 +3,9 @@
 The read-optimized half of the system: weights arrive through Shelby
 verified reads (see ``launch/serve.py``), then a batch of prompts is decoded
 step by step from position 0 (the JAX package's prefill-free flow of
-``repro/serve/engine.py``).  Every step's attention runs the hand-written
-kernel on the card.
+``repro/serve/engine.py``); an encoder-decoder first encodes its frames
+into the cache.  Every step's attention runs the hand-written kernel on the
+card.
 """
 from __future__ import annotations
 
@@ -43,11 +44,19 @@ class ServeEngine:
                 for name, s in specs.items()}
 
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray, num_tokens: int) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, num_tokens: int, *, frames=None) -> np.ndarray:
         """prompts: (B, P) int -> (B, P + num_tokens) int32.  Greedy decoding via
-        the decode path from position 0."""
+        the decode path from position 0.  ``frames`` (B, enc_seq, d_model):
+        an encoder-decoder's input, encoded once into the cache's ``enc_out``
+        (bf16), as the JAX package's engine does."""
         b, p = prompts.shape
         cache = self._empty_cache(b)
+        if self.cfg.is_encdec:
+            if frames is None:
+                raise ValueError(f"{self.cfg.name} is an encoder-decoder: generate needs frames")
+            enc_out = self.model.encode(self.params, torch.as_tensor(frames, device=self.device),
+                                        self.ctx)
+            cache["enc_out"] = enc_out.to(torch.bfloat16)
         given = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
         out = [given[:, i] for i in range(p)]
         tok = given[:, :1]

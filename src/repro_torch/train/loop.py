@@ -122,6 +122,10 @@ class Trainer:
     def _to_batch(self, x: np.ndarray, y: np.ndarray) -> dict[str, torch.Tensor]:
         tokens = torch.as_tensor(x, dtype=torch.int64, device=self.device)
         labels = torch.as_tensor(y, dtype=torch.int64, device=self.device)
+        if self.cfg.is_encdec:  # the stub audio frontend: zero frames, as the JAX package's
+            frames = torch.zeros((tokens.shape[0], self.cfg.enc_seq, self.cfg.d_model),
+                                 dtype=torch.float32, device=self.device)
+            return {"frames": frames, "tokens": tokens, "labels": labels}
         if self.cfg.input_mode == "embeddings":
             return {"embeddings": stub_embeddings(tokens, self.cfg.d_model), "labels": labels}
         return {"tokens": tokens, "labels": labels}

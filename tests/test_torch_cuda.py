@@ -884,3 +884,133 @@ def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch):
     assert abs(l_card - l_cpu) <= 0.02
     noise = float((g_cpu - g_f32).norm())
     assert float((g_card - g_cpu).norm()) <= 3 * noise + 0.01 * float(g_f32.norm())
+
+
+# -- MLA (deepseek-v2-lite) and the encoder-decoder (whisper-tiny) -------------------------
+@pytest.mark.parametrize("b,s,h,hd,hd_v", [(1, 1024, 16, 192, 128), (2, 200, 4, 24, 16)])
+def test_padded_v_attention_on_the_card_matches_the_plain_version(cuda, b, s, h, hd, hd_v):
+    """``layers.flash_attention`` at MLA's hd 192 / hd_v 128 (and MLA-smoke's
+    24 / 16, padded to 32), causal, MHA, bf16: forward ("tile") within one
+    rounding step of the plain version on the same inputs, and the gradients
+    through ``ops.FlashAttention`` (the backward kernel: "mma" above hd 128,
+    "wgmma" at 32) within 2^-6 of the CPU's f32 autograd of the plain version."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, s, h, hd), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, s, h, hd_v), generator=gen, device=cuda).bfloat16()
+    do = torch.randn((b, s, h, hd_v), generator=gen, device=cuda).bfloat16()
+    mask, scale = layers.MaskSpec(causal=True), hd ** -0.5
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tile = fa.flash_attention.variant_launches["tile"]
+    designs = dict(fab.flash_attention_bwd.design_launches)
+    out = layers.flash_attention(*leaves, mask=mask, scale=scale)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert out.shape == (b, s, h, hd_v)
+    assert fa.flash_attention.variant_launches["tile"] == tile + 1
+    design = fab.design(-(-hd // 16) * 16)
+    assert {d: c - designs[d] for d, c in fab.flash_attention_bwd.design_launches.items()} == {
+        d: int(d == design) for d in designs}
+    ref = [t.detach().cpu().float().requires_grad_(True) for t in (q, k, v)]
+    want = layers.flash_attention(*ref, mask=mask, scale=scale)
+    want.backward(do.cpu().float())
+    torch.testing.assert_close(out.detach().float().cpu(), want.detach(), atol=2**-7, rtol=2**-7)
+    for leaf, r in zip(leaves, ref):
+        assert leaf.grad.shape == r.grad.shape
+        err = float((leaf.grad.float().cpu() - r.grad).abs().max())
+        assert err <= BWD_REL * float(r.grad.abs().max())
+
+
+@pytest.mark.parametrize("b,sq,sk,h,variant", [
+    (2, 1500, 1500, 6, "tile"),  # whisper's encoder
+    (2, 448, 1500, 6, "tile"),  # its cross-attention in training
+    (4, 1, 1500, 6, "split"),  # and in a decode step
+])
+def test_noncausal_whisper_attention_on_the_card(cuda, b, sq, sk, h, variant):
+    """Non-causal attention over whisper's 1,500 frames (a ragged last tile
+    of 28 keys), hd 64, bf16, against the plain version: the kernel the rule
+    picks, within one rounding step; keys past Sk stay out of the softmax."""
+    gen = torch.Generator(device=cuda).manual_seed(sq)
+    q = torch.randn((b, sq, h, 64), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, h, 64), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, h, 64), generator=gen, device=cuda).bfloat16()
+    before = dict(fa.flash_attention.variant_launches)
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.flash_attention.variant_launches.items()} == {
+        n: int(n == variant) for n in fa.VARIANTS}
+    ref = fa.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(out, ref, atol=2**-7, rtol=2**-7)
+
+
+def _smoke_model(arch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+
+    cfg = get_smoke(arch)
+    model = build(cfg)
+    return cfg, model, init_params(model.param_specs(), torch.Generator().manual_seed(3),
+                                   device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "whisper-tiny"])
+def test_mla_and_encdec_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """deepseek-smoke's absorbed decode (its latent caches) and whisper-smoke's
+    (self-attention over its cache, cross-attention over the encoded frames)
+    teacher-forced over 16 positions on the card and on the CPU plain path:
+    bf16 logits within 0.15, caches finite and written."""
+    cfg, model, params = _smoke_model(arch)
+    on_card = {k: t.to(cuda) for k, t in params.items()}
+    caches = [{k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+               for k, s in model.cache_specs(2, 16).items()} for dev in ("cpu", cuda)]
+    if cfg.is_encdec:
+        frames = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            enc = model.encode(params, frames).to(torch.bfloat16)
+            enc_card = model.encode(on_card, frames.to(cuda)).to(torch.bfloat16)
+        torch.testing.assert_close(enc_card.float().cpu(), enc.float(), atol=0.15, rtol=0)
+        caches[0]["enc_out"], caches[1]["enc_out"] = enc, enc.to(cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        for pos in range(16):
+            want, caches[0] = model.decode_step(params, caches[0], toks[:, pos:pos + 1], pos)
+            got, caches[1] = model.decode_step(on_card, caches[1], toks[:, pos:pos + 1].to(cuda),
+                                               pos)
+            torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.15, rtol=0)
+    for name, c in caches[1].items():
+        assert bool(torch.isfinite(c).all()) and c.abs().sum() > 0, name
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "whisper-tiny"])
+def test_mla_and_encdec_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The loss and gradient at smoke widths (whisper over zero frames, as
+    the trainer feeds it) on the card against the CPU plain path, bf16 on
+    both: loss within 0.02, gradients within three times bf16's own error on
+    the CPU plus 1% of their norm; the backward kernel ran."""
+    from repro_torch.models import layers
+    from repro_torch.train.step import make_loss_fn
+
+    cfg, _, params = _smoke_model(arch)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=torch.Generator().manual_seed(4))
+    out = []
+    launches = fab.flash_attention_bwd.launches
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.bfloat16), ("cpu", torch.float32)):
+        p = {k: t.to(dev).requires_grad_(True) for k, t in params.items()}
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        if cfg.is_encdec:
+            batch["frames"] = torch.zeros((2, cfg.enc_seq, cfg.d_model), device=dev)
+        layers.COMPUTE_DTYPE = dtype
+        try:
+            loss, _ = make_loss_fn(cfg)(p, batch)
+            grads = torch.autograd.grad(loss, list(p.values()), materialize_grads=True)
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        out.append((float(loss.detach()), torch.cat([g.float().cpu().reshape(-1) for g in grads])))
+    assert fab.flash_attention_bwd.launches > launches
+    (l_card, g_card), (l_cpu, g_cpu), (_, g_f32) = out
+    assert abs(l_card - l_cpu) <= 0.02
+    noise = float((g_cpu - g_f32).norm())
+    assert float((g_card - g_cpu).norm()) <= 3 * noise + 0.01 * float(g_f32.norm())

@@ -43,7 +43,9 @@ def test_port_files_exist():
                 "src/repro_torch/launch/train.py", "src/repro_torch/models/moe.py",
                 "src/repro_torch/models/mamba.py", "src/repro_torch/configs/hymba.py",
                 "src/repro_torch/configs/qwen3_moe.py", "src/repro_torch/configs/falcon_mamba.py",
-                "src/repro_torch/configs/phi3_vision.py", "chip_smoke.py"):
+                "src/repro_torch/configs/phi3_vision.py", "src/repro_torch/models/mla.py",
+                "src/repro_torch/configs/deepseek_v2_lite.py",
+                "src/repro_torch/configs/whisper_tiny.py", "chip_smoke.py"):
         assert rel in names
 
 
@@ -128,7 +130,8 @@ def test_round_trip_with_jax_and_reference_blocked():
         assert int(state["step"]) == 1 and np.isfinite(rep.final_loss)
 
         # one train step and one decode step of each family the port builds
-        for arch in ("phi-3-vision-4.2b", "qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b"):
+        for arch in ("phi-3-vision-4.2b", "qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b",
+                     "deepseek-v2-lite-16b", "whisper-tiny"):
             fcfg = get_smoke(arch)
             trainer = Trainer(fcfg, device="cpu")
             state, rep = trainer.run(trainer.init_state(), iter([(x, y)]), 1)

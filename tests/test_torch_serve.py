@@ -44,7 +44,7 @@ from repro_torch.storage import checkpoint as tck
 
 DENSE = ["yi-9b", "granite-8b", "starcoder2-3b", "command-r-plus-104b"]
 FAMILIES = ["phi-3-vision-4.2b", "qwen3-moe-30b-a3b", "falcon-mamba-7b", "hymba-1.5b"]
-UNPORTED = ["deepseek-v2-lite-16b", "whisper-tiny"]  # MLA and encoder-decoder
+MLA_ENCDEC = ["deepseek-v2-lite-16b", "whisper-tiny"]  # tests/test_torch_{mla,encdec}.py
 F32_ATOL = 1e-4
 BF16_ATOL = 0.15
 
@@ -78,7 +78,7 @@ def _teacher_forced(arch: str, compute: str, steps: int = 12, b: int = 2):
 
 
 # -- configs and parameter trees --------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE + FAMILIES)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES + MLA_ENCDEC)
 def test_configs_match_reference(arch):
     for jcfg, tcfg in ((jget_full(arch), tconfigs.get(arch)), (jget(arch), tconfigs.get_smoke(arch))):
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
@@ -86,16 +86,16 @@ def test_configs_match_reference(arch):
 
 
 def test_other_architectures_raise():
-    assert set(tconfigs.ALL_ARCHS) == set(DENSE + FAMILIES + UNPORTED)
-    for arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4, the LM stack"):
-            tconfigs.get(arch)
-        with pytest.raises(NotImplementedError):
-            tconfigs.get_smoke(arch)
+    """Every architecture of the JAX package is registered and builds; an
+    unknown name and a family the decoder does not build raise."""
+    assert set(tconfigs.ALL_ARCHS) == set(DENSE + FAMILIES + MLA_ENCDEC)
+    for arch in tconfigs.ALL_ARCHS:
+        tbuild(tconfigs.get(arch))
+        tbuild(tconfigs.get_smoke(arch))
     with pytest.raises(KeyError):
         tconfigs.get("no-such-model")
-    for family in ("mla_moe", "encdec"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    for family in ("encdec", "rnn"):  # build() gives encdec its EncDecLM
+        with pytest.raises(ValueError, match="DecoderLM builds the families"):
             DecoderLM(ArchConfig(name="m", family=family, num_layers=1, d_model=8, num_heads=2,
                                  num_kv_heads=1, d_ff=8, vocab=16))
 

@@ -336,13 +336,12 @@ def test_unported_options_raise():
     p = params_from_numpy(_jax_params("granite-8b"), device="cpu")
     layer0 = {k.split(".", 2)[2]: v[0] for k, v in p.items() if k.startswith("blocks.attn.")}
     x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TA.attn_full(layer0, x, cfg, kv_source=x)
+    x16, enc = x.bfloat16(), torch.zeros((1, 9, cfg.d_model), dtype=torch.bfloat16)
+    assert TA.attn_full(layer0, x16, cfg, kv_source=enc, rope=False).shape == x.shape  # ported
     import dataclasses
 
     tbuild(dataclasses.replace(cfg, use_qk_norm=True))  # qwen3's qk-norm is ported
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tbuild(dataclasses.replace(cfg, family="mla_moe"))
+    tbuild(tconfigs.get_smoke("deepseek-v2-lite-16b"))  # and MLA with its leading dense layer
     from repro_torch.models import moe as TMoE
 
     moe_cfg = tconfigs.get_smoke("qwen3-moe-30b-a3b")
