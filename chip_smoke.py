@@ -152,7 +152,19 @@ the phase that caused it; any failure exits non-zero and prints no result:
    and 1 x 64 gradient over seeded frames, deepseek's decode and 1 x 128
    gradient, both at smoke widths (whisper-smoke's decode relative to the
    CPU's own error too);
-18. the script's seconds, the card again, one JSON line per kernel, then the
+18. the dry-run against the card (path ``dryrun``): for starcoder2-3b
+   train_4k (16 x 4096 in 4 microbatches), yi-9b decode_32k (batch 8 over
+   32,768 slots), hymba-1.5b long_500k (batch 1 at position 524,287 over its
+   ring) and deepseek-v2-lite prefill_32k (2 x 32,768), at published widths
+   with depth cut to 2 layers and the single-pod mesh's per-device batch,
+   ``launch/dryrun.py::estimate`` predicts the step's peak memory and FLOPs
+   on the meta device; the card runs the same step (after a warm run) from
+   ``reset_peak_memory_stats``: the arguments plus what it allocated above
+   the memory held at the reset within 15% of the prediction, the
+   arguments' bytes equal, and the attention launches equal to those the
+   trace declared; the step's wall time and FLOPs per second as a share of
+   the bf16 peak printed;
+19. the script's seconds, the card again, one JSON line per kernel, then the
    result line.
 """
 from __future__ import annotations
@@ -229,6 +241,26 @@ MLA_ARCH, MLA_LAYERS = "deepseek-v2-lite-16b", 2  # published widths; depth cut 
 MLA_SEQ = 4096  # train_4k's sequence: the prefill and the training steps
 MLA_CMP_PREFILL, MLA_CMP_SEQ = 256, 128  # the card-vs-CPU prefill logits and gradient
 MLA_ENCDEC_SMOKE = (MLA_ARCH, ENCDEC_ARCH)
+# phase 18: the dry-run against the card, at published widths with depth cut to 2 layers,
+# each cell at its per-device batch on the single-pod (16 x 16) mesh: global batch / 16
+DRYRUN_LAYERS = 2
+DRYRUN_PEAK_TOL = 0.15  # measured peak within 15% of the prediction
+# and the measured temporaries (peak less arguments) within 5% of the predicted ones or
+# 256 KiB, whichever is larger: the caching allocator rounds each block to 512 B, so 256 KiB
+# is 512 blocks' rounding.  Without it a decode cell's gate would barely see the
+# temporaries, which are ~1% of its peak (yi-9b decode_32k: 17.4 MB of 2.8 GB)
+DRYRUN_TEMP_TOL, DRYRUN_TEMP_SLACK = 0.05, 256 * 1024
+
+
+def _dryrun_cells():
+    from repro_torch.configs.base import ShapeCell
+
+    return [("starcoder2-3b", ShapeCell("train_4k", 4096, 16, "train")),
+            ("yi-9b", ShapeCell("decode_32k", 32768, 8, "decode")),
+            ("hymba-1.5b", ShapeCell("long_500k", 524288, 1, "decode")),
+            ("deepseek-v2-lite-16b", ShapeCell("prefill_32k", 32768, 2, "prefill"))]
+
+
 # warm decode is host-bound and single generations swing by a third: the median of nine
 WARM_GENERATIONS = 9
 CHURN_EPOCHS = 3
@@ -2187,6 +2219,153 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
     return row
 
 
+def _dryrun_inputs(cfg, shape, gen):
+    """The arguments of one cell's step on the card, made from ``gen``: the
+    train state and a batch of token ids; the bf16 serving weights and a
+    prefill batch; or those weights, a zero decode cache, tokens and the
+    position of the cache's last slot.  Returns (run, argument bytes)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shapes import num_microbatches, serve_param_specs
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
+
+    model = build(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    if shape.kind == "train":
+        state = opt.init_state(init_params(model.param_specs(), gen, device="cuda"))
+        batch = model_batch(cfg, toks, "cuda")
+        step = make_train_step(cfg, num_microbatches=num_microbatches(cfg, shape,
+                                                                       make_local_mesh()))
+        args = [*state["params"].values(), *state["m"].values(), *state["v"].values(),
+                state["step"], *batch.values()]
+        return (lambda: step(state, batch)), sum(t.numel() * t.element_size() for t in args)
+    params = init_params(serve_param_specs(model), gen, device="cuda", dtype=torch.bfloat16)
+    if shape.kind == "prefill":
+        batch = {"tokens": toks[:, :-1].contiguous()}
+        step = make_prefill_step(cfg)
+        args = [*params.values(), *batch.values()]
+        return (lambda: step(params, batch)), sum(t.numel() * t.element_size() for t in args)
+    long_mode = shape.name.startswith("long")
+    cache = {k: torch.zeros(sp.shape, dtype=sp.dtype, device="cuda")
+             for k, sp in model.cache_specs(b, s, long_mode=long_mode).items()}
+    tokens = toks[:, :1].contiguous()
+    step = make_decode_step(cfg, long_mode=long_mode)
+    args = [*params.values(), *cache.values(), tokens]
+    return ((lambda: step(params, cache, tokens, s - 1)),
+            sum(t.numel() * t.element_size() for t in args) + 4)  # + the int32 position
+
+
+def dryrun_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
+    """The dry-run against the card, counted as the path ``dryrun``.
+
+    For each of ``_dryrun_cells()`` (published widths, depth cut to DRYRUN_LAYERS,
+    the per-device batch of the single-pod mesh on a one-device mesh):
+    predict the step's peak memory and its FLOPs with
+    ``launch/dryrun.py::estimate`` on the meta device, build the same step
+    on the card from a seed, run it once, then once more after
+    ``reset_peak_memory_stats``.  The measured peak is the arguments' bytes
+    plus what the step allocated above the memory held at the reset (so
+    what earlier phases still hold does not count); it must be within
+    DRYRUN_PEAK_TOL of the prediction, and the temporaries above the
+    arguments within DRYRUN_TEMP_TOL or DRYRUN_TEMP_SLACK of the predicted
+    ones.  Prints predicted and measured peak and temporaries and their gaps,
+    the predicted FLOPs, the step's wall time and FLOPs over wall time as a
+    share of the bf16 peak.  The trace's FLOPs are those executed (the
+    recomputed forward of every checkpointed layer, the backward's products,
+    padded head dims), so that share is a hardware share, not a model-FLOPs
+    share (phase 15's ``mfu_of_989_tflops`` is one)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.launch.dryrun import estimate
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_local_mesh()
+    rows = {}
+    zero_counts()  # count this path only
+    for arch, shape in _dryrun_cells():
+        cfg = dataclasses.replace(get(arch), num_layers=DRYRUN_LAYERS)
+        t = time.perf_counter()
+        pred = estimate(cfg, shape, mesh)
+        predict_s = time.perf_counter() - t
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        run, arg_bytes = _dryrun_inputs(cfg, shape, gen)
+        if arg_bytes != pred["memory"]["argument_bytes"]:
+            raise SystemExit(f"dryrun {arch} {shape.name}: arguments on the card {arg_bytes} B, "
+                             f"predicted {pred['memory']['argument_bytes']} B")
+        variants0 = dict(fa.flash_attention.variant_launches)
+        designs0 = dict(fab.flash_attention_bwd.design_launches)
+        out = run()  # warm: kernels loaded, cuBLAS handles made
+        torch.cuda.synchronize()
+        del out
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        measured = arg_bytes + torch.cuda.max_memory_allocated() - held
+        del out
+        predicted = pred["memory"]["peak_bytes"]
+        flops = pred["cost"]["flops"]
+        row = {
+            "arch": arch, "shape": shape.name, "layers": DRYRUN_LAYERS,
+            "batch": shape.global_batch, "seq": shape.seq_len,
+            "num_microbatches": pred["num_microbatches"],
+            "predicted_peak_bytes": predicted, "measured_peak_bytes": measured,
+            "gap": measured / predicted - 1, "argument_bytes": arg_bytes,
+            "predicted_temp_bytes": pred["memory"]["temp_bytes"],
+            "measured_temp_bytes": measured - arg_bytes,
+            "temp_gap_bytes": measured - arg_bytes - pred["memory"]["temp_bytes"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "predicted_flops": flops, "predicted_kernels": pred["kernels"], "predict_s": predict_s,
+            "step_s": wall, "executed_flops/s": flops / wall,
+            "executed_flops_share_of_989_tflops": flops / wall / H100_BF16_FLOPS,
+            "attention_launches": {k: (v - variants0[k]) // 2
+                                   for k, v in fa.flash_attention.variant_launches.items()},
+            "backward_launches": {k: (v - designs0[k]) // 2
+                                  for k, v in fab.flash_attention_bwd.design_launches.items()},
+        }
+        print(json.dumps({"dryrun_cell": row}), flush=True)
+        rows[f"{arch}__{shape.name}"] = row
+        if abs(row["gap"]) > DRYRUN_PEAK_TOL:
+            raise SystemExit(f"dryrun {arch} {shape.name}: measured peak {measured} B is "
+                             f"{row['gap']:+.1%} from the predicted {predicted} B")
+        temp_tol = max(DRYRUN_TEMP_TOL * row["predicted_temp_bytes"], DRYRUN_TEMP_SLACK)
+        if abs(row["temp_gap_bytes"]) > temp_tol:
+            raise SystemExit(f"dryrun {arch} {shape.name}: measured temporaries "
+                             f"{row['measured_temp_bytes']} B are {row['temp_gap_bytes']:+} B from "
+                             f"the predicted {row['predicted_temp_bytes']} B (allowed {temp_tol:.0f})")
+        want = {"flash_attention": sum(k["launches"] for n, k in pred["kernels"].items()
+                                       if n == "flash_attention"),
+                "flash_attention_bwd": sum(k["launches"] for n, k in pred["kernels"].items()
+                                           if n == "flash_attention_bwd")}
+        got = {"flash_attention": sum(row["attention_launches"].values()),
+               "flash_attention_bwd": sum(row["backward_launches"].values())}
+        if got != want:
+            raise SystemExit(f"dryrun {arch} {shape.name}: the card launched {got}, "
+                             f"the meta trace declared {want}")
+        torch.cuda.empty_cache()
+    counts = read_counts("dryrun")
+    ran = variant_launches["dryrun"]
+    if not (ran["tile"] and ran["split"] and counts["flash_attention_bwd"]):
+        raise SystemExit(f"the dryrun path's launches are off: {counts}, attention {ran}")
+    props = torch.cuda.get_device_properties(0)
+    print(json.dumps({"dryrun": {"total_memory": props.total_memory,
+                                 "multi_processor_count": props.multi_processor_count,
+                                 "s": time.perf_counter() - t_phase}}), flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blob-mib", type=int, default=1024, help="blob size in MiB (default 1024)")
@@ -2629,7 +2808,12 @@ def main(argv=None) -> int:
            "training; card vs CPU")
     mla_encdec_phase(args.seed, zero_counts, read_counts, variant_launches)
 
-    # -- 18. the kernels line and the result ----------------------------------------------
+    # -- 18. the dry-run against the card ------------------------------------------------------
+    _phase(f"dryrun: {', '.join(f'{a} {c.name}' for a, c in _dryrun_cells())} at published "
+           f"widths, {DRYRUN_LAYERS} layers: the meta device's peak and FLOPs against the card's")
+    dryrun_phase(args.seed, zero_counts, read_counts, variant_launches)
+
+    # -- 19. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),

@@ -1,7 +1,8 @@
 """ArchConfig: one dataclass describes every architecture of the JAX package.
 
-A copy of ``repro/configs/base.py``'s dataclasses; the port builds every
-family (``models/model.py``).
+A copy of ``repro/configs/base.py``: the dataclasses, the parameter counts
+and the shape suite of the dry-run (``SHAPES``, ``cell_applicable``); the
+port builds every family (``models/model.py``).
 """
 from __future__ import annotations
 
@@ -79,5 +80,48 @@ class ArchConfig:
         return -(-self.vocab // 256) * 256
 
     @property
+    def supports_long(self) -> bool:
+        return self.sub_quadratic
+
+    @property
     def is_encdec(self) -> bool:
         return self.family == "encdec"
+
+    def param_count(self) -> int:
+        """Total parameters (exact, from the port's own parameter specs)."""
+        from repro_torch.models.model import build
+
+        return build(self).param_count()
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared experts)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        moe_layers = self.num_layers - self.moe.first_dense_layers
+        per_expert = 3 * self.d_model * self.moe.expert_d_ff
+        inactive = (self.moe.num_experts - self.moe.top_k) * per_expert * moe_layers
+        return total - inactive
+
+
+# -- shape suite (assigned input shapes) ---------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = [
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+]
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeCell) -> tuple[bool, str]:
+    if shape.name == "long_500k" and not cfg.supports_long:
+        return False, "pure full-attention arch: long_500k skipped (DESIGN.md §6)"
+    return True, ""

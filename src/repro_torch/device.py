@@ -1,8 +1,9 @@
 """Device selection for the port's entry points.
 
 Everything runs on the card by default.  The CPU is used only when a caller
-asks for it by name (the tests do); a missing GPU is an error, never a
-silent fallback.
+asks for it by name (the tests do), and the meta device (shapes and dtypes,
+nothing allocated) only when the dry-run (``launch/dryrun.py``) asks for it;
+a missing GPU is an error, never a silent fallback.
 """
 from __future__ import annotations
 
@@ -20,6 +21,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -35,6 +35,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -138,6 +139,99 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _variant(q: torch.Tensor, k: torch.Tensor, with_lse: bool, aligned: bool = True) -> str:
+    """The kernel a call without a named variant takes."""
+    b, sq, h, hd = q.shape
+    if with_lse:  # the kernels that write lse
+        return "tile" if tensor_cores_take(q.dtype, hd, aligned) else "general"
+    return choose_variant(q.dtype, sq, h, k.shape[2], hd, aligned)
+
+
+def _allocate(variant: str, q: torch.Tensor, k: torch.Tensor, q_positions, k_positions,
+              with_lse: bool, sms: int):
+    """What a launch allocates, on the card and (for the dry-run) on the meta
+    device alike: the positions (int32), the output, the row log-sum-exp
+    (training) and, for a "split" call over more than one split, the (m, l)
+    and accumulator partials of every split that the combine kernel merges.
+    Returns (qpos, kpos, out, lse or None, (splits, tiles per split, ml, acc))."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qp = _positions(q_positions, sq, q.device)
+    kp = _positions(k_positions, sk, q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    splits = per = 0
+    ml = acc = None
+    if variant == "split":
+        rows = sq * (h // hkv)
+        splits, per = split_plan(sk, b, hkv, rows, sms)
+        if splits > 1:  # (m, l, acc) of every split, merged by the combine kernel
+            ml = torch.empty((2, b, hkv, splits, rows), dtype=torch.float32, device=q.device)
+            acc = torch.empty((b, hkv, splits, rows, hd), dtype=torch.float32, device=q.device)
+    return qp, kp, out, lse, (splits, per, ml, acc)
+
+
+BLOCK_ROWS = {"tile": 64, "split": SPLIT_ROWS, "general": 16}  # (query, head) rows per block
+H100_SMS = 132  # the H100 SXM's SMs: "split"'s plan on the meta device
+
+
+def _live_keys(qmin, qmax, sk: int, causal: bool, window: int, tile: int = KV_TILE):
+    """Keys in the tiles of ``tile`` keys a block whose queries sit at
+    positions [qmin, qmax] walks (numpy arrays over blocks), keys at
+    positions 0 .. sk - 1: a tile is skipped when every pair in it is
+    hidden, by the causal mask (its first key after qmax) or the window
+    (its last key at or before qmin - window)."""
+    tiles = -(-sk // tile)
+    last = np.full_like(qmax, tiles - 1)
+    if causal:
+        last = np.minimum(last, qmax // tile)
+    first = np.zeros_like(qmin)
+    if window > 0:
+        first = np.maximum(first, (qmin - window + 1) // tile)
+    keys = np.minimum(sk, (last + 1) * tile) - first * tile
+    return np.where(last >= first, keys, 0)
+
+
+def flops(variant: str, b: int, sq: int, sk: int, h: int, hkv: int, hd: int, causal: bool,
+          window: int) -> float:
+    """The operations a forward launch performs: 4 * hd (Q K^T and P V) for
+    every (query, head) row and every key of each K/V tile the row's block
+    walks, with the queries at the last Sq of Sk positions and the keys at
+    0 .. Sk - 1 (training, prefill, and decode at the cache's last slot).
+    "tile" and "split" skip a tile that every pair of the block hides, as
+    ``csrc/flash_attention.cu``'s ``next_live`` does; "general" walks every
+    tile.  Masked pairs inside a walked tile count; rows a partial block
+    pads with do not."""
+    g = h // hkv
+    rows = sq * g
+    per = BLOCK_ROWS[variant]
+    r0 = np.arange(0, rows, per, dtype=np.int64)
+    n = np.minimum(per, rows - r0)
+    qmin = sk - sq + r0 // g
+    qmax = sk - sq + (r0 + n - 1) // g
+    if variant == "general":
+        keys = np.full_like(r0, sk)
+    else:
+        keys = _live_keys(qmin, qmax, sk, causal, window)
+    return 4.0 * hd * b * hkv * float((n * keys).sum())
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         q_positions=None, k_positions=None, causal: bool = True,
+                         window: int = 0, scale: float | None = None, with_lse: bool = False):
+    """The launch on the meta device, for the dry-run: the same checks and the
+    same allocations as :func:`flash_attention` (or :func:`flash_attention_lse`),
+    "split"'s planned for an H100's ``H100_SMS``, and no kernel.  Returns
+    (out, lse or None, operations by :func:`flops`)."""
+    _check(q, k, v)
+    if q.device.type != "meta":
+        raise ValueError(f"flash_attention_meta takes meta tensors; got tensors on {q.device}")
+    b, sq, h, hd = q.shape
+    variant = _variant(q, k, with_lse)
+    _, _, out, lse, _ = _allocate(variant, q, k, q_positions, k_positions, with_lse, H100_SMS)
+    return out, lse, flops(variant, b, sq, k.shape[1], h, k.shape[2], hd, causal, window)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions=None, k_positions=None, causal: bool = True,
                     window: int = 0, scale: float | None = None) -> torch.Tensor:
@@ -183,19 +277,15 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
     sk, hkv = k.shape[1], k.shape[2]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0
-    if variant is None and with_lse:  # the kernels that write lse
-        variant = "tile" if tensor_cores_take(q.dtype, hd, aligned) else "general"
-    elif variant is None:
-        variant = choose_variant(q.dtype, sq, h, hkv, hd, aligned)
+    if variant is None:
+        variant = _variant(q, k, with_lse, aligned)
     elif variant != "general" and not tensor_cores_take(q.dtype, hd, aligned):
         raise ValueError(f"flash_attention: the {variant!r} kernel takes 16-byte aligned bf16 "
                          f"with head_dim a multiple of 16; got {q.dtype}, head_dim {hd}")
-    qp = _positions(q_positions, sq, q.device)
-    kp = _positions(k_positions, sk, q.device)
+    qp, kp, out, lse, (splits, per, ml, acc) = _allocate(
+        variant, q, k, q_positions, k_positions, with_lse, _sm_count(q.device.index or 0))
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     lib = _lib()
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     args = (*ptrs, qp.data_ptr(), kp.data_ptr(), out.data_ptr())
     lse_ptr = None if lse is None else lse.data_ptr()  # null: no lse (serving)
     shape = (b, sq, sk, h, hkv, hd, scale, int(causal), int(window))
@@ -204,13 +294,8 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
         if variant == "tile":
             err = lib.flash_attention_tile_launch(*args, lse_ptr, *shape, stream)
         elif variant == "split":
-            rows = sq * (h // hkv)
-            splits, per = split_plan(sk, b, hkv, rows, _sm_count(q.device.index or 0))
             part = (0, 0, 0)
-            if splits > 1:  # (m, l, acc) of every split, merged by the combine kernel
-                ml = torch.empty((2, b, hkv, splits, rows), dtype=torch.float32, device=q.device)
-                acc = torch.empty((b, hkv, splits, rows, hd), dtype=torch.float32,
-                                  device=q.device)
+            if ml is not None:
                 part = (ml[0].data_ptr(), ml[1].data_ptr(), acc.data_ptr())
             err = lib.flash_attention_split_launch(*args, *part, *shape, splits, per, stream)
         else:

@@ -27,10 +27,12 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, _check, _positions, visible
+from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, _check, _live_keys, _positions,
+                                                 visible)
 
 
 DESIGNS = ("wgmma", "mma")  # csrc/flash_attention_bwd.cu's flash_attention_bwd_design(hd)
@@ -79,6 +81,79 @@ def _check_bwd(q, k, v, o, do, lse) -> None:
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
 
 
+ROW_TILE = 64  # the launcher's kRowTile: queries per statistics tile
+KEY_TILE = 64  # kKeyTile: keys per wgmma warpgroup and per dQ stage
+DKDV_KEYS = 128  # kDkdvKeys: keys per dK/dV block
+DQ_ROWS = 128  # kDqRows: queries per dQ block
+STAT_WORDS = 3 * ROW_TILE  # kStatWords: a query tile's lse in base 2, D, positions
+
+
+def scratch_bytes(b: int, sq: int, sk: int, h: int, hd: int) -> int:
+    """``flash_attention_bwd_scratch_bytes`` of the launcher, mirrored for the
+    meta device: for "wgmma" the statistics of every (batch, head, query
+    tile), their ranges and blindness (16 bytes each), the key positions
+    and every key tile's range (8 bytes); for "mma" D (b, h, sq) f32."""
+    if design(hd) != "wgmma":
+        return 4 * b * h * sq
+    tiles = b * h * -(-sq // ROW_TILE)
+    key_tiles = -(-sk // KEY_TILE)
+    return tiles * STAT_WORDS * 4 + tiles * 16 + key_tiles * KEY_TILE * 4 + key_tiles * 8
+
+
+def _allocate(q, k, v, q_positions, k_positions, nbytes: int):
+    """What a launch allocates, on the card and (for the dry-run) on the meta
+    device alike: the positions (int32), dq, dk, dv and ``nbytes`` of scratch
+    (rowsum(dO * O) and the tiles' statistics, written by the launch's first
+    kernel).  Returns (qpos, kpos, dq, dk, dv, scratch)."""
+    qp = _positions(q_positions, q.shape[1], q.device)
+    kp = _positions(k_positions, k.shape[1], q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    return qp, kp, dq, dk, dv, scratch
+
+
+def flops(b: int, sq: int, sk: int, h: int, hkv: int, hd: int, causal: bool,
+          window: int) -> float:
+    """The operations a launch performs: 2 * hd per product for every
+    (query, key) pair and query head of each tile pair it walks, 4 products
+    (S, dP, dV, dK) in the dK/dV kernel over blocks of ``DKDV_KEYS`` keys and
+    query tiles of ``ROW_TILE``, 3 (S, dP, dQ) in the dQ kernel over blocks of
+    ``DQ_ROWS`` queries and key tiles of ``KEY_TILE`` (the "mma" design: 64 x
+    64 for both), with the queries at the last Sq of Sk positions.  A tile
+    pair that every pair hides is skipped, as the kernels skip it; masked
+    pairs inside a walked tile pair count."""
+    def walked(q_block: int, k_block: int) -> float:
+        q0 = np.arange(0, sq, q_block, dtype=np.int64)
+        n = np.minimum(q_block, sq - q0)
+        keys = _live_keys(sk - sq + q0, sk - sq + q0 + n - 1, sk, causal, window, k_block)
+        return float((n * keys).sum())
+
+    if design(hd) == "wgmma":
+        pairs = 4 * walked(ROW_TILE, DKDV_KEYS) + 3 * walked(DQ_ROWS, KEY_TILE)
+    else:
+        pairs = 7 * walked(64, 64)
+    return 2.0 * hd * b * h * pairs
+
+
+def flash_attention_bwd_meta(q, k, v, o, do, lse, *, q_positions=None, k_positions=None,
+                             causal: bool = True, window: int = 0, scale: float | None = None):
+    """The launch on the meta device, for the dry-run: the same checks and the
+    same allocations as :func:`flash_attention_bwd` (scratch by
+    :func:`scratch_bytes`), and no kernel.  Returns (dq, dk, dv, operations
+    by :func:`flops`)."""
+    _check_bwd(q, k, v, o, do, lse)
+    if q.device.type != "meta":
+        raise ValueError(f"flash_attention_bwd_meta takes meta tensors; got {q.device}")
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if not kernel_takes(q.dtype, hd):
+        raise ValueError(f"flash_attention_bwd takes bf16 with head_dim a multiple of 16 in "
+                         f"[16, {MAX_HEAD_DIM}]; got {q.dtype}, head_dim {hd}")
+    _, _, dq, dk, dv, _ = _allocate(q, k, v, q_positions, k_positions,
+                                    scratch_bytes(b, sq, sk, h, hd))
+    return dq, dk, dv, flops(b, sq, sk, h, hkv, hd, causal, window)
+
+
 def flash_attention_bwd(q, k, v, o, do, lse, *, q_positions=None, k_positions=None,
                         causal: bool = True, window: int = 0, scale: float | None = None):
     """(dq, dk, dv) on the card: contiguous, 16-byte aligned bf16 CUDA tensors
@@ -98,14 +173,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, q_positions=None, k_positions=No
             raise ValueError(f"flash_attention_bwd: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {name} must be 16-byte aligned")
-    qp = _positions(q_positions, sq, q.device)
-    kp = _positions(k_positions, sk, q.device)
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     lib = _lib()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # rowsum(dO * O) and the tiles' statistics, written by the launch's first kernel
-    scratch = torch.empty(lib.flash_attention_bwd_scratch_bytes(b, sq, sk, h, hd),
-                          dtype=torch.uint8, device=q.device)
+    qp, kp, dq, dk, dv, scratch = _allocate(q, k, v, q_positions, k_positions,
+                                            lib.flash_attention_bwd_scratch_bytes(b, sq, sk, h, hd))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd_launch(

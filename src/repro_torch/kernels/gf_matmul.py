@@ -56,6 +56,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _allocate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """What a launch allocates, on the card and on the meta device alike: C."""
+    return torch.empty((a.shape[0], b.shape[1]), dtype=torch.uint8, device=b.device)
+
+
+def flops(m: int, k: int, n: int) -> float:
+    """The operations of C = A (x) B: a GF(2^8) multiply and an xor per term."""
+    return 2.0 * m * k * n
+
+
+def gf_matmul_meta(a: torch.Tensor, b: torch.Tensor):
+    """The launch on the meta device: the same checks and allocation as
+    :func:`gf_matmul`, no kernel.  Returns (C, operations by :func:`flops`)."""
+    _check(a, b)
+    if b.device.type != "meta":
+        raise ValueError(f"gf_matmul_meta takes meta tensors; got tensors on {b.device}")
+    return _allocate(a, b), flops(a.shape[0], a.shape[1], b.shape[1])
+
+
 def gf_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A (x) B on the card: a (M, K), b (K, N) contiguous uint8 CUDA tensors.
 
@@ -67,7 +86,7 @@ def gf_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gf_matmul launches a CUDA kernel; got tensors on {b.device}")
     (m, k), n = a.shape, b.shape[1]
     lib = _lib()
-    c = torch.empty((m, n), dtype=torch.uint8, device=b.device)
+    c = _allocate(a, b)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         sms = torch.cuda.get_device_properties(b.device).multi_processor_count

@@ -47,6 +47,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _allocate(words: torch.Tensor) -> torch.Tensor:
+    """What a launch allocates, on the card and on the meta device alike: the digests."""
+    return torch.empty(words.shape[0], dtype=torch.uint32, device=words.device)
+
+
+def flops(leaves: int, words: int) -> float:
+    """The u32 operations of the digests: 4 per word (multiply, add, rotate,
+    multiply) and 8 per digest (the final mix)."""
+    return float(leaves * (4 * words + 8))
+
+
+def sample_hash_meta(words: torch.Tensor, *, seed: int = 0):
+    """The launch on the meta device: the same checks and allocation as
+    :func:`sample_hash`, no kernel.  Returns (digests, operations by :func:`flops`)."""
+    _check(words)
+    if words.device.type != "meta":
+        raise ValueError(f"sample_hash_meta takes a meta tensor; got one on {words.device}")
+    return _allocate(words), flops(*words.shape)
+
+
 def sample_hash(words: torch.Tensor, *, seed: int = 0) -> torch.Tensor:
     """Digests on the card: words (L, W) contiguous uint32 CUDA tensor -> (L,) uint32.
 
@@ -58,7 +78,7 @@ def sample_hash(words: torch.Tensor, *, seed: int = 0) -> torch.Tensor:
         raise ValueError(f"sample_hash launches a CUDA kernel; got a tensor on {words.device}")
     leaves, w = words.shape
     lib = _lib()
-    out = torch.empty(leaves, dtype=torch.uint32, device=words.device)
+    out = _allocate(words)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
         sms = torch.cuda.get_device_properties(words.device).multi_processor_count

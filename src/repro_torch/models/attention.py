@@ -67,10 +67,11 @@ def _arange(n: int, device) -> torch.Tensor:
 
 
 def attn_full(params, x: torch.Tensor, cfg, *, positions=None, mask: MaskSpec | None = None,
-              rope: bool = True, kv_source=None, kv_positions=None) -> torch.Tensor:
+              rope: bool = True, kv_source=None, kv_positions=None, ctx=None) -> torch.Tensor:
     """Training / encoder path over a full sequence: x (B, S, D) -> (B, S, D).
     ``kv_source`` (B, Sk, D): cross-attention, keys and values projected from
-    it (the JAX package passes ``rope=False`` and a non-causal mask)."""
+    it (the JAX package passes ``rope=False`` and a non-causal mask).  The
+    query heads read the K and V heads that ``ctx.kv_heads`` gives (all)."""
     s = x.shape[1]
     mask = mask or MaskSpec(causal=True)
     q, k, v = _qkv(params, x, kv_source)
@@ -79,12 +80,14 @@ def attn_full(params, x: torch.Tensor, cfg, *, positions=None, mask: MaskSpec | 
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
+    if ctx is not None:
+        k, v = ctx.kv_heads(q, k, v)
     o = flash_attention(q, k, v, mask=mask, q_positions=positions, k_positions=kv_positions)
     return _out(params, o)
 
 
 def attn_prefill(params, x: torch.Tensor, cfg, *, mask: MaskSpec | None = None,
-                 rope: bool = True):
+                 rope: bool = True, ctx=None):
     """Like :func:`attn_full`, also returning the populated KV cache
     ``{"k", "v"}`` (B, S, Hkv, hd), k after RoPE, as the JAX package's."""
     mask = mask or MaskSpec(causal=True)
@@ -93,7 +96,8 @@ def attn_prefill(params, x: torch.Tensor, cfg, *, mask: MaskSpec | None = None,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, mask=mask, q_positions=positions, k_positions=positions)
+    ka, va = (k, v) if ctx is None else ctx.kv_heads(q, k, v)
+    o = flash_attention(q, ka, va, mask=mask, q_positions=positions, k_positions=positions)
     return _out(params, o), {"k": k, "v": v}
 
 
@@ -115,7 +119,7 @@ def ring_positions(pos: int, s_cache: int, device) -> torch.Tensor:
     return torch.where(k_positions < 0, UNWRITTEN, k_positions)
 
 
-def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg, *, window: int = 0):
+def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg, *, window: int = 0, ctx=None):
     """x: (B, 1, D); cache: {'k','v'}: (B, S, Hkv, hd); pos: the current position.
 
     Uses a ring buffer when ``window > 0`` (slot = pos % S), otherwise writes
@@ -133,5 +137,6 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg, *, window: int = 
         k_positions = ring_positions(pos, s_cache, x.device)
     else:
         k_positions = torch.arange(s_cache, dtype=torch.int32, device=x.device)
-    o = decode_attention(q, k_new, v_new, k_positions, pos, window=window)
+    ka, va = (k_new, v_new) if ctx is None else ctx.kv_heads(q, k_new, v_new)
+    o = decode_attention(q, ka, va, k_positions, pos, window=window)
     return _out(params, o), {"k": k_new, "v": v_new}

@@ -66,7 +66,7 @@ def apply_mla_full(p, x: torch.Tensor, cfg, positions=None):
     """Training / prefill path (expanded keys and values): x (B, S, D) ->
     (out (B, S, D), cache ``{"c_kv" (B, S, rank), "k_rope" (B, S, rope)}``)."""
     m = cfg.mla
-    b, s, _ = x.shape
+    s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
     c_kv, k_rope = _latents(p, x, cfg)
@@ -74,8 +74,7 @@ def apply_mla_full(p, x: torch.Tensor, cfg, positions=None):
     q_nope, q_rope = _queries(p, x, cfg, positions)
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, cast(p["w_uk"]))
     v = torch.einsum("bsr,rhk->bshk", c_kv, cast(p["w_uv"]))
-    h = cfg.num_heads
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(-1, -1, k_nope.shape[2], -1)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = flash_attention(q, k, v, mask=MaskSpec(causal=True), scale=_scale(cfg))
     out = torch.einsum("bshk,hkd->bsd", o, cast(p["wo"]))

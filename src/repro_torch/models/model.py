@@ -63,11 +63,18 @@ def _embed_specs(cfg: ArchConfig) -> dict[str, ParamSpec]:
     return out
 
 
-def _logits(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+def _weight(params, name: str, ctx) -> torch.Tensor:
+    """A weight outside the layer stacks, as the products read it (``ctx.gather``)."""
+    return params[name] if ctx is None else ctx.gather(name, params[name])
+
+
+def _logits(params, h: torch.Tensor, cfg: ArchConfig, ctx=None) -> torch.Tensor:
+    table = _weight(params, "embed" if cfg.tie_embeddings else "lm_head", ctx)
     logits = torch.einsum("bsd,vd->bsv", h, cast(table))
     if cfg.padded_vocab != cfg.vocab:  # mask padding ids out of the softmax
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+        # ids from 0 over the logits' width (one device's share of the vocab
+        # in the dry-run's per-device trace: the first rank's ids)
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
 
@@ -80,9 +87,17 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - gold).mean()
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked parameter or cache tree (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _layer(tree: dict, i: int, ctx=None, prefix: str = "") -> dict:
+    """Layer ``i`` of a stacked parameter or cache tree (views, no copies);
+    with a ``ctx``, each weight as ``ctx.gather`` gives it (``prefix``: the
+    stack's dotted path)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _layer(v, i, ctx, f"{prefix}{k}.")
+        else:
+            out[k] = v[i] if ctx is None else ctx.gather(prefix + k, v[i])
+    return out
 
 
 def _layers(tree: dict) -> int:
@@ -192,7 +207,7 @@ class DecoderLM(_Model):
             m_out = apply_mlp(block["mlp"], x2, cfg.mlp)
         return h + m_out, aux
 
-    def _mixer_full(self, block, x: torch.Tensor, mask: MaskSpec, cache: bool):
+    def _mixer_full(self, block, x: torch.Tensor, mask: MaskSpec, cache: bool, ctx):
         """The token mixer over the full sequence: (output, cache entries of
         the layer, empty unless ``cache``)."""
         cfg = self.cfg
@@ -201,22 +216,28 @@ class DecoderLM(_Model):
         if cfg.family == "mla_moe":  # also the leading dense layers
             a_out, kv = mla_mod.apply_mla_full(block["mla"], x, cfg)
         elif cfg.family in ATTENTION_FAMILIES and cache:
-            a_out, kv = attn.attn_prefill(block["attn"], x, cfg, mask=mask)
+            a_out, kv = attn.attn_prefill(block["attn"], x, cfg, mask=mask, ctx=ctx)
         elif cfg.family in ATTENTION_FAMILIES:
-            a_out = attn.attn_full(block["attn"], x, cfg, mask=mask)
+            a_out = attn.attn_full(block["attn"], x, cfg, mask=mask, ctx=ctx)
         if cfg.family in SSM_FAMILIES:
             s_out = ssm_mod.apply_ssm(block["ssm"], x, cfg)
         return self._mix(block, a_out, s_out), kv if cache else {}
 
     def _block_full(self, block, h: torch.Tensor, mask: MaskSpec, ctx, dense: bool = False):
         x = apply_norm(block["ln1"], h, self.cfg.norm)
-        mixed, _ = self._mixer_full(block, x, mask, cache=False)
+        mixed, _ = self._mixer_full(block, x, mask, cache=False, ctx=ctx)
         return self._second_half(block, h, x, mixed, ctx, dense)
+
+    def _block_at(self, stack, prefix: str, i: int, h: torch.Tensor, mask: MaskSpec, ctx,
+                  dense: bool = False):
+        """:meth:`_block_full` of layer ``i`` of a stack: the layer's weights
+        are taken inside, so that recomputation takes them again."""
+        return self._block_full(_layer(stack, i, ctx, prefix), h, mask, ctx, dense)
 
     def _run_dense0(self, p, h: torch.Tensor, mask: MaskSpec, ctx) -> torch.Tensor:
         """The leading dense layers (MLA + MLP), recomputed under autograd."""
         for i in range(self.n_dense0):
-            h, _ = _per_layer(self._block_full, _layer(p["dense0"], i), h, mask, ctx, True)
+            h, _ = _per_layer(self._block_at, p["dense0"], "dense0.", i, h, mask, ctx, True)
         return h
 
     def _run_stack(self, p, h: torch.Tensor, mask: MaskSpec, ctx):
@@ -227,15 +248,15 @@ class DecoderLM(_Model):
         h = self._run_dense0(p, h, mask, ctx)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(_layers(p["blocks"])):
-            h, aux_i = _per_layer(self._block_full, _layer(p["blocks"], i), h, mask, ctx)
+            h, aux_i = _per_layer(self._block_at, p["blocks"], "blocks.", i, h, mask, ctx)
             if aux_i is not None:
                 aux = aux + aux_i
         return h, aux
 
-    def _inputs_to_h(self, params, batch) -> torch.Tensor:
+    def _inputs_to_h(self, params, batch, ctx) -> torch.Tensor:
         if self.cfg.input_mode == "embeddings":
             return cast(batch["embeddings"])
-        return cast(params["embed"])[batch["tokens"]]
+        return cast(_weight(params, "embed", ctx))[batch["tokens"]]
 
     # -- public: train loss ------------------------------------------------------------
     def loss(self, params: dict[str, torch.Tensor], batch, ctx=None):
@@ -245,9 +266,9 @@ class DecoderLM(_Model):
         ``router_aux_weight`` times the aux loss per layer."""
         cfg = self.cfg
         p = unflatten(params)
-        h, aux = self._run_stack(p, self._inputs_to_h(p, batch), MaskSpec(causal=True), ctx)
+        h, aux = self._run_stack(p, self._inputs_to_h(p, batch, ctx), MaskSpec(causal=True), ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        loss = _xent(_logits(p, h, cfg), batch["labels"])
+        loss = _xent(_logits(p, h, cfg, ctx), batch["labels"])
         if cfg.moe:
             loss = loss + cfg.moe.router_aux_weight * aux / max(cfg.num_layers, 1)
         return loss, {"xent": loss, "aux": aux}
@@ -262,17 +283,17 @@ class DecoderLM(_Model):
         cfg = self.cfg
         p = unflatten(params)
         mask = MaskSpec(causal=True)
-        h = self._run_dense0(p, self._inputs_to_h(p, batch), mask, ctx)
+        h = self._run_dense0(p, self._inputs_to_h(p, batch, ctx), mask, ctx)
         caches: dict[str, list] = {}
         for i in range(_layers(p["blocks"])):
-            lp = _layer(p["blocks"], i)
+            lp = _layer(p["blocks"], i, ctx, "blocks.")
             x = apply_norm(lp["ln1"], h, cfg.norm)
-            mixed, kv = self._mixer_full(lp, x, mask, cache=True)
+            mixed, kv = self._mixer_full(lp, x, mask, cache=True, ctx=ctx)
             for name, t in kv.items():
                 caches.setdefault(name, []).append(t)
             h, _ = self._second_half(lp, h, x, mixed, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        return _logits(p, h[:, -1:], cfg), {k: torch.stack(v) for k, v in caches.items()}
+        return _logits(p, h[:, -1:], cfg, ctx), {k: torch.stack(v) for k, v in caches.items()}
 
     # -- public: decode -------------------------------------------------------------------
     def cache_specs(self, batch: int, cache_len: int, *,
@@ -318,21 +339,21 @@ class DecoderLM(_Model):
         cfg = self.cfg
         window = cfg.long_window if (long_mode and cfg.long_window) else 0
         p = unflatten(params)
-        h = cast(p["embed"][tokens])
+        h = cast(_weight(p, "embed", ctx)[tokens])
         for i in range(self.n_dense0):
-            lp = _layer(p["dense0"], i)
+            lp = _layer(p["dense0"], i, ctx, "dense0.")
             x = apply_norm(lp["ln1"], h, cfg.norm)
             a_out, _ = mla_mod.apply_mla_decode(
                 lp["mla"], x, {"c_kv": cache["c_kv0"][i], "k_rope": cache["k_rope0"][i]}, pos, cfg)
             h, _ = self._second_half(lp, h, x, a_out, ctx, dense=True)
         main = {k: v for k, v in cache.items() if not k.endswith("0")}
         for i in range(_layers(p["blocks"])):
-            lp, lc = _layer(p["blocks"], i), _layer(main, i)
+            lp, lc = _layer(p["blocks"], i, ctx, "blocks."), _layer(main, i)
             x = apply_norm(lp["ln1"], h, cfg.norm)
             a_out = s_out = None
             if cfg.family in ATTENTION_FAMILIES:
                 a_out, _ = attn.attn_decode(lp["attn"], x, {"k": lc["k"], "v": lc["v"]}, pos, cfg,
-                                            window=window)
+                                            window=window, ctx=ctx)
             if cfg.family == "mla_moe":
                 a_out, _ = mla_mod.apply_mla_decode(
                     lp["mla"], x, {"c_kv": lc["c_kv"], "k_rope": lc["k_rope"]}, pos, cfg)
@@ -341,7 +362,7 @@ class DecoderLM(_Model):
                                                     {"conv": lc["conv"], "h": lc["h_ssm"]}, cfg)
             h, _ = self._second_half(lp, h, x, self._mix(lp, a_out, s_out), ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        return _logits(p, h, cfg), cache
+        return _logits(p, h, cfg, ctx), cache
 
 
 class EncDecLM(_Model):
@@ -376,48 +397,51 @@ class EncDecLM(_Model):
                         "enc_norm": norm_specs(cfg.d_model, cfg.norm), "dec_blocks": dec,
                         "final_norm": norm_specs(cfg.d_model, cfg.norm)})
 
-    def _enc_layer(self, lp, h: torch.Tensor) -> torch.Tensor:
+    def _enc_layer(self, stack, i: int, h: torch.Tensor, ctx) -> torch.Tensor:
         cfg = self.cfg
+        lp = _layer(stack, i, ctx, "enc_blocks.")
         x = apply_norm(lp["ln1"], h, cfg.norm)
-        h = h + attn.attn_full(lp["attn"], x, cfg, mask=MaskSpec(causal=False))
+        h = h + attn.attn_full(lp["attn"], x, cfg, mask=MaskSpec(causal=False), ctx=ctx)
         return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm), cfg.mlp)
 
-    def _encode(self, p, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, p, frames: torch.Tensor, ctx=None) -> torch.Tensor:
         h = cast(frames)
         for i in range(self.cfg.enc_layers):
-            h = _per_layer(self._enc_layer, _layer(p["enc_blocks"], i), h)
+            h = _per_layer(self._enc_layer, p["enc_blocks"], i, h, ctx)
         return apply_norm(p["enc_norm"], h, self.cfg.norm)
 
     def encode(self, params: dict[str, torch.Tensor], frames: torch.Tensor,
                ctx=None) -> torch.Tensor:
         """frames: (B, S_enc, D), the stub frontend's output -> the encoder's
         states (B, S_enc, D) in the compute dtype."""
-        return self._encode(unflatten(params), frames)
+        return self._encode(unflatten(params), frames, ctx)
 
-    def _cross(self, lp, h: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    def _cross(self, lp, h: torch.Tensor, enc_out: torch.Tensor, ctx) -> torch.Tensor:
         """Cross-attention and the MLP: the second and third parts of a decoder layer."""
         cfg = self.cfg
         xx = apply_norm(lp["ln_x"], h, cfg.norm)
         h = h + attn.attn_full(lp["cross_attn"], xx, cfg, mask=MaskSpec(causal=False),
-                               rope=False, kv_source=enc_out)
+                               rope=False, kv_source=enc_out, ctx=ctx)
         return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm), cfg.mlp)
 
-    def _dec_layer(self, lp, h: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    def _dec_layer(self, stack, i: int, h: torch.Tensor, enc_out: torch.Tensor,
+                   ctx) -> torch.Tensor:
+        lp = _layer(stack, i, ctx, "dec_blocks.")
         x = apply_norm(lp["ln1"], h, self.cfg.norm)
-        h = h + attn.attn_full(lp["self_attn"], x, self.cfg, mask=MaskSpec(causal=True))
-        return self._cross(lp, h, enc_out)
+        h = h + attn.attn_full(lp["self_attn"], x, self.cfg, mask=MaskSpec(causal=True), ctx=ctx)
+        return self._cross(lp, h, enc_out, ctx)
 
     def loss(self, params: dict[str, torch.Tensor], batch, ctx=None):
         """batch: ``{"frames" (B, S_enc, D), "tokens", "labels" (B, S)}``.
         Returns (loss, metrics): the mean cross-entropy (aux 0)."""
         cfg = self.cfg
         p = unflatten(params)
-        enc_out = self._encode(p, batch["frames"])
-        h = cast(p["embed"])[batch["tokens"]]
+        enc_out = self._encode(p, batch["frames"], ctx)
+        h = cast(_weight(p, "embed", ctx))[batch["tokens"]]
         for i in range(cfg.num_layers):
-            h = _per_layer(self._dec_layer, _layer(p["dec_blocks"], i), h, enc_out)
+            h = _per_layer(self._dec_layer, p["dec_blocks"], i, h, enc_out, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        loss = _xent(_logits(p, h, cfg), batch["labels"])
+        loss = _xent(_logits(p, h, cfg, ctx), batch["labels"])
         return loss, {"xent": loss, "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
 
     def prefill(self, params: dict[str, torch.Tensor], batch, ctx=None):
@@ -426,19 +450,20 @@ class EncDecLM(_Model):
         (layers, B, 1, Hkv, hd) and ``"enc_out"``), as the JAX package's."""
         cfg = self.cfg
         p = unflatten(params)
-        enc_out = self._encode(p, batch["frames"])
-        h = cast(p["embed"])[torch.zeros((enc_out.shape[0], 1), dtype=torch.int64,
-                                         device=enc_out.device)]
+        enc_out = self._encode(p, batch["frames"], ctx)
+        h = cast(_weight(p, "embed", ctx))[torch.zeros((enc_out.shape[0], 1), dtype=torch.int64,
+                                                       device=enc_out.device)]
         ks, vs = [], []
         for i in range(cfg.num_layers):
-            lp = _layer(p["dec_blocks"], i)
+            lp = _layer(p["dec_blocks"], i, ctx, "dec_blocks.")
             x = apply_norm(lp["ln1"], h, cfg.norm)
-            a_out, kv = attn.attn_prefill(lp["self_attn"], x, cfg, mask=MaskSpec(causal=True))
+            a_out, kv = attn.attn_prefill(lp["self_attn"], x, cfg, mask=MaskSpec(causal=True),
+                                          ctx=ctx)
             ks.append(kv["k"])
             vs.append(kv["v"])
-            h = self._cross(lp, h + a_out, enc_out)
+            h = self._cross(lp, h + a_out, enc_out, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        return _logits(p, h[:, -1:], cfg), {"k": torch.stack(ks), "v": torch.stack(vs),
+        return _logits(p, h[:, -1:], cfg, ctx), {"k": torch.stack(ks), "v": torch.stack(vs),
                                             "enc_out": enc_out}
 
     def cache_specs(self, batch: int, cache_len: int, *,
@@ -463,16 +488,17 @@ class EncDecLM(_Model):
         ``v`` updated in place."""
         cfg = self.cfg
         p = unflatten(params)
-        h = cast(p["embed"][tokens])
+        h = cast(_weight(p, "embed", ctx)[tokens])
         enc_out = cache["enc_out"]
         for i in range(cfg.num_layers):
-            lp = _layer(p["dec_blocks"], i)
+            lp = _layer(p["dec_blocks"], i, ctx, "dec_blocks.")
             x = apply_norm(lp["ln1"], h, cfg.norm)
             a_out, _ = attn.attn_decode(lp["self_attn"], x,
-                                        {"k": cache["k"][i], "v": cache["v"][i]}, pos, cfg)
-            h = self._cross(lp, h + a_out, enc_out)
+                                        {"k": cache["k"][i], "v": cache["v"][i]}, pos, cfg,
+                                        ctx=ctx)
+            h = self._cross(lp, h + a_out, enc_out, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        return _logits(p, h, cfg), cache
+        return _logits(p, h, cfg, ctx), cache
 
 
 def build(cfg: ArchConfig) -> DecoderLM | EncDecLM:

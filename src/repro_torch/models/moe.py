@@ -8,9 +8,12 @@ experts and the residual), the GShard capacity-factor semantics.  Routing,
 dispatch and the expert products are plain PyTorch, as the JAX package
 computes them outside any Pallas kernel.
 
-Only the local path is ported: the JAX package's expert-parallel
+Only the local path runs over a mesh: the JAX package's expert-parallel
 ``shard_map`` path (a mesh with a ``model`` axis) raises
-``NotImplementedError`` (ROADMAP Queue 1 item 4g).
+``NotImplementedError`` (ROADMAP Queue 1 item 4g).  Its per-rank body,
+without the ``psum`` over ``model`` and the FSDP all-gathers (collectives),
+is :func:`moe_rank`; the dry-run's per-device trace runs it
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -61,7 +64,10 @@ def _route(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance aux: E * sum_e(fraction_e * prob_e)
     e = probs.shape[-1]
-    frac = torch.bincount(idx.reshape(-1), minlength=e).float() / idx.numel()
+    flat = idx.reshape(-1)  # counts by a scatter: bincount's length depends on the data
+    counts = torch.zeros(e, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    frac = counts.float() / idx.numel()
     aux = e * torch.sum(frac * probs.mean(0))
     return idx, weights.to(x_flat.dtype), aux
 
@@ -96,10 +102,15 @@ def _expert_ffn(buf: torch.Tensor, gate_w, up_w, down_w) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", h, cast(down_w))
 
 
-def _moe_local(x_flat: torch.Tensor, params_l, cfg, lo: int, hi: int, capacity: int):
-    """Token dispatch + expert FFN for experts [lo, hi)."""
+def _moe_local(x_flat: torch.Tensor, params_l, cfg, lo: int, hi: int, capacity: int,
+               experts=None):
+    """Token dispatch + expert FFN for experts [lo, hi).  ``experts``: the
+    (gate, up, down) weights of exactly those experts; by default sliced from
+    ``params_l``, which then holds all of them."""
     m = cfg.moe
     d = x_flat.shape[-1]
+    if experts is None:
+        experts = tuple(params_l[name][lo:hi] for name in ("gate", "up", "down"))
     idx, weights, aux = _route(x_flat, params_l["router"], m.top_k)
     dest, src = _dispatch_indices(idx, m.num_experts, capacity, lo, hi)
     e_loc = hi - lo
@@ -108,8 +119,7 @@ def _moe_local(x_flat: torch.Tensor, params_l, cfg, lo: int, hi: int, capacity: 
     # write wins is unspecified) and it is cut off before anything reads it
     buf = x_flat.new_zeros((size + 1, d)).index_put((dest,), x_flat[src])
     buf = buf[:size].reshape(e_loc, capacity, d)
-    out_buf = _expert_ffn(buf, params_l["gate"][lo:hi], params_l["up"][lo:hi],
-                          params_l["down"][lo:hi])
+    out_buf = _expert_ffn(buf, *experts)
     padded = torch.cat([out_buf.reshape(size, d), x_flat.new_zeros((1, d))])
     vals = padded[torch.clamp(dest, max=size)]
     vals = torch.where((dest < size)[:, None], vals, 0.0)
@@ -125,8 +135,28 @@ def capacity_of(tokens: int, cfg) -> int:
     return max(int(math.ceil(tokens * m.top_k / m.num_experts * m.capacity_factor)), m.top_k)
 
 
+def moe_rank(x_flat: torch.Tensor, params_l, cfg, rank: int, ranks: int):
+    """Rank ``rank`` of ``ranks``' share of the JAX package's expert-parallel
+    path (its ``shard_map`` body, ``repro/models/moe.py``), without the
+    collectives: routes the rank's ``t_local`` tokens ``x_flat`` over all E
+    experts and dispatches to its range [lo, lo + E / ranks), whose (gate,
+    up, down) weights ``params_l`` holds, with the capacity of ``t_local``
+    tokens.  Returns (this rank's part of y, aux); the JAX package sums the
+    parts over ``model`` (``psum``)."""
+    m = cfg.moe
+    e_loc = m.num_experts // ranks
+    lo = rank * e_loc
+    experts = tuple(params_l[name] for name in ("gate", "up", "down"))
+    return _moe_local(x_flat, params_l, cfg, lo, lo + e_loc, capacity_of(x_flat.shape[0], cfg),
+                      experts)
+
+
 def apply_moe(params_l, x: torch.Tensor, cfg, ctx=None):
-    """x: (B, S, D) -> (out, aux_loss).  params_l: this layer's slice."""
+    """x: (B, S, D) -> (out, aux_loss).  params_l: this layer's slice.
+
+    A context whose ``expert_rank`` is (rank, ranks) (``AxisCtx``; the
+    dry-run's per-device trace sets it) takes :func:`moe_rank` over that
+    rank's experts."""
     m = cfg.moe
     b, s, d = x.shape
     mesh = getattr(ctx, "mesh", None)
@@ -134,7 +164,12 @@ def apply_moe(params_l, x: torch.Tensor, cfg, ctx=None):
         raise NotImplementedError("apply_moe: the expert-parallel shard_map path over a mesh's "
                                   "'model' axis is not ported (ROADMAP Queue 1 item 4g)")
     x_flat = x.reshape(-1, d)
-    y, aux = _moe_local(x_flat, params_l, cfg, 0, m.num_experts, capacity_of(x_flat.shape[0], cfg))
+    share = getattr(ctx, "expert_rank", None)
+    if share is not None:
+        y, aux = moe_rank(x_flat, params_l, cfg, *share)
+    else:
+        y, aux = _moe_local(x_flat, params_l, cfg, 0, m.num_experts,
+                            capacity_of(x_flat.shape[0], cfg))
     out = y.reshape(b, s, d)
     # shared experts (DeepSeek): a dense SwiGLU alongside the routed path
     if m.num_shared:

@@ -1,4 +1,4 @@
-"""Parameter declarations and parameter trees for the port, on one device.
+"""Parameter declarations, parameter trees and the logical-axis sharding rules.
 
 The JAX package keeps parameters as nested dicts (a pytree) with every
 layer's weights stacked on a leading ``layers`` axis.  The port keeps the
@@ -7,7 +7,13 @@ the dotted tree path (``"blocks.attn.wq"``), so that a checkpoint written
 by either package has the same leaves in the same order (dict keys sorted,
 as ``jax.tree_util.tree_leaves`` orders them).
 
-There is no mesh yet: ``AxisCtx.constrain`` is the identity.
+The rule tables and ``logical_to_spec`` are the JAX package's (MaxText-style
+rules with a divisibility fallback): every parameter or activation dimension
+carries a logical name, a table maps names to mesh axes, and a mapping whose
+mesh-axis product does not divide the dimension is dropped.  A partition is
+a plain tuple with the entries of the JAX package's ``PartitionSpec``.  The
+port has no partitioner: the dry-run (``launch/dryrun.py``) reads these
+rules to size one device's share, and ``AxisCtx.constrain`` is the identity.
 """
 from __future__ import annotations
 
@@ -19,6 +25,63 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+# -- default rule tables -------------------------------------------------------
+# TRAIN: weights TP over 'model' + FSDP over ('pod','data') on the d_model
+# axis (gathered per layer); activations batch over ('pod','data').
+TRAIN_RULES: dict[str, tuple[str, ...] | None] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": ("pod", "data"),  # FSDP shard of weights' d_model dim
+    "expert_embed": ("pod", "data"),  # MoE expert weights' d_model dim
+    "embed_act": None,  # activations' d_model dim stays replicated
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": None,
+    "mlp": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "expert_mlp": None,
+    "ssm_inner": ("model",),
+    "ssm_state": None,
+    "ssm_dt": None,
+    "layers": None,
+    "q_lora": None,
+    "kv_lora": None,
+    "conv": None,
+    "frames": None,
+    "cache_seq": None,
+    "window": None,
+}
+
+# PREFILL (compute-bound): Megatron TP over 'model' (heads/mlp/vocab),
+# weights replicated over 'data'; KV cache written out sequence-sharded.
+SERVE_RULES = dict(TRAIN_RULES)
+SERVE_RULES.update({
+    "embed": None,
+    "expert_embed": None,
+    "batch": ("pod", "data"),
+    "cache_seq": ("model",),
+    "heads": ("model",),
+})
+
+# DECODE (memory-bound, tiny activations): weights row-parallel over 'model'
+# only; the KV cache sequence-sharded over 'model'.
+DECODE_RULES = dict(TRAIN_RULES)
+DECODE_RULES.update({
+    "embed": ("model",),
+    "expert_embed": None,  # expert weights stay EP-sharded only (no re-gather)
+    "heads": None,
+    "kv_heads": None,
+    "mlp": None,
+    "vocab": ("model",),
+    "batch": ("pod", "data"),
+    "cache_seq": ("model",),
+})
+
+# long-context decode (global_batch=1): batch replicated, state TP-sharded
+LONG_RULES = dict(DECODE_RULES)
+LONG_RULES.update({"batch": None})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +97,50 @@ class ParamSpec:
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ in length")
+
+
+def _axis_size(mesh, names: tuple[str, ...]) -> int:
+    return math.prod(mesh.shape[n] for n in names)
+
+
+def logical_to_spec(axes: tuple[str | None, ...], shape: tuple[int, ...],
+                    rules: dict[str, tuple[str, ...] | None], mesh) -> tuple:
+    """The partition of a ``shape`` with logical ``axes`` over ``mesh`` (any
+    object with an ordered ``shape`` mapping of axis name to size): one entry
+    per dimension, ``None`` (replicated), a mesh axis name, or a tuple of
+    names; trailing ``None``s dropped.  A mapping is dropped where its
+    mesh-axis product does not divide the dimension, or where an earlier
+    dimension took one of its mesh axes."""
+    used: set[str] = set()
+    parts: list = []
+    for dim, name in zip(shape, axes):
+        entry = rules.get(name) if name else None
+        if entry is None:
+            parts.append(None)
+            continue
+        entry = tuple(a for a in entry if a in mesh.shape and a not in used)
+        if not entry or dim % _axis_size(mesh, entry) != 0:
+            parts.append(None)
+            continue
+        used.update(entry)
+        parts.append(entry if len(entry) > 1 else entry[0])
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def tree_pspecs(specs: dict[str, ParamSpec], rules, mesh) -> dict[str, tuple]:
+    """Flat dict of ParamSpec -> flat dict of partitions."""
+    return {k: logical_to_spec(s.axes, s.shape, rules, mesh) for k, s in specs.items()}
+
+
+def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
+    """One device's shard of ``shape`` under the partition ``spec``."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        if entry is not None:
+            out[i] //= _axis_size(mesh, (entry,) if isinstance(entry, str) else entry)
+    return tuple(out)
 
 
 def flatten(tree, prefix: str = "") -> dict[str, Any]:
@@ -105,7 +212,27 @@ def state_from_numpy(state, device=None) -> dict:
 
 
 class AxisCtx:
-    """Counterpart of the JAX package's sharding context; one device, no mesh."""
+    """Counterpart of the JAX package's sharding context, threaded through the
+    model code.  The port has no partitioner: :meth:`constrain` is the
+    identity, and so are the hooks through which a layer takes its share of
+    the work, :meth:`gather` and :meth:`kv_heads`, and ``expert_rank`` is
+    None (every expert).  The dry-run's per-device trace
+    (``launch/dryrun.py::DeviceShare``) overrides them with one device's share."""
+
+    def __init__(self, rules=None, mesh=None, remat_policy=None):
+        self.rules = rules or TRAIN_RULES
+        self.mesh = mesh
+        self.remat_policy = remat_policy
+        self.expert_rank: tuple[int, int] | None = None  # (rank, ranks): models/moe.py::moe_rank
 
     def constrain(self, x, *axes):
         return x
+
+    def gather(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        """The weight ``name`` (a dotted parameter path, one layer's slice for
+        stacked weights) as the layer's products read it."""
+        return w
+
+    def kv_heads(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """The K and V heads (B, S, Hkv, hd) that the query heads ``q`` read."""
+        return k, v

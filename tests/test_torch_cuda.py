@@ -1014,3 +1014,74 @@ def test_mla_and_encdec_train_step_on_the_card_matches_the_cpu(cuda, arch):
     assert abs(l_card - l_cpu) <= 0.02
     noise = float((g_cpu - g_f32).norm())
     assert float((g_card - g_cpu).norm()) <= 3 * noise + 0.01 * float(g_f32.norm())
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hd", [(4, 4096, 4096, 24, 128), (2, 300, 700, 8, 64),
+                                          (1, 129, 260, 16, 192), (3, 64, 64, 5, 16)])
+def test_bwd_scratch_mirror_equals_the_launcher(cuda, b, sq, sk, h, hd):
+    """The dry-run's meta path sizes the backward's scratch by a Python mirror
+    of the launcher's ``flash_attention_bwd_scratch_bytes``: equal."""
+    assert fab.scratch_bytes(b, sq, sk, h, hd) == \
+        fab._lib().flash_attention_bwd_scratch_bytes(b, sq, sk, h, hd)
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dryrun_prediction_against_the_cards_peak(cuda, kind):
+    """``launch/dryrun.py::estimate`` on the meta device against the card:
+    a step of granite-smoke (a train step, 8 x 1024 in 2 microbatches, or a
+    decode step of batch 16 over 4,096 slots) run once warm, then again
+    after ``reset_peak_memory_stats``; the arguments plus what the step
+    allocated above the memory held at the reset within 15% of the
+    predicted peak, the temporaries (that less the arguments) within 5% of
+    the predicted ones or 256 KiB (512 blocks' rounding by the caching
+    allocator), and the same attention launches as the trace declared."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import estimate
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shapes import serve_param_specs
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_decode_step, make_train_step
+
+    cfg = get_smoke("granite-8b")
+    model = build(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "train":
+        shape = ShapeCell("train_4k", 1024, 8, "train")
+        pred = estimate(cfg, shape, make_local_mesh(), microbatch_override=2)
+        state = opt.init_state(init_params(model.param_specs(), gen, device=cuda))
+        toks = torch.randint(0, cfg.vocab, (8, 1025), generator=gen, device=cuda,
+                             dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        step = make_train_step(cfg, num_microbatches=2)
+        args = [*state["params"].values(), *state["m"].values(), *state["v"].values(),
+                state["step"], *batch.values()]
+        run = lambda: step(state, batch)  # noqa: E731
+    else:
+        shape = ShapeCell("decode_32k", 4096, 16, "decode")
+        pred = estimate(cfg, shape, make_local_mesh())
+        params = init_params(serve_param_specs(model), gen, device=cuda, dtype=torch.bfloat16)
+        cache = {k: torch.zeros(sp.shape, dtype=sp.dtype, device=cuda)
+                 for k, sp in model.cache_specs(16, 4096).items()}
+        tokens = torch.ones((16, 1), dtype=torch.int32, device=cuda)
+        step = make_decode_step(cfg)
+        args = [*params.values(), *cache.values(), tokens]
+        run = lambda: step(params, cache, tokens, 4095)  # noqa: E731
+    arg_bytes = sum(t.numel() * t.element_size() for t in args) + (4 if kind == "decode" else 0)
+    assert arg_bytes == pred["memory"]["argument_bytes"]
+    out = run()
+    torch.cuda.synchronize()
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    launches = fa.flash_attention.launches
+    out = run()
+    torch.cuda.synchronize()
+    measured = arg_bytes + torch.cuda.max_memory_allocated() - held
+    assert fa.flash_attention.launches - launches == pred["kernels"]["flash_attention"]["launches"]
+    assert abs(measured / pred["memory"]["peak_bytes"] - 1) <= 0.15, (measured, pred["memory"])
+    temp_gap = measured - arg_bytes - pred["memory"]["temp_bytes"]
+    assert abs(temp_gap) <= max(0.05 * pred["memory"]["temp_bytes"], 256 * 1024), (
+        measured, pred["memory"])

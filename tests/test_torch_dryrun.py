@@ -1,0 +1,465 @@
+"""The port's dry-run (``repro_torch/launch/{dryrun,shapes,mesh,cost_analysis}.py``
+and the rules of ``repro_torch/sharding.py``) held against the JAX package's,
+on the CPU.
+
+* Parameter counts, the shape suite, the cells that apply and the
+  microbatch counts equal the JAX package's for every architecture (and
+  the published counts of ``tests/test_models.py`` within 12%).
+* ``logical_to_spec``: the port's partition equals the JAX package's
+  ``PartitionSpec`` entry for entry, for every leaf of every architecture's
+  train and serve parameters, decode caches and batches, under the four
+  rule tables and both production meshes (the JAX package's function reads
+  only ``mesh.shape``: an ``AbstractMesh`` stands in for 256 or 512 devices).
+* The cost analysis on a toy of known products, copies, views and frees:
+  FLOPs, boundary bytes and peak live bytes exact; the attention kernels'
+  declared operations against a brute-force walk of their tiles.
+* One device's share against GSPMD's: a subprocess with 4 fake XLA devices
+  lowers and compiles the JAX package's own train, prefill and decode steps
+  on a 2 x 2 ``("data", "model")`` mesh at smoke widths, twice, at a
+  sequence (or cache) length S and 2S.  The port's per-device
+  ``argument_bytes`` must equal XLA's ``argument_size_in_bytes`` exactly.
+  FLOPs: XLA's count (``hlo_analysis.analyze_hlo``) splits into products
+  linear in S and attention quadratic in S (train, prefill) or linear in
+  the cache length (decode), which the two lengths separate; the port's
+  products outside its attention kernels must be within ``PRODUCTS_RTOL``
+  = 2% of XLA's (observed: 0.9986-1.0189; the largest, yi-smoke with one
+  kv head in decode, is the trace's whole K/V projection where GSPMD
+  splits it row-parallel).  Two cells are held apart and named:
+  - hymba-smoke long_500k: the batch of 1 leaves the data axis idle and
+    GSPMD splits the SSM's in/out projections and attention's over it too,
+    so XLA's per-device products are 1/1.2 of the trace's one model-th:
+    held within ``LONG_PRODUCTS_RATIO`` = 1.21 (observed 1.2000; ROADMAP
+    Queue 3 item 9);
+  - whisper-smoke (the encoder's frames do not scale with S, so the two
+    lengths do not separate its terms): the whole step only.
+  The whole step: at these 64-128 token sequences no causal tile is
+  skipped (one 64-key tile), so the port's total exceeds XLA's only by
+  attention's product count: a training step's backward kernel performs 7
+  products (S and dP in both of its kernels) where XLA's autodiff of the
+  chunked attention performs 5, and bf16 head dims of 8 run padded to 16
+  (yi-smoke).  Held within ``WHOLE_STEP`` = [0.97, 1.25] of XLA's
+  (observed 0.9875-1.2294).
+"""
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh
+
+import repro.configs as rconfigs
+import repro.configs.base as rbase
+import repro.launch.shapes as rshapes
+import repro.sharding as rsharding
+from repro.models.model import build as rbuild
+from repro_torch import configs as tconfigs
+from repro_torch import sharding as tsharding
+from repro_torch.configs import base as tbase
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
+from repro_torch.kernels import ops
+from repro_torch.launch import shapes as tshapes
+from repro_torch.launch.cost_analysis import CostAnalysis
+from repro_torch.launch.dryrun import estimate
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.models.model import build as tbuild
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARCHS = list(rconfigs.ALL_ARCHS)
+PUBLISHED_B = {  # tests/test_models.py, billions
+    "deepseek-v2-lite-16b": 15.7, "qwen3-moe-30b-a3b": 30.5, "hymba-1.5b": 1.5,
+    "falcon-mamba-7b": 7.3, "starcoder2-3b": 3.0, "granite-8b": 8.1,
+    "yi-9b": 8.8, "command-r-plus-104b": 104.0, "phi-3-vision-4.2b": 3.8,
+}
+RULES = {"train": "TRAIN_RULES", "serve": "SERVE_RULES", "decode": "DECODE_RULES",
+         "long": "LONG_RULES"}
+MESHES = {"single": AbstractMesh((16, 16), ("data", "model")),
+          "multi": AbstractMesh((2, 16, 16), ("pod", "data", "model"))}
+PRODUCTS_RTOL = 0.02
+LONG_PRODUCTS_RATIO = 1.21
+WHOLE_STEP = (0.97, 1.25)
+
+
+# -- configs, shapes, microbatches ---------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_count_matches_reference(arch):
+    got = tconfigs.get(arch).param_count()
+    assert got == rconfigs.get(arch).param_count()
+    assert tconfigs.get(arch).active_param_count() == rconfigs.get(arch).active_param_count()
+    if arch in PUBLISHED_B:
+        assert abs(got / 1e9 - PUBLISHED_B[arch]) / PUBLISHED_B[arch] < 0.12
+
+
+def test_shapes_and_applicable_cells_match_reference():
+    as_tuple = lambda s: (s.name, s.seq_len, s.global_batch, s.kind)  # noqa: E731
+    assert [as_tuple(s) for s in tbase.SHAPES] == [as_tuple(s) for s in rbase.SHAPES]
+    for arch in ARCHS:
+        for ts, rs in zip(tbase.SHAPES, rbase.SHAPES):
+            assert tbase.cell_applicable(tconfigs.get(arch), ts) == \
+                rbase.cell_applicable(rconfigs.get(arch), rs), (arch, ts.name)
+        assert tconfigs.get(arch).supports_long == rconfigs.get(arch).supports_long
+
+
+def test_num_microbatches_match_reference():
+    assert tshapes.TRAIN_MICROBATCHES == rshapes.TRAIN_MICROBATCHES
+    for arch in ARCHS:
+        for ts, rs in zip(tbase.SHAPES, rbase.SHAPES):
+            for multi in (False, True):
+                tm = make_production_mesh(multi_pod=multi)
+                assert tshapes.num_microbatches(tconfigs.get(arch), ts, tm) == \
+                    rshapes.num_microbatches(rconfigs.get(arch), rs, MESHES[
+                        "multi" if multi else "single"]), (arch, ts.name, multi)
+
+
+def test_meshes():
+    single, multi = make_production_mesh(), make_production_mesh(multi_pod=True)
+    assert (single.shape, single.size) == ({"data": 16, "model": 16}, 256)
+    assert list(multi.shape.items()) == [("pod", 2), ("data", 16), ("model", 16)]
+    assert multi.size == 512
+    assert make_local_mesh(2, 2).shape == {"data": 2, "model": 2}
+
+
+# -- logical_to_spec -------------------------------------------------------------------------
+def test_rule_tables_match_reference():
+    for name in RULES.values():
+        assert getattr(tsharding, name) == getattr(rsharding, name), name
+
+
+def _leaves(tree) -> dict:
+    """The JAX package's ParamSpec tree, flat as the port keys it."""
+    return tsharding.flatten(tree)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_logical_to_spec_matches_reference_for_every_leaf(arch):
+    tcfg, rcfg = tconfigs.get(arch), rconfigs.get(arch)
+    tspecs = tbuild(tcfg).param_specs()
+    rspecs = _leaves(rbuild(rcfg).param_specs())
+    assert list(tspecs) == list(rspecs)
+    leaves = [(s.axes, s.shape) for s in tspecs.values()]
+    assert leaves == [(s.axes, s.shape) for s in rspecs.values()]
+    tserve = tshapes.serve_param_specs(tbuild(tcfg))
+    assert all(s.dtype == torch.bfloat16 for s in tserve.values())
+    for shape in tbase.SHAPES[2:]:
+        long_mode = shape.name.startswith("long")
+        tc = tbuild(tcfg).cache_specs(shape.global_batch, shape.seq_len, long_mode=long_mode)
+        rc = _leaves(rbuild(rcfg).cache_specs(shape.global_batch, shape.seq_len,
+                                              long_mode=long_mode))
+        assert sorted((k, s.axes, s.shape) for k, s in tc.items()) == \
+            sorted((k, s.axes, s.shape) for k, s in rc.items())
+        leaves += [(s.axes, s.shape) for s in tc.values()]
+    n = 0
+    for rules_name in RULES.values():
+        for mesh in MESHES.values():
+            trules, rrules = getattr(tsharding, rules_name), getattr(rsharding, rules_name)
+            for axes, shape in leaves:
+                want = tuple(rsharding.logical_to_spec(axes, shape, rrules, mesh))
+                assert tsharding.logical_to_spec(axes, shape, trules, mesh) == want, \
+                    (rules_name, axes, shape)
+                n += 1
+            assert tsharding.tree_pspecs(tspecs, trules, mesh) == {
+                k: tuple(rsharding.logical_to_spec(s.axes, s.shape, rrules, mesh))
+                for k, s in rspecs.items()}
+    assert n > 100
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_batch_and_decode_inputs_match_reference(arch):
+    tcfg, rcfg = tconfigs.get(arch), rconfigs.get(arch)
+    cells = [(m, ts, rs) for m in MESHES for ts, rs in zip(tbase.SHAPES, rbase.SHAPES)]
+    for mesh_name, ts, rs in cells:
+        mesh = MESHES[mesh_name]
+        tmesh = make_production_mesh(multi_pod=mesh_name == "multi")
+        long_mode = ts.name.startswith("long")
+        rules_name = ("TRAIN_RULES" if ts.kind == "train" else "LONG_RULES" if long_mode
+                      else "DECODE_RULES" if ts.kind == "decode" else "SERVE_RULES")
+        trules, rrules = getattr(tsharding, rules_name), getattr(rsharding, rules_name)
+        if ts.kind == "decode":
+            tc, tt, tp = tshapes.decode_specs(tcfg, ts, trules, tmesh, long_mode=long_mode)
+            rc, rt, rp = rshapes.decode_specs(rcfg, rs, rrules, mesh, long_mode=long_mode)
+            tin, rin = {**tc, "tokens": tt}, {**_leaves(rc), "tokens": rt}
+            assert tp.shape == rp.shape == () and tp.local_bytes(tmesh) == 4
+        else:
+            tin = tshapes.batch_specs(tcfg, ts, trules, tmesh)
+            rin = rshapes.batch_specs(rcfg, rs, rrules, mesh)
+        assert sorted(tin) == sorted(rin)
+        for k, rec in tin.items():
+            r = rin[k]
+            assert rec.shape == r.shape, (k, rec.shape, r.shape)
+            assert rec.dtype.itemsize == r.dtype.itemsize
+            assert rec.spec == tuple(r.sharding.spec), (arch, ts.name, k)
+            assert rec.local(tmesh) == r.sharding.shard_shape(r.shape)
+
+
+# -- the cost analysis --------------------------------------------------------------------------
+def test_cost_analysis_toy_exact():
+    """Known products, a view, a copy, a gather and frees: every tally exact."""
+    a = torch.empty(16, 32, device="meta")
+    w = torch.empty(32, 128, device="meta")
+    b = torch.empty(4, 8, 16, device="meta")
+    with CostAnalysis() as cost:
+        h = a @ w                         # mm: new 16x128 f32 (8,192 B)
+        s = h[:, :64]                     # a view: nothing
+        t = s.contiguous()                # a copy: new 16x64 (4,096 B), moves 2x its output
+        del h, s                          # h's storage dies (s was its only view)
+        g = t[torch.zeros(4, dtype=torch.long, device="meta")]  # index: 8-byte ids + a 4x64 row gather
+        bb = torch.bmm(b, b.transpose(1, 2))  # bmm: new 4x8x8
+    assert cost.flops == 2 * 16 * 32 * 128 + 2 * 4 * 8 * 16 * 8
+    mm_bytes = (16 * 32 + 32 * 128 + 16 * 128) * 4
+    copy_bytes = 2 * 16 * 64 * 4
+    gather_bytes = 2 * 4 * 64 * 4
+    bmm_bytes = (2 * 4 * 8 * 16 + 4 * 8 * 8) * 4
+    fill_bytes = 4 * 8  # the ids, written once
+    assert cost.bytes == mm_bytes + copy_bytes + fill_bytes + gather_bytes + bmm_bytes
+    # live: h 8192 -> + t 4096 = 12,288 (the peak) -> h freed: 4096 -> + g 1024 + bb 1024
+    # (the ids die once the gather has read them)
+    assert cost.peak_bytes == 16 * 128 * 4 + 16 * 64 * 4
+    assert cost.live_bytes == 16 * 64 * 4 + 4 * 64 * 4 + 4 * 8 * 8 * 4
+    assert cost.op_counts["mm"] == 1 and cost.op_counts["bmm"] == 1
+    del t, g, bb
+    assert cost.live_bytes == 0
+
+
+def test_cost_analysis_sees_backward_and_kernels():
+    """A recomputed layer under autograd: the backward's products and the
+    attention kernels' declared launches are counted; nothing is launched."""
+    q = torch.empty(2, 128, 4, 64, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    k = torch.empty(2, 128, 2, 64, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    v = torch.empty(2, 128, 2, 64, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    before = fa.flash_attention.launches, fab.flash_attention_bwd.launches
+    with CostAnalysis() as cost:
+        o = torch.utils.checkpoint.checkpoint(lambda q, k, v: ops.flash_attention(q, k, v),
+                                              q, k, v, use_reentrant=False)
+        torch.autograd.grad(o.float().sum(), [q, k, v])
+    assert (fa.flash_attention.launches, fab.flash_attention_bwd.launches) == before
+    assert cost.kernels["flash_attention"]["launches"] == 2  # forward and its recomputation
+    assert cost.kernels["flash_attention_bwd"]["launches"] == 1
+    fwd = fa.flops("tile", 2, 128, 128, 4, 2, 64, True, 0)
+    assert cost.kernels["flash_attention"]["flops"] == 2 * fwd
+    assert cost.kernels["flash_attention_bwd"]["flops"] == fab.flops(2, 128, 128, 4, 2, 64, True, 0)
+    assert cost.flops == 2 * fwd + fab.flops(2, 128, 128, 4, 2, 64, True, 0)
+
+
+def test_logsumexp_runs_as_the_cards_composite():
+    x = torch.empty(8, 1000, device="meta")
+    with CostAnalysis() as cost:
+        y = torch.logsumexp(x, -1)
+    assert y.shape == (8,)
+    assert cost.op_counts["logsumexp"] == 0
+    assert cost.op_counts["sub"] == 1 and cost.op_counts["exp_"] == 1
+    assert cost.peak_bytes >= 8 * 1000 * 4  # the full-size (x - max) ATen holds
+
+
+def test_kernel_meta_paths_allocate_what_the_card_path_does():
+    a = torch.empty(4, 6, dtype=torch.uint8, device="meta")
+    b = torch.empty(6, 1000, dtype=torch.uint8, device="meta")
+    words = torch.empty(100, 256, dtype=torch.uint32, device="meta")
+    with CostAnalysis() as cost:
+        c = ops.gf_matmul(a, b)
+        d = ops.sample_hash(words)
+    assert c.shape == (4, 1000) and c.dtype == torch.uint8 and d.shape == (100,)
+    assert cost.kernels["gf_matmul"]["flops"] == 2 * 4 * 6 * 1000
+    assert cost.kernels["sample_hash"]["flops"] == 100 * (4 * 256 + 8)
+    # a decode over 32,768 slots: "split" with partials (m, l and the accumulators)
+    q = torch.empty(8, 1, 32, 128, dtype=torch.bfloat16, device="meta")
+    kv = torch.empty(8, 32768, 4, 128, dtype=torch.bfloat16, device="meta")
+    splits, _ = fa.split_plan(32768, 8, 4, 8, fa.H100_SMS)
+    assert splits > 1
+    with CostAnalysis() as cost:
+        o = ops.flash_attention(q, kv, kv, q_positions=torch.full((1,), 32767, device="meta"))
+    assert o.shape == q.shape
+    partials = (2 * 8 * 4 * splits * 8 + 8 * 4 * splits * 8 * 128) * 4
+    # + the positions as int32 (the query's given as int64, 8 bytes, and converted)
+    assert cost.peak_bytes == o.numel() * 2 + partials + 4 * 32768 + 4 + 8
+
+
+def _walk_fwd(variant, b, sq, sk, h, hkv, hd, causal, window):
+    """Brute force: every block of (query, head) rows and every 64-key tile,
+    a tile walked unless every pair in it is hidden."""
+    g, rows = h // hkv, sq * (h // hkv)
+    per = fa.BLOCK_ROWS[variant]
+    qpos, kpos = np.arange(sk - sq, sk), np.arange(sk)
+    total = 0
+    for r0 in range(0, rows, per):
+        qs = qpos[np.arange(r0, min(rows, r0 + per)) // g]
+        for t0 in range(0, sk, 64):
+            ks = kpos[t0:t0 + 64]
+            d = qs[:, None] - ks[None, :]
+            vis = (d >= 0 if causal else np.ones_like(d, bool)) & ((d < window) if window else True)
+            if variant == "general" or vis.any():
+                total += len(qs) * len(ks)
+    return 4.0 * hd * b * hkv * total
+
+
+def _walk_bwd(b, sq, sk, h, hd, causal, window):
+    qpos, kpos = np.arange(sk - sq, sk), np.arange(sk)
+
+    def walked(qb, kb):
+        total = 0
+        for q0 in range(0, sq, qb):
+            qs = qpos[q0:q0 + qb]
+            for k0 in range(0, sk, kb):
+                ks = kpos[k0:k0 + kb]
+                d = qs[:, None] - ks[None, :]
+                vis = (d >= 0 if causal else np.ones_like(d, bool)) & ((d < window) if window else True)
+                total += len(qs) * len(ks) * bool(vis.any())
+        return total
+
+    pairs = 4 * walked(64, 128) + 3 * walked(128, 64) if hd <= 128 else 7 * walked(64, 64)
+    return 2.0 * hd * b * h * pairs
+
+
+@pytest.mark.parametrize("case", [
+    ("tile", 2, 300, 300, 8, 2, 64, True, 0), ("tile", 1, 257, 700, 6, 6, 128, True, 100),
+    ("split", 3, 1, 1000, 32, 4, 128, True, 0), ("split", 1, 3, 2048, 25, 5, 64, True, 2048),
+    ("general", 2, 40, 90, 4, 4, 8, True, 0), ("tile", 1, 96, 96, 4, 4, 64, False, 0)])
+def test_attention_flops_match_a_walk_of_the_tiles(case):
+    assert fa.flops(*case) == _walk_fwd(*case)
+
+
+@pytest.mark.parametrize("case", [(2, 300, 300, 8, 2, 64, True, 0),
+                                  (1, 700, 700, 4, 4, 128, True, 130),
+                                  (1, 129, 260, 4, 1, 192, True, 0), (2, 64, 100, 2, 2, 64, False, 0)])
+def test_attention_bwd_flops_match_a_walk_of_the_tiles(case):
+    b, sq, sk, h, hkv, hd, causal, window = case
+    assert fab.flops(*case) == _walk_bwd(b, sq, sk, h, hd, causal, window)
+
+
+def test_bwd_scratch_mirrors_the_launcher():
+    """The mirror of ``flash_attention_bwd_scratch_bytes`` (csrc), by its
+    formula: statistics, tile ranges, key positions and key-tile ranges."""
+    b, sq, sk, h = 2, 300, 500, 8
+    tiles, key_tiles = b * h * 5, 8
+    assert fab.scratch_bytes(b, sq, sk, h, 128) == \
+        tiles * 192 * 4 + tiles * 16 + key_tiles * 64 * 4 + key_tiles * 8
+    assert fab.scratch_bytes(b, sq, sk, h, 192) == 4 * b * h * sq
+    src = (ROOT / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu").read_text()
+    for line in ("constexpr int kRowTile = 64;", "constexpr int kKeyTile = 64;",
+                 "constexpr int kDkdvKeys = 128;", "constexpr int kDqRows = 128;",
+                 "constexpr int kStatWords = 3 * kRowTile;",
+                 "kinfo = kpos + key_tiles * kKeyTile * 4;", "bytes = kinfo + key_tiles * 8;",
+                 "tinfo = tiles * kStatWords * 4;", "kpos = tinfo + tiles * 16;"):
+        assert line in src, line
+
+
+# -- one device's share against GSPMD's ----------------------------------------------------------
+_REFERENCE = textwrap.dedent('''
+    import os, sys, json, dataclasses
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax
+    import numpy as np
+    from repro.configs import get_smoke
+    from repro.configs.base import ShapeCell
+    from repro.launch import hlo_analysis
+    from repro.launch.dryrun import _opt_state_structs
+    from repro.launch.shapes import batch_specs, decode_specs, num_microbatches, serve_param_specs
+    from repro.models.model import build
+    from repro.sharding import (DECODE_RULES, LONG_RULES, SERVE_RULES, TRAIN_RULES, AxisCtx,
+                                tree_shape_structs, tree_shardings)
+    from repro.train.step import make_decode_step, make_prefill_step, make_train_step
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    out = []
+    for arch, kv, cell in json.loads(sys.argv[1]):
+        cfg = get_smoke(arch)
+        if kv:
+            cfg = dataclasses.replace(cfg, num_kv_heads=kv)
+        shape = ShapeCell(*cell)
+        long_mode = shape.name.startswith("long")
+        rules = dict(TRAIN_RULES if shape.kind == "train" else LONG_RULES if long_mode
+                     else DECODE_RULES if shape.kind == "decode" else SERVE_RULES)
+        ctx = AxisCtx(rules, mesh)
+        model = build(cfg)
+        if shape.kind == "train":
+            step = make_train_step(cfg, ctx, num_microbatches=num_microbatches(cfg, shape, mesh))
+            state = _opt_state_structs(model.param_specs(), rules, mesh)
+            lowered = jax.jit(step, donate_argnums=(0,)).lower(
+                state, batch_specs(cfg, shape, rules, mesh))
+        else:
+            pspecs = serve_param_specs(model)
+            params = tree_shape_structs(pspecs, tree_shardings(pspecs, rules, mesh))
+            if shape.kind == "prefill":
+                lowered = jax.jit(make_prefill_step(cfg, ctx)).lower(
+                    params, batch_specs(cfg, shape, rules, mesh))
+            else:
+                cache, tokens, pos = decode_specs(cfg, shape, rules, mesh, long_mode=long_mode)
+                lowered = jax.jit(make_decode_step(cfg, ctx, long_mode=long_mode),
+                                  donate_argnums=(1,)).lower(params, cache, tokens, pos)
+        compiled = lowered.compile()
+        out.append({"argument_bytes": compiled.memory_analysis().argument_size_in_bytes,
+                    "hlo_flops": hlo_analysis.analyze_hlo(compiled.as_text(), 4)["hlo_flops"]})
+    print(json.dumps(out))
+''')
+
+# (arch, kv heads override (0: the smoke config's), kind, S, batch); yi-smoke with one kv
+# head: the kv heads do not divide the model axis while the query heads do
+GSPMD_CELLS = [
+    ("granite-8b", 0, "train", 64, 8), ("granite-8b", 0, "prefill", 64, 4),
+    ("granite-8b", 0, "decode", 64, 4), ("yi-9b", 1, "train", 64, 8),
+    ("yi-9b", 1, "decode", 64, 4), ("qwen3-moe-30b-a3b", 0, "prefill", 64, 4),
+    ("hymba-1.5b", 0, "long", 16, 1), ("whisper-tiny", 0, "train", 64, 8),
+    ("whisper-tiny", 0, "decode", 64, 4),
+]
+_NAMES = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k",
+          "long": "long_500k"}
+
+
+def _cell(kind: str, s: int, batch: int):
+    return (_NAMES[kind], s, batch, "decode" if kind == "long" else kind)
+
+
+@pytest.fixture(scope="module")
+def gspmd():
+    """XLA's numbers for every cell at S and at 2S (whisper at S only), from
+    two subprocesses run side by side."""
+    runs = []
+    for factor in (1, 2):
+        cells = [(a, kv, _cell(kind, s * factor, b)) for a, kv, kind, s, b in GSPMD_CELLS
+                 if factor == 1 or a != "whisper-tiny"]
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+        runs.append((cells, subprocess.Popen(
+            [sys.executable, "-c", _REFERENCE, json.dumps(cells)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    out = {}
+    for cells, proc in runs:
+        stdout, stderr = proc.communicate(timeout=600)
+        assert proc.returncode == 0, stderr[-3000:]
+        for (arch, kv, cell), rec in zip(cells, json.loads(stdout.strip().splitlines()[-1])):
+            out[(arch, kv, cell)] = rec
+    return out
+
+
+def _port(arch, kv, cell):
+    cfg = tconfigs.get_smoke(arch)
+    if kv:
+        cfg = dataclasses.replace(cfg, num_kv_heads=kv)
+    return estimate(cfg, tbase.ShapeCell(*cell), make_local_mesh(2, 2))
+
+
+@pytest.mark.parametrize("cell", GSPMD_CELLS, ids=lambda c: f"{c[0]}-kv{c[1]}-{c[2]}")
+def test_per_device_share_matches_gspmd(gspmd, cell):
+    arch, kv, kind, s, batch = cell
+    c1 = _cell(kind, s, batch)
+    ref1 = gspmd[(arch, kv, c1)]
+    port = _port(arch, kv, c1)
+    assert port["status"] == "ok" and port["devices"] == 4
+    assert port["memory"]["argument_bytes"] == ref1["argument_bytes"]
+    total = port["cost"]["flops"]
+    assert WHOLE_STEP[0] <= total / ref1["hlo_flops"] <= WHOLE_STEP[1], total / ref1["hlo_flops"]
+    if arch == "whisper-tiny":
+        return
+    f1, f2 = ref1["hlo_flops"], gspmd[(arch, kv, _cell(kind, 2 * s, batch))]["hlo_flops"]
+    # products: a S (+ attention b S^2) for train and prefill; a (+ b S) for decode
+    ref_products = 2 * f1 - f2 if kind in ("decode", "long") else (4 * f1 - f2) / 2
+    products = total - sum(k["flops"] for k in port["kernels"].values())
+    ratio = products / ref_products
+    if kind == "long":
+        assert 1.0 <= ratio <= LONG_PRODUCTS_RATIO, ratio
+    else:
+        assert abs(ratio - 1) <= PRODUCTS_RTOL, ratio

@@ -45,7 +45,9 @@ def test_port_files_exist():
                 "src/repro_torch/configs/qwen3_moe.py", "src/repro_torch/configs/falcon_mamba.py",
                 "src/repro_torch/configs/phi3_vision.py", "src/repro_torch/models/mla.py",
                 "src/repro_torch/configs/deepseek_v2_lite.py",
-                "src/repro_torch/configs/whisper_tiny.py", "chip_smoke.py"):
+                "src/repro_torch/configs/whisper_tiny.py", "src/repro_torch/launch/dryrun.py",
+                "src/repro_torch/launch/shapes.py", "src/repro_torch/launch/mesh.py",
+                "src/repro_torch/launch/cost_analysis.py", "chip_smoke.py"):
         assert rel in names
 
 
@@ -58,7 +60,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_round_trip_with_jax_and_reference_blocked():
     code = textwrap.dedent("""
-        import sys
+        import json, pathlib, sys
         sys.modules["jax"] = None
         sys.modules["repro"] = None
         import numpy as np
@@ -142,6 +144,18 @@ def test_round_trip_with_jax_and_reference_blocked():
             logits, _ = fmodel.decode_step(state["params"], cache, torch.tensor([[1], [2]]), 0,
                                            long_mode=True)
             assert bool(torch.isfinite(logits).all()), arch
+
+        # the dry-run: one cell of each kind through the CLI, on the meta device
+        import tempfile
+        from repro_torch.launch import dryrun
+        with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+            for shape in ("train_4k", "decode_32k"):
+                dryrun.main(["--arch", "whisper-tiny", "--shape", shape, "--out", out])
+            dryrun.main(["--arch", "hymba-1.5b", "--shape", "long_500k", "--mesh", "multi",
+                         "--out", out])
+            recs = [json.loads(p.read_text()) for p in sorted(pathlib.Path(out).glob("*.json"))]
+        assert [r["status"] for r in recs] == ["ok"] * 3
+        assert all(r["memory"]["peak_bytes"] <= dryrun.H100_BUDGET_BYTES for r in recs)
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
