@@ -32,7 +32,11 @@ the phase that caused it; any failure exits non-zero and prints no result:
    at phase 17's (whisper-tiny non-causal over 1,500 frames: its encoder,
    its cross-attention in training and in decode; deepseek's MLA at hd 192 /
    hd_v 128 through ``models/layers.py``, V zero-padded, beside SDPA at
-   Ev 128); ``flash_attention_bwd`` against its plain version within
+   Ev 128), and "split" with its row log-sum-exp at phase 19's decode (a
+   rank's 2 rows over its 2,048 of 4,096 slots, granite-8b's widths; the
+   second model rank's shard, which sees no key, too) against
+   ``flash_attention_lse_ref``, timed beside SDPA; ``flash_attention_bwd``
+   against its plain version within
    ``BWD_TOL`` at phase 15's shape (B 4, S 4096, H 24, Hkv 2, hd 128), at
    phase 16's (B 1, S 4096, H 25, Hkv 5, hd 64), at phase 17's (B 1, S
    4096, H 16, hd 192: the "mma" design, whose ptxas registers and spills
@@ -149,9 +153,9 @@ the phase that caused it; any failure exits non-zero and prints no result:
    path: whisper's decode (over zero frames; over the seeded ones, and
    deepseek's 1 x 256 prefill logits, within 0.15 plus three times the
    CPU's own bf16 error: attention one-hot at init, ROADMAP Queue 3 item 5)
-   and 1 x 64 gradient over seeded frames, deepseek's decode and 1 x 128
-   gradient, both at smoke widths (whisper-smoke's decode relative to the
-   CPU's own error too);
+   and 1 x 64 gradient over seeded frames; both at smoke widths
+   (whisper-smoke's decode relative to the CPU's own error too); deepseek at
+   published widths is not held against the CPU (cut for time);
 18. the dry-run against the card (path ``dryrun``): for starcoder2-3b
    train_4k (16 x 4096 in 4 microbatches), yi-9b decode_32k (batch 8 over
    32,768 slots), hymba-1.5b long_500k (batch 1 at position 524,287 over its
@@ -164,7 +168,24 @@ the phase that caused it; any failure exits non-zero and prints no result:
    arguments' bytes equal, and the attention launches equal to those the
    trace declared; the step's wall time and FLOPs per second as a share of
    the bf16 peak printed;
-19. the script's seconds, the card again, one JSON line per kernel, then the
+19. the mesh (path ``mesh``, ``mesh_phase``): a 2 x 2 ("data", "model")
+   world of four processes on the one card over Gloo (``launch/mesh.py``),
+   granite-8b at published widths with depth cut to 1 and fan-in scaled
+   weights: rank 0 holds the Shelby cluster, publishes the weights, restores
+   them by paid k-of-n reads and hands every rank its shards; every rank
+   serves a generation with ``ServeEngine`` and a ``MeshCtx`` (batch 4 over
+   data, a 4,096-slot cache over model: "split" with lse, the partial
+   attentions combined), then a train step of 4 x 4096 in 2 microbatches
+   with ``shard_grad_accum``; qwen3-moe's widths at one layer, the
+   expert-parallel MoE over 1 x 4096; launches counted per rank (a "split"
+   per layer and step, "tile" and "wgmma" as in phase 15), each rank's peak
+   memory and collective bytes printed; then against one process on the
+   card: the MoE, the losses, and gates on decode logits, caches and the
+   gradient, which two faults planted in the mesh (the combine ignoring
+   lse, the data replicas' gradients not summed) must fail; the f32 partial
+   products timed against bf16.  Four ranks share one card: nothing here
+   measures multi-GPU speed;
+20. the script's seconds, the card again, one JSON line per kernel, then the
    result line.
 """
 from __future__ import annotations
@@ -239,7 +260,6 @@ ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 448  # 448: whisper's published text c
 ENCDEC_CMP_SEQ = 64  # the card-vs-CPU gradient: 1 x 64 tokens over 1,500 seeded frames
 MLA_ARCH, MLA_LAYERS = "deepseek-v2-lite-16b", 2  # published widths; depth cut from 27
 MLA_SEQ = 4096  # train_4k's sequence: the prefill and the training steps
-MLA_CMP_PREFILL, MLA_CMP_SEQ = 256, 128  # the card-vs-CPU prefill logits and gradient
 MLA_ENCDEC_SMOKE = (MLA_ARCH, ENCDEC_ARCH)
 # phase 18: the dry-run against the card, at published widths with depth cut to 2 layers,
 # each cell at its per-device batch on the single-pod (16 x 16) mesh: global batch / 16
@@ -262,6 +282,23 @@ def _dryrun_cells():
 
 
 # warm decode is host-bound and single generations swing by a third: the median of nine
+# phase 19 (the mesh): a 2 x 2 ("data", "model") world of four processes on the one card
+MESH_ARCH, MESH_LAYERS = "granite-8b", 1  # published widths, depth 36 -> 1 (see below)
+MESH_DATA, MESH_MODEL = 2, 2
+MESH_SLOTS = 4096  # the decode cache, split over model: 2,048 slots a rank
+MESH_BATCH, MESH_PROMPT, MESH_GEN = 4, 8, 16  # the batch over data: 2 rows a rank
+MESH_GENERATIONS = 2  # the first pays one-time costs; the second is timed for tok/s
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_MICROBATCHES, MESH_TRAIN_STEPS = 4, 4096, 2, 1
+MESH_GRAD_BATCH, MESH_GRAD_SEQ = 2, 64  # the gradient: its f32 yardstick runs on the CPU
+# The phase's first full run (2 layers, 2 train steps) took 237 s of a script that ended at
+# 1,191 s: one layer and one step keep the script inside its 1,200 s (PERF.md section 5)
+MESH_TF_SLOTS = 32  # the teacher-forced comparison's cache: 16 slots a rank, so that the
+# 23 decode positions reach the second model rank's shard and two partial attentions combine
+MESH_MOE_ARCH, MESH_MOE_SEQ = "qwen3-moe-30b-a3b", 4096  # 1 layer: 128 experts, 64 a rank
+MESH_MOE_ATOL, MESH_AUX_ATOL = 0.05, 1e-5
+MESH_CACHE_NOISE_FACTOR = 3.0  # the caches' relative L2 distance from one process's, in
+# multiples of that process's own bf16 error (its caches against f32 compute)
+MESH_TIMEOUT = 900  # seconds the world may take, or it fails
 WARM_GENERATIONS = 9
 CHURN_EPOCHS = 3
 CHURN_READS = 300  # paid Zipf reads replayed beside the churned epochs
@@ -2000,17 +2037,16 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
     zero frames (within SERVE_LOGIT_ATOL) and over the seeded ones (within
     that plus LOGIT_NOISE_FACTOR times the CPU's own bf16 error), its 1 x
     ENCDEC_CMP_SEQ gradient over the first seeded frames at the initial
-    weights; deepseek's 1 x MLA_CMP_PREFILL
-    prefill logits (relative to the CPU's own bf16 error too), two decode
-    steps and its 1 x MLA_CMP_SEQ gradient; both at smoke widths (loss,
-    gradient, 8 decode positions)."""
+    weights; both at smoke widths (loss, gradient, 8 decode positions).
+    deepseek at its published widths is not held against the CPU (its CPU
+    plain prefill and gradient at 1.09 B parameters were the slowest part of
+    the script); its smoke config is."""
     import torch
 
     from repro_torch.configs import get, get_smoke
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.launch.serve import serve
-    from repro_torch.models import layers
     from repro_torch.models.model import build
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding import init_params
@@ -2132,7 +2168,6 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
     del dparams
     row["mla_train"], state = train_steps(dcfg, state, model_batch(dcfg, dtoks, "cuda"), "mma",
                                           MLA_LAYERS)
-    dtrained = state["params"]
     del state
 
     counts = read_counts("mla_encdec")
@@ -2159,38 +2194,8 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
         wcfg, wparams, seed, batch=1, seq=ENCDEC_CMP_SEQ, label="mla_encdec_train_card_vs_cpu",
         frames=frames[:1])
     del wparams
-    # deepseek's prefill: causal attention one-hot at init over up to MLA_CMP_PREFILL keys
-    ptoks = dtoks[:, :MLA_CMP_PREFILL]
-    cpu_params = {k: t.cpu() for k, t in dtrained.items()}
-    out = []
-    for p, dev, dtype in ((dtrained, "cuda", torch.bfloat16), (cpu_params, "cpu", torch.bfloat16),
-                          (cpu_params, "cpu", torch.float32)):
-        layers.COMPUTE_DTYPE = dtype
-        try:
-            with torch.inference_mode():
-                logit, _ = make_prefill_step(dcfg)(p, {"tokens": ptoks.to(dev)})
-        finally:
-            layers.COMPUTE_DTYPE = torch.bfloat16
-        out.append(logit.float().cpu()[..., :dcfg.vocab])
-    del cpu_params
-    card_l, cpu_l, f32_l = out
-    err, own = float((card_l - cpu_l).abs().max()), float((cpu_l - f32_l).abs().max())
-    atol = SERVE_LOGIT_ATOL + LOGIT_NOISE_FACTOR * own
-    row["mla_prefill_card_vs_cpu"] = {"seq": MLA_CMP_PREFILL, "max_abs_logit_err": err,
-                                      "cpu_bf16_vs_f32_logit_err": own, "atol": atol,
-                                      "max_abs_logit": float(cpu_l.abs().max())}
-    print(json.dumps({"mla_encdec_prefill_card_vs_cpu": row["mla_prefill_card_vs_cpu"]}),
-          flush=True)
-    if not torch.isfinite(card_l).all() or err > atol:
-        raise SystemExit("deepseek's prefill on the card disagrees with the CPU plain path")
-    dec = decode_card_vs_cpu(dcfg, dtrained, dout[:, :2])
-    row["mla_decode_card_vs_cpu"] = dec
-    print(json.dumps({"mla_encdec_decode_card_vs_cpu": dec}), flush=True)
-    if dec["max_abs_logit_err"] > SERVE_LOGIT_ATOL:
-        raise SystemExit("deepseek's decode on the card disagrees with the CPU plain path")
-    row["mla_train_card_vs_cpu"] = train_card_vs_cpu(
-        dcfg, dtrained, seed, batch=1, seq=MLA_CMP_SEQ, label="mla_encdec_train_card_vs_cpu")
-    del dtrained, card_l, cpu_l, f32_l
+    # deepseek at its published widths is not held against the CPU here: its CPU plain
+    # prefill and gradient took most of this phase; MLA_ENCDEC_SMOKE holds it at smoke widths
     torch.cuda.empty_cache()
     gen_cpu = torch.Generator().manual_seed(seed)
     for arch in MLA_ENCDEC_SMOKE:
@@ -2366,12 +2371,547 @@ def dryrun_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
     return rows
 
 
+def check_split_lse(name: str, b: int, sk: int, h: int, hkv: int, hd: int, pos: int,
+                    k_start: int, gen) -> dict:
+    """"split" with the row log-sum-exp at a rank's decode shape (its data
+    shard of the batch, its shard of the cache's slots from ``k_start``):
+    o within ``ATTN_TOL`` and lse within ``LSE_ATOL`` of the plain version
+    (-1e30 exactly for rows that see no key); the kernel timed (device ms
+    from the profiler, host ms by CUDA events) beside its bound, the plain
+    version and ``scaled_dot_product_attention`` over the same keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    q = torch.randn((b, 1, h, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
+    qpos = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    kpos = torch.arange(k_start, k_start + sk, dtype=torch.int32, device="cuda")
+    kw = dict(q_positions=qpos, k_positions=kpos, causal=True)
+    split = fa.flash_attention.variant_launches["split"]
+    o, lse = ops.flash_attention_lse(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if fa.flash_attention.variant_launches["split"] != split + 1:
+        raise SystemExit(f"{name}: the lse call did not take the split kernel")
+    vis = fa.visible(qpos, kpos, True, 0)
+    atol, rtol = ATTN_TOL["bfloat16"]
+    err = (o.float() - o_ref.float()).abs()
+    bad = int((err > atol + rtol * o_ref.float().abs()).sum())
+    if vis.any():
+        lse_err = float((lse - lse_ref).abs().max())
+        bad += int(lse_err > LSE_ATOL)
+    else:
+        lse_err = 0.0
+        bad += int(not bool((lse == fa.NEG_INF).all()))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis, enable_gqa=True)
+
+    def kern():
+        return ops.flash_attention_lse(q, k, v, **kw)
+
+    host = min(_time_ms(kern, 20), _time_ms(kern, 20))
+    plain = _time_ms(lambda: fa.flash_attention_lse_ref(q, k, v, **kw), 3)
+    ms, traces = _device_ms(kern, 20)
+    lib_ms, lib_traces = _device_ms(lib, 20)
+    bound, by = attention_bound_ms(q, k, vis)
+    row = {"case": name, "shape": [b, 1, sk, h, hkv, hd], "causal": True, "window": 0,
+           "dtype": "bfloat16", "variant": "split", "with_lse": True, "violations": bad,
+           "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+           "sees_keys": bool(vis.any()), "ms": ms, "host_ms": host, "previous_ms": None,
+           "library_ms": lib_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+           "traces": traces + lib_traces}
+    print(json.dumps({"flash_attention_check": row}), flush=True)
+    if bad:
+        raise SystemExit(f"split with lse disagrees with its plain version in case {name}")
+    return row
+
+
+def _shard_err(full, shards, specs, rules, mesh) -> tuple[float, float, float]:
+    """(the sum of squares of ``shards`` less rank 0's whole ``full`` leaves,
+    the sum of squares of those leaves, the largest absolute difference), over
+    the world with each element counted once: rank 0 broadcasts each leaf and
+    every rank compares its shard of it."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.sharding import logical_to_spec, shard_params
+
+    sums = torch.zeros(2, device=mesh.device)
+    worst = torch.zeros((), device=mesh.device)
+    for name, mine in shards.items():
+        sp = specs[name]
+        t = full[name].float().contiguous() if full is not None else torch.empty(
+            sp.shape, dtype=torch.float32, device=mesh.device)
+        D.broadcast(t, mesh.world, 0)
+        ref = shard_params({name: t}, specs, rules, mesh, mesh.coords)[name]
+        d = mine.float() - ref
+        worst = torch.maximum(worst, d.abs().max())
+        used = {a for e in logical_to_spec(sp.axes, sp.shape, rules, mesh) if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        if all(mesh.coords[a] == 0 for a in mesh.shape if a not in used):  # its one holder
+            sums += torch.stack([d.square().sum(), ref.square().sum()])
+        del t, ref, d
+    sums = D.all_reduce(sums, mesh.world)
+    return float(sums[0]), float(sums[1]), float(D.all_reduce(worst, mesh.world, "max"))
+
+
+def _combine_ignoring_lse(o, lse, axis):
+    """A planted fault: the ranks' partial attentions averaged, their lse ignored."""
+    from repro_torch import distributed as D
+
+    return (D.all_reduce(o.float(), axis) / axis.size).to(o.dtype)
+
+
+def _scatter_unsummed(x, axis, dim: int = 0):
+    """A planted fault: the FSDP gathers' backward keeps this rank's slice of
+    its own gradient, the data replicas' gradients not summed."""
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.index * n, n).contiguous()
+
+
+def _fan_in(params: dict, specs: dict) -> dict:
+    """``params`` with every "scaled" weight rescaled, in place, to a standard
+    deviation of 1/sqrt(the dims its product contracts).  The JAX package's
+    rule divides by sqrt(shape[-2]), the head count for wq/wk/wv (ROADMAP
+    Queue 3 item 5): at granite-8b's widths that makes attention one-hot and
+    activations ~100 at init, so that a bf16 rounding anywhere flips some
+    row's winner and two bf16 runs differ by chaos, not by their products."""
+    import math
+
+    from repro_torch.sharding import CONTRACTED
+
+    for name, t in params.items():
+        sp, leaf = specs[name], name.rsplit(".", 1)[-1]
+        if sp.init != "scaled" or leaf not in CONTRACTED:
+            continue
+        lead = 1 if sp.axes[:1] == ("layers",) else 0
+        fan_in = math.prod(sp.shape[lead + i] for i in CONTRACTED[leaf])
+        t.mul_(math.sqrt(sp.shape[-2] / fan_in))
+    return params
+
+
+def _mesh_rank(mesh, seed: int, layers: int) -> dict:
+    """One rank of the mesh phase (``mesh_phase``) at ``layers`` layers: its
+    main path counted, then the comparisons (rank 0 runs the one-process
+    references) and the planted faults."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import gf_matmul as gk
+    from repro_torch.kernels import sample_hash as sh
+    from repro_torch.launch.cluster import build_cluster
+    from repro_torch.models import attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import (DECODE_RULES, TRAIN_RULES, MeshCtx, init_params,
+                                      shards_from_root)
+    from repro_torch.storage.checkpoint import CheckpointManager
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+
+    dev = mesh.device
+    if dev.type != "cuda":
+        raise SystemExit(f"rank {mesh.rank} is on {dev}, not the card")
+    root = mesh.rank == 0
+    cfg = _mesh_cfg(layers)
+    model = build(cfg)
+    specs = model.param_specs()
+    out: dict = {"rank": mesh.rank, "coords": dict(mesh.coords), "device": str(dev)}
+
+    def sync_all():
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+
+    gk.gf_matmul.launches = sh.sample_hash.launches = 0
+    fa.reset_launches()
+    fab.reset_launches()
+    D.reset_moved()
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+    # 1. rank 0 holds the cluster: publish, then a paid k-of-n restore decoded on the card
+    full = None
+    if root:
+        _, _, rpc, client = build_cluster(num_sps=8, device=dev)
+        published = _fan_in(init_params(specs, torch.Generator(device=dev).manual_seed(seed),
+                                        device=dev), specs)
+        mgr = CheckpointManager(client, num_host_shards=2)
+        t = time.perf_counter()
+        rec = mgr.save(step=0, state=published)
+        out["publish_s"], out["weight_bytes"] = time.perf_counter() - t, rec.total_bytes
+        t = time.perf_counter()
+        full = {k: v.to(dev) for k, v in mgr.restore(0, published).items()}
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t
+        out["restored_equal"] = all(torch.equal(full[k], published[k]) for k in published)
+        del published, mgr, client, rpc
+    t = time.perf_counter()
+    dshards, tshards = shards_from_root(full, specs, [DECODE_RULES, TRAIN_RULES], mesh)
+    sync_all()
+    out["hand_out_s"] = time.perf_counter() - t
+    # 2. serving: the batch over data, the cache's slots over model
+    dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+    engine = ServeEngine(cfg, dshards, ctx=dctx, max_len=MESH_SLOTS)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_BATCH, MESH_PROMPT)).astype(np.int32)
+    gen_s = []
+    for _ in range(MESH_GENERATIONS):
+        t = time.perf_counter()
+        tokens = engine.generate(prompts, num_tokens=MESH_GEN)
+        gen_s.append(time.perf_counter() - t)
+    out["generation_s"], out["tokens"] = gen_s, tokens
+    del engine
+    # 3. training steps with shard_grad_accum
+    tctx = MeshCtx(TRAIN_RULES, mesh, cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, tctx, num_microbatches=MESH_MICROBATCHES, shard_grad_accum=True)
+    state = opt.init_state(tshards)
+    losses, step_s = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t)
+    out["losses"], out["step_s"] = losses, step_s
+    out["grad_norm"] = float(metrics["grad_norm"])
+    del state
+    # 4. the expert-parallel MoE: qwen3-moe's widths, one layer, a 1 x MESH_MOE_SEQ batch
+    # whose tokens split over data as the JAX package's shard_map splits them
+    mcfg = dataclasses.replace(get(MESH_MOE_ARCH), num_layers=1)
+    mctx = MeshCtx(TRAIN_RULES, mesh, mcfg)
+    mspecs = {f"blocks.moe.{k}": sp for k, sp in moe_mod.moe_specs(mcfg, 1).items()}
+    mfull = init_params(mspecs, torch.Generator(device=dev).manual_seed(seed + 2), device=dev)
+    mshards = mctx.shard(mfull, mspecs)
+    if not root:
+        del mfull
+    x = torch.randn((2, MESH_MOE_SEQ // 2, mcfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 3)).bfloat16()
+    t = time.perf_counter()
+    with torch.no_grad():
+        lp = {k.rsplit(".", 1)[-1]: mctx.gather(k, v[0]) for k, v in mshards.items()}
+        y, aux = moe_mod.apply_moe(lp, mctx.local_batch(x), mcfg, mctx)
+        y = mctx.whole_batch(y)
+    torch.cuda.synchronize()
+    out["moe_s"] = time.perf_counter() - t
+    del lp, mshards
+    sync_all()
+    out["path_s"] = time.perf_counter() - t_path
+    out["launches"] = {"gf_matmul": gk.gf_matmul.launches,
+                       "flash_attention": fa.flash_attention.launches,
+                       "flash_attention_bwd": fab.flash_attention_bwd.launches,
+                       "sample_hash": sh.sample_hash.launches}
+    out["variants"] = dict(fa.flash_attention.variant_launches)
+    out["designs"] = dict(fab.flash_attention_bwd.design_launches)
+    out["moved_bytes"], out["collective_calls"] = dict(D.moved), dict(D.calls)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    # 5. against one process on the card (rank 0), uncounted.  Every rank first finishes
+    # its mesh work and frees the card, so that rank 0's one-process references fit.
+    with torch.no_grad():  # the MoE: each data shard's tokens through every expert at once
+        if root:
+            full_lp = {k.rsplit(".", 1)[-1]: v[0] for k, v in mfull.items()}
+            parts = [moe_mod.apply_moe(full_lp, x[i:i + 1], mcfg) for i in range(2)]
+            want = torch.cat([p[0] for p in parts])
+            out["moe_max_abs_err"] = float((y.float() - want.float()).abs().max())
+            out["moe_aux_err"] = abs(float(aux) - float(sum(p[1] for p in parts) / 2))
+            out["moe_max_abs"] = float(want.float().abs().max())
+            del full_lp, parts, want, mfull
+    del x, y
+    # the mesh: decode teacher-forced over the generated tokens through a cache of
+    # MESH_TF_SLOTS slots (both model ranks' shards hold keys), and the gradient; then each
+    # again with a planted fault, which the comparisons must reject
+    steps = MESH_PROMPT + MESH_GEN - 1
+    cache_specs = model.cache_specs(MESH_BATCH, MESH_TF_SLOTS)
+    fed = [torch.as_tensor(tokens[:, pos:pos + 1], device=dev).long() for pos in range(steps)]
+
+    def mesh_decode():
+        cache = {n: torch.zeros(dctx.local_shape(sp), dtype=sp.dtype, device=dev)
+                 for n, sp in cache_specs.items()}
+        logits = []
+        with torch.no_grad():
+            for pos in range(steps):
+                lg, cache = model.decode_step(dshards, cache, fed[pos], pos, dctx)
+                logits.append(lg.float()[:, 0, :cfg.vocab] if root else None)
+        return logits, cache
+
+    mesh_logits, cache = mesh_decode()
+    combine, attention.combine_partials = attention.combine_partials, _combine_ignoring_lse
+    try:
+        fault_logits, fault_cache = mesh_decode()
+    finally:
+        attention.combine_partials = combine
+    del dshards
+    gtoks = torch.randint(0, cfg.vocab, (MESH_GRAD_BATCH, MESH_GRAD_SEQ + 1), generator=gen,
+                          device=dev)
+    gbatch = {"tokens": gtoks[:, :-1], "labels": gtoks[:, 1:]}
+
+    def grads(params, ctx, batch):
+        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+        loss, _ = model.loss(leaves, batch, ctx)
+        g = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                 materialize_grads=True)))
+        return float(loss.detach()), (g if ctx is None else ctx.reduce_grads(g))
+
+    loss_mesh, g_mesh = grads(tshards, tctx, gbatch)
+    scatter, D.reduce_scatter = D.reduce_scatter, _scatter_unsummed
+    try:
+        _, g_fault = grads(tshards, tctx, gbatch)
+    finally:
+        D.reduce_scatter = scatter
+    del tshards
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    ref_cache = ref = None
+    if root:  # the one process: decode, the train steps, the gradient
+        ref_cache = {n: torch.zeros(sp.shape, dtype=sp.dtype, device=dev)
+                     for n, sp in cache_specs.items()}
+        one_logits = []
+        with torch.no_grad():
+            for pos in range(steps):
+                lg, ref_cache = model.decode_step(full, ref_cache, fed[pos], pos)
+                one_logits.append(lg.float()[:, 0, :cfg.vocab])
+        out["logit_max_abs_err"] = max(float((m - o).abs().max())
+                                       for m, o in zip(mesh_logits, one_logits))
+        out["fault_logit_max_abs_err"] = max(float((m - o).abs().max())
+                                             for m, o in zip(fault_logits, one_logits))
+        out["logit_max_abs"] = max(float(o.abs().max()) for o in one_logits)
+        agree = sum(int((o.argmax(-1).cpu().numpy() == tokens[:, pos + 1]).sum())
+                    for pos, o in enumerate(one_logits) if pos >= MESH_PROMPT - 1)
+        out["greedy_agree"] = f"{agree} of {MESH_BATCH * MESH_GEN}"  # the engine's tokens
+        # the one process's own bf16 error: its logits (reported) and caches against f32
+        # compute and caches (the forward kernels take f32)
+        cache32 = {n: torch.zeros(sp.shape, device=dev) for n, sp in cache_specs.items()}
+        own = 0.0
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            with torch.no_grad():
+                for pos in range(steps):
+                    lg, cache32 = model.decode_step(full, cache32, fed[pos], pos)
+                    own = max(own, float((one_logits[pos] - lg[:, 0, :cfg.vocab]).abs().max()))
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        out["logit_bf16_vs_f32_err"] = own
+        own = [(float((ref_cache[n].float() - c).square().sum()), float(c.square().sum()))
+               for n, c in cache32.items()]
+        out["cache_bf16_vs_f32_rel"] = (sum(a for a, _ in own) / sum(b for _, b in own)) ** 0.5
+        del cache32, one_logits, mesh_logits, fault_logits
+        step1 = make_train_step(cfg, num_microbatches=MESH_MICROBATCHES)
+        state = opt.init_state(full)
+        ref_losses = []
+        for _ in range(MESH_TRAIN_STEPS):
+            state, metrics = step1(state, batch)
+            ref_losses.append(float(metrics["loss"]))
+        out["losses_ref"] = ref_losses
+        del state, metrics
+        torch.cuda.empty_cache()
+        # bf16 on the card, and f32 compute on the CPU plain path (the backward kernel takes
+        # bf16 only): the one process's own bf16 error
+        loss_ref, ref = grads(full, None, gbatch)
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            loss_f32, ref32 = grads({k: v.cpu() for k, v in full.items()}, None,
+                                    {k: v.cpu() for k, v in gbatch.items()})
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        noise = sum(float((ref[k].float().cpu() - ref32[k]).square().sum()) for k in ref)
+        norm = sum(float(ref32[k].square().sum()) for k in ref32)
+        out.update(grad_loss=loss_mesh, grad_loss_ref=loss_ref, grad_loss_f32=loss_f32,
+                   grad_rel_err_card_bf16_vs_cpu_f32=noise ** 0.5 / norm ** 0.5)
+        del ref32
+    for key, mine in (("cache", cache), ("fault_cache", fault_cache)):
+        dist, size, worst = _shard_err(ref_cache, mine, cache_specs, DECODE_RULES, mesh)
+        out[f"{key}_rel_dist"], out[f"{key}_max_abs_err"] = (dist / size) ** 0.5, worst
+    del cache, fault_cache, ref_cache
+    for key, mine in (("grad", g_mesh), ("fault_grad", g_fault)):
+        dist, _, _ = _shard_err(ref, mine, specs, TRAIN_RULES, mesh)
+        if root:
+            out[f"{key}_rel_dist_mesh_vs_one"] = dist ** 0.5 / norm ** 0.5
+    sync_all()
+    return out
+
+
+def _mesh_failures(r: dict, prefix: str = "") -> list[str]:
+    """The gates of the mesh against one process that the rank-0 results ``r``
+    fail (``prefix`` "fault_": those of the run with a planted fault): decode
+    logits within SERVE_LOGIT_ATOL; the caches' relative L2 distance within
+    MESH_CACHE_NOISE_FACTOR times the one process's own bf16 error, the
+    gradient's within TRAIN_NOISE_FACTOR times its own plus TRAIN_GRAD_FLOOR."""
+    failed = []
+    if not r[f"{prefix}logit_max_abs_err"] <= SERVE_LOGIT_ATOL:
+        failed.append("logits")
+    if not r[f"{prefix}cache_rel_dist"] <= MESH_CACHE_NOISE_FACTOR * r["cache_bf16_vs_f32_rel"]:
+        failed.append("caches")
+    if not r[f"{prefix}grad_rel_dist_mesh_vs_one"] <= (
+            TRAIN_NOISE_FACTOR * r["grad_rel_err_card_bf16_vs_cpu_f32"] + TRAIN_GRAD_FLOOR):
+        failed.append("gradient")
+    return failed
+
+
+def _partial_products(gen) -> dict:
+    """The mesh's products taken as f32 partial sums (``MeshCtx.linear`` for a
+    product planned with "g": the activation and the weight's shard cast to
+    f32 on every call) against the same product in bf16, device ms, at a
+    rank's shapes: under DECODE_RULES wq (its embed input cut to 2,048) and up
+    over the decode's 2 rows; under TRAIN_RULES wo (16 heads a rank) and down
+    (7,168 of d_ff a rank) over a microbatch of 1 x 4096."""
+    import torch
+
+    cfg = _mesh_cfg(MESH_LAYERS)
+    d, hd, f = cfg.d_model, cfg.d_model // cfg.num_heads, cfg.d_ff
+    h, rows = cfg.num_heads // MESH_MODEL, MESH_BATCH // MESH_DATA
+    dm, fm = d // MESH_MODEL, f // MESH_MODEL
+    cases = {
+        "decode_wq": ("bsd,dhk->bshk", (rows, 1, dm), (dm, cfg.num_heads, hd)),
+        "decode_up": ("bsd,df->bsf", (rows, 1, dm), (dm, f)),
+        "train_wo": ("bshk,hkd->bsd", (1, MESH_TRAIN_SEQ, h, hd), (h, hd, d)),
+        "train_down": ("bsf,fd->bsd", (1, MESH_TRAIN_SEQ, fm), (fm, d)),
+    }
+    out = {}
+    for name, (eq, xs, ws) in cases.items():
+        x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(ws, generator=gen, device="cuda").bfloat16()
+        f32_ms, _ = _device_ms(lambda: torch.einsum(eq, x.float(), w.float()), 10)
+        bf16_ms, _ = _device_ms(lambda: torch.einsum(eq, x, w), 10)
+        out[name] = {"f32_partial_ms": f32_ms, "bf16_ms": bf16_ms}
+    return out
+
+
+def _mesh_cfg(layers: int):
+    from repro_torch.configs import get
+
+    return dataclasses.replace(get(MESH_ARCH), num_layers=layers)
+
+
+def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
+    """The mesh (path ``mesh``): a MESH_DATA x MESH_MODEL ("data", "model")
+    world of four processes on the one card over Gloo (``launch/mesh.py``).
+    granite-8b at its published widths, depth ``layers``, with fan-in scaled
+    weights (``_fan_in``): rank 0 holds the Shelby cluster, publishes the
+    seeded weights, restores them by paid k-of-n reads (the Clay decode by
+    ``gf_matmul`` on the card) and hands every rank its shards
+    (``sharding.shards_from_root``) under DECODE_RULES and TRAIN_RULES; each
+    rank runs ``ServeEngine`` with a ``MeshCtx`` (batch MESH_BATCH over data,
+    a cache of MESH_SLOTS slots over model: "split" with lse and the
+    combine), MESH_GENERATIONS generations, then MESH_TRAIN_STEPS train steps
+    of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ in MESH_MICROBATCHES microbatches
+    with ``shard_grad_accum``; qwen3-moe's widths at one layer, the
+    expert-parallel MoE (64 experts a rank) over a 1 x MESH_MOE_SEQ batch.
+    Each rank's launches are counted over that path and summed for the
+    ``kernels`` line; each rank's peak memory and the bytes it handed to each
+    kind of collective are printed.  Then, uncounted, against one process on
+    the card (rank 0): the MoE's y and aux, the training losses within
+    TRAIN_LOSS_ATOL, and the gates of ``_mesh_failures``: decode logits
+    teacher-forced over the generated tokens through a MESH_TF_SLOTS-slot
+    cache (both model ranks' shards hold keys), the caches against the one
+    process's own bf16 error (its caches against f32 compute), and the
+    gradient at the restored weights (MESH_GRAD_BATCH x MESH_GRAD_SEQ)
+    against the one process's own bf16 error (its gradient against f32
+    compute on the CPU plain path: the backward kernel takes bf16 only).  The same gates must
+    reject two planted faults run on the mesh: the partial attentions
+    combined with their lse ignored, and the FSDP gradients not summed over
+    the data replicas.  The f32 partial products are timed against bf16 at
+    a rank's shapes.  Four ranks share one card: no number here says
+    anything of multi-GPU speed."""
+    import torch
+
+    from repro_torch.launch.mesh import launch
+
+    t_phase = time.perf_counter()
+    products = _partial_products(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.empty_cache()
+    ranks = launch(_mesh_rank, seed, layers, data=MESH_DATA, model=MESH_MODEL, device="cuda",
+                   backend="gloo", timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t_phase
+    root = ranks[0]
+    for r in ranks:
+        print(json.dumps({"mesh_rank": {k: v for k, v in r.items() if k != "tokens"}},
+                         default=float), flush=True)
+    steps = MESH_PROMPT + MESH_GEN - 1
+    splits = MESH_GENERATIONS * steps * layers
+    tiles = 2 * layers * MESH_MICROBATCHES * MESH_TRAIN_STEPS
+    wgmma = layers * MESH_MICROBATCHES * MESH_TRAIN_STEPS
+    for r in ranks:
+        if r["device"].split(":")[0] != "cuda":
+            raise SystemExit(f"mesh rank {r['rank']} ran on {r['device']}")
+        want = {"tile": tiles, "split": splits, "general": 0}
+        if r["variants"] != want or r["designs"].get("wgmma") != wgmma:
+            raise SystemExit(f"mesh rank {r['rank']} launched {r['variants']}, "
+                             f"backward {r['designs']}; want {want} and {wgmma} wgmma")
+        if not np.array_equal(r["tokens"], root["tokens"]):
+            raise SystemExit(f"mesh rank {r['rank']} generated other tokens than rank 0")
+        if not all(np.isfinite(r["losses"])) or r["losses"] != root["losses"]:
+            raise SystemExit(f"mesh rank {r['rank']}'s losses {r['losses']} differ from rank 0's")
+    if root["launches"]["gf_matmul"] == 0 or not root["restored_equal"]:
+        raise SystemExit("mesh: rank 0's restore made no gf_matmul launch or differs")
+    # the path's counts: each rank's, summed (the parent launches nothing in this phase)
+    read = {"launches": {k: sum(r["launches"][k] for r in ranks) for k in root["launches"]},
+            "variants": {k: sum(r["variants"][k] for r in ranks) for k in root["variants"]},
+            "designs": {k: sum(r["designs"][k] for r in ranks) for k in root["designs"]}}
+    gen_s = root["generation_s"][-1]
+    tokens = MESH_BATCH * steps
+    train_tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
+    failed, planted = _mesh_failures(root), _mesh_failures(root, "fault_")
+    row = {
+        "world": f"{MESH_DATA} x {MESH_MODEL} gloo, one card", "layers": layers, "wall_s": wall,
+        "weight_bytes": root["weight_bytes"], "publish_s": root["publish_s"],
+        "restore_s": root["restore_s"], "hand_out_s": root["hand_out_s"],
+        "generation_s": root["generation_s"], "decode_tok/s": tokens / gen_s,
+        "step_s": root["step_s"], "tokens/s": train_tokens / root["step_s"][-1],
+        "losses": root["losses"], "losses_one_process": root["losses_ref"],
+        "moe_s": root["moe_s"], "path_s": root["path_s"],
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ranks],
+        "moved_bytes_by_rank": [r["moved_bytes"] for r in ranks],
+        "collective_calls_by_rank": [r["collective_calls"] for r in ranks],
+        "partial_products": products,
+        "gates": {"logit_atol": SERVE_LOGIT_ATOL,
+                  "cache_rel": MESH_CACHE_NOISE_FACTOR * root["cache_bf16_vs_f32_rel"],
+                  "grad_rel": TRAIN_NOISE_FACTOR * root["grad_rel_err_card_bf16_vs_cpu_f32"]
+                  + TRAIN_GRAD_FLOOR},
+        "failed": failed, "planted_faults_rejected_by": planted,
+        **{k: root[k] for k in (
+            "logit_max_abs_err", "logit_max_abs", "greedy_agree", "logit_bf16_vs_f32_err",
+            "cache_rel_dist", "cache_max_abs_err", "cache_bf16_vs_f32_rel",
+            "grad_rel_dist_mesh_vs_one",
+            "grad_rel_err_card_bf16_vs_cpu_f32", "fault_logit_max_abs_err",
+            "fault_cache_rel_dist", "fault_cache_max_abs_err",
+            "fault_grad_rel_dist_mesh_vs_one", "moe_max_abs_err", "moe_aux_err")},
+        "grad_loss": [root["grad_loss"], root["grad_loss_ref"], root["grad_loss_f32"]],
+        "launches": read}
+    print(json.dumps({"mesh": row}, default=float), flush=True)
+    loss_err = max(abs(a - b) for a, b in zip(root["losses"], root["losses_ref"]))
+    if (failed or root["moe_max_abs_err"] > MESH_MOE_ATOL or root["moe_aux_err"] > MESH_AUX_ATOL
+            or loss_err > TRAIN_LOSS_ATOL
+            or abs(root["grad_loss"] - root["grad_loss_ref"]) > TRAIN_LOSS_ATOL):
+        raise SystemExit(f"the mesh disagrees with one process on the card ({failed}): {row}")
+    if not {"logits", "caches"} & set(planted) or "gradient" not in planted:
+        raise SystemExit(f"the mesh's gates passed a planted fault ({planted}): {row}")
+    return {"row": row, **read}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blob-mib", type=int, default=1024, help="blob size in MiB (default 1024)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--das-blobs", type=int, default=DAS_BLOBS,
                     help=f"blobs in the DAS phase (default {DAS_BLOBS})")
+    ap.add_argument("--mesh-layers", type=int, default=MESH_LAYERS,
+                    help=f"granite-8b's depth in the mesh phase (default {MESH_LAYERS})")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels and run the mesh phase alone (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2429,6 +2969,10 @@ def main(argv=None) -> int:
         list(pool.map(lambda lib: lib(), (gk._lib, sh._lib, fa._lib, fab._lib)))
     print(f"kernel build+load ({', '.join(KERNELS)}): {time.perf_counter() - t0:.3f} s",
           flush=True)
+    if args.mesh_only:
+        _phase(f"mesh alone: {MESH_ARCH} at {args.mesh_layers} layers")
+        mesh_phase(args.seed, layers=args.mesh_layers)
+        return 0
     from repro_torch.kernels import _build
 
     ptxas = {name: _build.ptxas_report(name)
@@ -2519,6 +3063,12 @@ def main(argv=None) -> int:
     attn_checks = check_flash_attention(attn_cases, gen)
     # phase 17's deepseek: MLA at hd 192 / hd_v 128 (V padded), H 16 = Hkv, 1 x 4096
     attn_checks.append(check_padded_attention("mla_train", 1, MLA_SEQ, 16, 192, 128, gen))
+    # phase 19's decode: a rank's rows (2 of 4) over its 2,048 of 4,096 slots at granite-8b's
+    # widths, "split" writing lse; the second model rank's shard sees no key at position 23
+    shard = MESH_SLOTS // MESH_MODEL
+    for name, k_start in (("mesh_decode_lse", 0), ("mesh_decode_lse_blind", shard)):
+        attn_checks.append(check_split_lse(name, MESH_BATCH // MESH_DATA, shard, 32, 8, 128,
+                                           MESH_PROMPT + MESH_GEN - 1, k_start, gen))
 
     _phase("flash_attention_bwd vs plain (bf16; phase 15's shape: B 4, S 4096, H 24, Hkv 2, "
            "hd 128; phase 16's: B 1, S 4096, H 25, Hkv 5, hd 64; phase 17's: B 1, S 4096, "
@@ -2813,7 +3363,19 @@ def main(argv=None) -> int:
            f"widths, {DRYRUN_LAYERS} layers: the meta device's peak and FLOPs against the card's")
     dryrun_phase(args.seed, zero_counts, read_counts, variant_launches)
 
-    # -- 19. the kernels line and the result ----------------------------------------------
+    # -- 19. the mesh: a 2 x 2 world of four processes on the card --------------------------
+    _phase(f"mesh: {MESH_DATA} x {MESH_MODEL} ranks on the card over Gloo; {MESH_ARCH} at "
+           f"published widths, {args.mesh_layers} layers, from Shelby: serve and train; "
+           f"{MESH_MOE_ARCH}'s expert-parallel MoE")
+    zero_counts()  # the ranks count their own launches; the parent makes none here
+    mesh = mesh_phase(args.seed, layers=args.mesh_layers)
+    path_launches["mesh"] = mesh["launches"]
+    variant_launches["mesh"], design_launches["mesh"] = mesh["variants"], mesh["designs"]
+    print(json.dumps({"path": "mesh", "launches": mesh["launches"],
+                      "flash_attention_variants": mesh["variants"],
+                      "flash_attention_bwd_designs": mesh["designs"]}), flush=True)
+
+    # -- 20. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),

@@ -63,7 +63,10 @@
 // as the natural log of sum_j exp(s[i, j]) -- the softmax statistics that
 // flash_attention_bwd.cu recomputes P from.  A row that sees no key gets
 // -1e30 (its weights are 1/Sk, as above).  Null on the serve path: serving's
-// launches and outputs are unchanged.  "split" (decode) has none.
+// launches and outputs are unchanged.  "split" (decode) writes it too when
+// given one, from the block's merged (m, l) with one split and from the
+// combine's with several: a rank's partial attention over its shard of a
+// sequence-sharded cache combines across ranks by it.
 //
 // Not yet Hopper-specific: wgmma and TMA (with mbarriers) would lift the tile
 // kernel toward the bf16 peak; mma.sync and cp.async are the first step.
@@ -591,8 +594,9 @@ __global__ void __launch_bounds__(kTcThreads)
 attn_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ q_pos,
                   const int* __restrict__ k_pos, bf16* __restrict__ o, float* __restrict__ part_m,
-                  float* __restrict__ part_l, float* __restrict__ part_acc, int sq, int sk, int h,
-                  int hkv, int hd, float scale_log2, int causal, int window, int tiles_per_split) {
+                  float* __restrict__ part_l, float* __restrict__ part_acc,
+                  float* __restrict__ lse, int sq, int sk, int h, int hkv, int hd,
+                  float scale_log2, int causal, int window, int tiles_per_split) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t qs = smem_u32(smem_raw);
   const uint32_t kv0 = qs + 2 * HD * kSplitRows;
@@ -758,15 +762,21 @@ attn_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     part_m[pbase + row0 + threadIdx.x] = bm[threadIdx.x];
     part_l[pbase + row0 + threadIdx.x] = bl[threadIdx.x];
   }
+  if (single && lse != nullptr && threadIdx.x < kSplitRows && row0 + threadIdx.x < rows) {
+    const int row = row0 + threadIdx.x, qi = row / g, head = kvh * g + (row - qi * g);
+    const float m = bm[threadIdx.x];
+    lse[(b * h + head) * sq + qi] = m == kMasked ? kMasked : (m + log2f(bl[threadIdx.x])) * kLn2;
+  }
 }
 
 // grid (rows, kv heads, batch): merge the splits of one row, s = 0, 1, ... in
 // order, by the log-sum-exp rule; a row that no split saw a key for gets the
-// mean of V.
+// mean of V (and lse -1e30).
 __global__ void __launch_bounds__(kTcThreads)
 attn_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                     const float* __restrict__ part_acc, const bf16* __restrict__ v,
-                    bf16* __restrict__ o, int sq, int sk, int h, int hkv, int hd, int nsplit) {
+                    bf16* __restrict__ o, float* __restrict__ lse, int sq, int sk, int h,
+                    int hkv, int hd, int nsplit) {
   __shared__ float meanv[kMaxHeadDim];
   const int g = h / hkv, rows = sq * g;
   const int row = blockIdx.x, kvh = blockIdx.y;
@@ -775,7 +785,10 @@ attn_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ 
   float mx = kMasked;
   for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[(base + s) * rows + row]);
   bf16* orow = out_row(o, b, row, kvh, sq, h, hd, g);
+  const int qi = row / g;
+  float* lse_row = lse == nullptr ? nullptr : lse + (b * h + kvh * g + (row - qi * g)) * sq + qi;
   if (mx == kMasked) {
+    if (lse_row != nullptr && threadIdx.x == 0) *lse_row = kMasked;
     mean_v(v, b, sk, hkv, kvh, hd, meanv);
     for (int d = threadIdx.x; d < hd; d += blockDim.x) orow[d] = __float2bfloat16(meanv[d]);
     return;
@@ -787,6 +800,7 @@ attn_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ 
     const long long i = (base + s) * rows + row;
     if (part_m[i] != kMasked) sum += exp2f(part_m[i] - mx) * part_l[i];
   }
+  if (lse_row != nullptr && threadIdx.x == 0) *lse_row = (mx + log2f(sum)) * kLn2;
   for (int d = threadIdx.x; d < hd; d += blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < nsplit; ++s) {
@@ -806,9 +820,9 @@ static_assert(split_merge_bytes<64>() <= split_smem_bytes<64>() - 2 * 64 * kSpli
 
 template <int HD>
 int split_launch(const void* q, const void* k, const void* v, const void* q_pos,
-                 const void* k_pos, void* o, void* part_m, void* part_l, void* part_acc, int b,
-                 int sq, int sk, int h, int hkv, int hd, float scale, int causal, int window,
-                 int nsplit, int tiles_per_split, cudaStream_t stream) {
+                 const void* k_pos, void* o, void* part_m, void* part_l, void* part_acc,
+                 void* lse, int b, int sq, int sk, int h, int hkv, int hd, float scale,
+                 int causal, int window, int nsplit, int tiles_per_split, cudaStream_t stream) {
   static int smem_set = 0;
   constexpr size_t smem = split_smem_bytes<HD>();
   cudaError_t err = allow_smem(attn_split_kernel<HD>, smem, &smem_set);
@@ -818,14 +832,15 @@ int split_launch(const void* q, const void* k, const void* v, const void* q_pos,
   attn_split_kernel<HD><<<dim3(hkv, nsplit, b * groups), kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<bf16*>(o),
-      static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc), sq,
-      sk, h, hkv, hd, scale * kLog2e, causal, window, tiles_per_split);
+      static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc),
+      static_cast<float*>(lse), sq, sk, h, hkv, hd, scale * kLog2e, causal, window,
+      tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
   attn_combine_kernel<<<dim3(rows, hkv, b), kTcThreads, 0, stream>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<const bf16*>(v), static_cast<bf16*>(o), sq,
-      sk, h, hkv, hd, nsplit);
+      static_cast<const float*>(part_acc), static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), sq, sk, h, hkv, hd, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -880,10 +895,10 @@ extern "C" int flash_attention_tile_launch(const void* q, const void* k, const v
 // part_l are (b, hkv, nsplit, sq * h / hkv) f32 and part_acc the same by hd.
 extern "C" int flash_attention_split_launch(const void* q, const void* k, const void* v,
                                             const void* q_pos, const void* k_pos, void* o,
-                                            void* part_m, void* part_l, void* part_acc, int b,
-                                            int sq, int sk, int h, int hkv, int hd, float scale,
-                                            int causal, int window, int nsplit,
-                                            int tiles_per_split, void* stream) {
+                                            void* part_m, void* part_l, void* part_acc,
+                                            void* lse, int b, int sq, int sk, int h, int hkv,
+                                            int hd, float scale, int causal, int window,
+                                            int nsplit, int tiles_per_split, void* stream) {
   const long long ntiles = (sk + kKeys - 1) / kKeys;
   const long long groups = (static_cast<long long>(sq) * (h / hkv) + kSplitRows - 1) / kSplitRows;
   if (!shape_ok(b, sq, sk, h, hkv, hd) || hd % 8 || nsplit < 1 || nsplit > 65535 ||
@@ -895,13 +910,13 @@ extern "C" int flash_attention_split_launch(const void* q, const void* k, const 
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
-    return split_launch<64>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, b, sq, sk, h, hkv,
-                            hd, scale, causal, window, nsplit, tiles_per_split, s);
+    return split_launch<64>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, lse, b, sq, sk, h,
+                            hkv, hd, scale, causal, window, nsplit, tiles_per_split, s);
   if (hd <= 128)
-    return split_launch<128>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, b, sq, sk, h,
-                             hkv, hd, scale, causal, window, nsplit, tiles_per_split, s);
-  return split_launch<256>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, b, sq, sk, h, hkv,
-                           hd, scale, causal, window, nsplit, tiles_per_split, s);
+    return split_launch<128>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, lse, b, sq, sk,
+                             h, hkv, hd, scale, causal, window, nsplit, tiles_per_split, s);
+  return split_launch<256>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, lse, b, sq, sk, h,
+                           hkv, hd, scale, causal, window, nsplit, tiles_per_split, s);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -25,9 +25,11 @@ tensors only.
 
 For training, :func:`flash_attention_lse` also returns each row's
 log-sum-exp (B, H, Sq) f32, the statistics the backward kernel
-(``kernels/flash_attention_bwd.py``) recomputes P from: the "tile" kernel
-writes it (or "general" for what "tile" does not take);
-``flash_attention_lse_ref`` is its plain version.
+(``kernels/flash_attention_bwd.py``) recomputes P from: the kernel that
+:func:`choose_variant` names writes it ("tile"; "split" for decode's few
+rows, whose partial attention over a rank's shard of a sequence-sharded
+cache combines across ranks by it; "general" for what the tensor-core
+kernels do not take); ``flash_attention_lse_ref`` is its plain version.
 """
 from __future__ import annotations
 
@@ -130,7 +132,7 @@ def _lib() -> ctypes.CDLL:
     shape = [i, i, i, i, i, i, ctypes.c_float, i, i]  # b sq sk h hkv hd scale causal window
     lib.flash_attention_launch.argtypes = [p] * 7 + shape + [i, p]  # q k v qpos kpos o lse
     lib.flash_attention_tile_launch.argtypes = [p] * 7 + shape + [p]
-    lib.flash_attention_split_launch.argtypes = [p] * 9 + shape + [i, i, p]
+    lib.flash_attention_split_launch.argtypes = [p] * 10 + shape + [i, i, p]  # ... acc lse
     for fn in (lib.flash_attention_launch, lib.flash_attention_tile_launch,
                lib.flash_attention_split_launch):
         fn.restype = ctypes.c_int
@@ -139,11 +141,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _variant(q: torch.Tensor, k: torch.Tensor, with_lse: bool, aligned: bool = True) -> str:
-    """The kernel a call without a named variant takes."""
+def _variant(q: torch.Tensor, k: torch.Tensor, aligned: bool = True) -> str:
+    """The kernel a call without a named variant takes (each writes lse when asked)."""
     b, sq, h, hd = q.shape
-    if with_lse:  # the kernels that write lse
-        return "tile" if tensor_cores_take(q.dtype, hd, aligned) else "general"
     return choose_variant(q.dtype, sq, h, k.shape[2], hd, aligned)
 
 
@@ -227,7 +227,7 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "meta":
         raise ValueError(f"flash_attention_meta takes meta tensors; got tensors on {q.device}")
     b, sq, h, hd = q.shape
-    variant = _variant(q, k, with_lse)
+    variant = _variant(q, k)
     _, _, out, lse, _ = _allocate(variant, q, k, q_positions, k_positions, with_lse, H100_SMS)
     return out, lse, flops(variant, b, sq, k.shape[1], h, k.shape[2], hd, causal, window)
 
@@ -257,8 +257,8 @@ def flash_attention_variant(variant: str, q: torch.Tensor, k: torch.Tensor, v: t
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_positions=None, k_positions=None, causal: bool = True,
                         window: int = 0, scale: float | None = None):
-    """(o, lse) on the card: :func:`flash_attention` through "tile" (or
-    "general" where the tensor-core kernels do not take the input), which also
+    """(o, lse) on the card: :func:`flash_attention` through the kernel
+    :func:`choose_variant` names ("tile", "split" or "general"), which also
     writes each row's log-sum-exp, lse (B, H, Sq) f32 (-1e30 for a row that
     sees no key)."""
     return _launch(None, q, k, v, q_positions, k_positions, causal, window, scale,
@@ -278,7 +278,7 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0
     if variant is None:
-        variant = _variant(q, k, with_lse, aligned)
+        variant = _variant(q, k, aligned)
     elif variant != "general" and not tensor_cores_take(q.dtype, hd, aligned):
         raise ValueError(f"flash_attention: the {variant!r} kernel takes 16-byte aligned bf16 "
                          f"with head_dim a multiple of 16; got {q.dtype}, head_dim {hd}")
@@ -297,7 +297,8 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
             part = (0, 0, 0)
             if ml is not None:
                 part = (ml[0].data_ptr(), ml[1].data_ptr(), acc.data_ptr())
-            err = lib.flash_attention_split_launch(*args, *part, *shape, splits, per, stream)
+            err = lib.flash_attention_split_launch(*args, *part, lse_ptr, *shape, splits, per,
+                                                   stream)
         else:
             err = lib.flash_attention_launch(*args, lse_ptr, *shape,
                                              int(q.dtype == torch.bfloat16), stream)

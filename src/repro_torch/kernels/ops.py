@@ -79,6 +79,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window=window, scale=scale)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        q_positions=None, k_positions=None, causal: bool = True,
+                        window: int = 0, scale: float | None = None):
+    """(o, lse (B, H, Sq) f32) without a gradient: the CUDA kernel on the card
+    ("split" for decode's few rows, with its log-sum-exp), the plain version
+    on the CPU.  A sequence-sharded cache's partial attentions combine by it."""
+    kw = dict(q_positions=q_positions, k_positions=k_positions, causal=causal, window=window,
+              scale=scale)
+    if q.device.type == "meta":
+        return _attention_meta(q, k, v, kw, with_lse=True)
+    fn = _fa.flash_attention_lse_ref if q.device.type == "cpu" else _fa.flash_attention_lse
+    return fn(q, k, v, **kw)
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention whose gradient is the backward kernel: the forward saves
     (q, k, v, o, lse); the backward computes (dq, dk, dv) from them and dO,

@@ -13,8 +13,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import distributed
 from repro_torch.models.layers import (MaskSpec, apply_norm, apply_rope, cast, decode_attention,
-                                       flash_attention)
+                                       flash_attention, linear)
 from repro_torch.sharding import ParamSpec
 
 UNWRITTEN = 2**30  # the position of a ring-buffer slot not written yet
@@ -40,11 +41,11 @@ def attn_specs(cfg, layers: int | None = None, cross: bool = False) -> dict[str,
     return out
 
 
-def _qkv(params, x: torch.Tensor, kv_source=None):
+def _qkv(params, x: torch.Tensor, kv_source=None, ctx=None):
     kv_in = x if kv_source is None else kv_source
-    q = torch.einsum("bsd,dhk->bshk", x, cast(params["wq"]))
-    k = torch.einsum("bsd,dhk->bshk", kv_in, cast(params["wk"]))
-    v = torch.einsum("bsd,dhk->bshk", kv_in, cast(params["wv"]))
+    q = linear(x, params["wq"], "wq", ctx, "bsd,dhk->bshk")
+    k = linear(kv_in, params["wk"], "wk", ctx, "bsd,dhk->bshk")
+    v = linear(kv_in, params["wv"], "wv", ctx, "bsd,dhk->bshk")
     if "bq" in params:
         q = q + cast(params["bq"])
         k = k + cast(params["bk"])
@@ -55,8 +56,8 @@ def _qkv(params, x: torch.Tensor, kv_source=None):
     return q, k, v
 
 
-def _out(params, o: torch.Tensor) -> torch.Tensor:
-    res = torch.einsum("bshk,hkd->bsd", o, cast(params["wo"]))
+def _out(params, o: torch.Tensor, ctx=None) -> torch.Tensor:
+    res = linear(o, params["wo"], "wo", ctx, "bshk,hkd->bsd")
     if "bo" in params:
         res = res + cast(params["bo"])
     return res
@@ -74,7 +75,7 @@ def attn_full(params, x: torch.Tensor, cfg, *, positions=None, mask: MaskSpec | 
     query heads read the K and V heads that ``ctx.kv_heads`` gives (all)."""
     s = x.shape[1]
     mask = mask or MaskSpec(causal=True)
-    q, k, v = _qkv(params, x, kv_source)
+    q, k, v = _qkv(params, x, kv_source, ctx)
     positions = _arange(s, x.device) if positions is None else positions
     kv_positions = _arange(k.shape[1], x.device) if kv_positions is None else kv_positions
     if rope:
@@ -83,7 +84,7 @@ def attn_full(params, x: torch.Tensor, cfg, *, positions=None, mask: MaskSpec | 
     if ctx is not None:
         k, v = ctx.kv_heads(q, k, v)
     o = flash_attention(q, k, v, mask=mask, q_positions=positions, k_positions=kv_positions)
-    return _out(params, o)
+    return _out(params, o, ctx)
 
 
 def attn_prefill(params, x: torch.Tensor, cfg, *, mask: MaskSpec | None = None,
@@ -91,14 +92,14 @@ def attn_prefill(params, x: torch.Tensor, cfg, *, mask: MaskSpec | None = None,
     """Like :func:`attn_full`, also returning the populated KV cache
     ``{"k", "v"}`` (B, S, Hkv, hd), k after RoPE, as the JAX package's."""
     mask = mask or MaskSpec(causal=True)
-    q, k, v = _qkv(params, x)
+    q, k, v = _qkv(params, x, ctx=ctx)
     positions = _arange(x.shape[1], x.device)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     ka, va = (k, v) if ctx is None else ctx.kv_heads(q, k, v)
     o = flash_attention(q, ka, va, mask=mask, q_positions=positions, k_positions=positions)
-    return _out(params, o), {"k": k, "v": v}
+    return _out(params, o, ctx), {"k": k, "v": v}
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
@@ -123,13 +124,22 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg, *, window: int = 
     """x: (B, 1, D); cache: {'k','v'}: (B, S, Hkv, hd); pos: the current position.
 
     Uses a ring buffer when ``window > 0`` (slot = pos % S), otherwise writes
-    at ``pos``.  Returns (out, cache), the cache updated in place.
+    at ``pos``.  Returns (out, cache), the cache updated in place.  A cache
+    whose slots are split over a mesh axis (``ctx.seq_shard``) is this rank's
+    shard: see :func:`_decode_sharded`.
     """
-    q, k, v = _qkv(params, x)
+    q, k, v = _qkv(params, x, ctx=ctx)
     posv = torch.full((1,), pos, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
     s_cache = cache["k"].shape[1]
+    shard = None if ctx is None else ctx.seq_shard(s_cache)
+    if shard is not None:
+        if window:
+            raise NotImplementedError("a ring buffer split over a mesh axis (long mode) is not "
+                                      "ported (ROADMAP Queue 1 item 4h)")
+        o = _decode_sharded(q, k, v, cache, pos, shard, ctx)
+        return _out(params, o, ctx), cache
     slot = pos % s_cache if window else pos
     k_new = cache_update(cache["k"], k, slot)
     v_new = cache_update(cache["v"], v, slot)
@@ -139,4 +149,31 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg, *, window: int = 
         k_positions = torch.arange(s_cache, dtype=torch.int32, device=x.device)
     ka, va = (k_new, v_new) if ctx is None else ctx.kv_heads(q, k_new, v_new)
     o = decode_attention(q, ka, va, k_positions, pos, window=window)
-    return _out(params, o), {"k": k_new, "v": v_new}
+    return _out(params, o, ctx), {"k": k_new, "v": v_new}
+
+
+def _decode_sharded(q, k, v, cache, pos: int, shard, ctx) -> torch.Tensor:
+    """Decode attention over a cache whose slots [shard.start, shard.stop)
+    this rank holds: the owning rank writes slot ``pos`` (every other rank's
+    shard is left as it was, as the JAX package's ``shard_map`` update); each
+    rank attends over its shard with the row log-sum-exp, and the ranks'
+    partial outputs combine by :func:`combine_partials`."""
+    if shard.start <= pos < shard.stop:
+        cache_update(cache["k"], k, pos - shard.start)
+        cache_update(cache["v"], v, pos - shard.start)
+    k_positions = torch.arange(shard.start, shard.stop, dtype=torch.int32, device=q.device)
+    ka, va = ctx.kv_heads(q, cache["k"], cache["v"])
+    o, lse = decode_attention(q, ka, va, k_positions, pos, with_lse=True)
+    return combine_partials(o, lse, shard.axis)
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor, axis) -> torch.Tensor:
+    """The attention over all ranks' keys from each rank's over its own:
+    o (B, Sq, H, hd) and lse (B, H, Sq) f32 per rank; with m the max of the
+    lse, o = sum e^(lse - m) o / sum e^(lse - m), in f32.  A rank that saw
+    no key (lse -1e30) weighs 0; if none saw one, the ranks' outputs (each
+    the mean of its V) average to the mean of all V, as one kernel gives."""
+    m = distributed.all_reduce(lse, axis, "max")
+    w = torch.exp(lse - m).transpose(1, 2)[..., None]  # (B, Sq, H, 1)
+    both = distributed.all_reduce(torch.cat([o.float() * w, w], dim=-1), axis)
+    return (both[..., :-1] / both[..., -1:]).to(o.dtype)

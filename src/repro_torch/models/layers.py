@@ -11,6 +11,7 @@ the tolerance that costs).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -25,6 +26,16 @@ HEAD_DIM_GRANULE = 16  # bf16 head dims the tensor-core attention kernels take: 
 
 def cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, name: str, ctx=None,
+           eq: str | None = None) -> torch.Tensor:
+    """``x @ cast(w)``, or ``einsum(eq, x, cast(w))``: the activation ``x``
+    times the weight whose leaf name is ``name``; over a mesh, ``ctx.linear``
+    places the collectives around the product (``sharding.product_plans``)."""
+    w = cast(w)
+    product = torch.matmul if eq is None else functools.partial(torch.einsum, eq)
+    return product(x, w) if ctx is None else ctx.linear(name, x, w, product)
 
 
 # -- norms ---------------------------------------------------------------------
@@ -86,15 +97,15 @@ def mlp_specs(d: int, f: int, kind: str, layers: int | None = None,
     return out
 
 
-def apply_mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def apply_mlp(params, x: torch.Tensor, kind: str, ctx=None) -> torch.Tensor:
     if kind == "swiglu":
-        h = F.silu(x @ cast(params["gate"])) * (x @ cast(params["up"]))
+        h = F.silu(linear(x, params["gate"], "gate", ctx)) * linear(x, params["up"], "up", ctx)
     else:
-        h = x @ cast(params["up"])
+        h = linear(x, params["up"], "up", ctx)
         if "up_b" in params:
             h = h + cast(params["up_b"])
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    out = h @ cast(params["down"])
+    out = linear(h, params["down"], "down", ctx)
     if "down_b" in params:
         out = out + cast(params["down_b"])
     return out
@@ -141,14 +152,17 @@ def flash_attention(q, k, v, *, mask: MaskSpec, q_positions=None, k_positions=No
 
 
 def decode_attention(q, k_cache, v_cache, k_positions, cur_pos: int, *, window: int = 0,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None, with_lse: bool = False):
     """Single-token attention against a cache.
 
     q: (B, 1, H, hd); caches: (B, S, Hkv, hd); k_positions: (S,) absolute
     positions held in each cache slot (ring buffers permute them); cur_pos:
     the current position.  Masked to k_pos <= cur_pos (and the sliding
     window if set): the causal mask at ``q_positions = [cur_pos]``.
+    ``with_lse``: (o, lse (B, H, 1) f32), the rows' log-sum-exp, -1e30 for a
+    row that sees no key of this cache (a shard of a sequence-sharded one).
     """
     q_positions = torch.full((1,), cur_pos, dtype=torch.int32, device=q.device)
-    return ops.flash_attention(q.contiguous(), k_cache, v_cache, q_positions=q_positions,
-                               k_positions=k_positions, causal=True, window=window, scale=scale)
+    fn = ops.flash_attention_lse if with_lse else ops.flash_attention
+    return fn(q.contiguous(), k_cache, v_cache, q_positions=q_positions,
+              k_positions=k_positions, causal=True, window=window, scale=scale)

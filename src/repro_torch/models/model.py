@@ -41,12 +41,14 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import distributed
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import MaskSpec, apply_mlp, apply_norm, cast, mlp_specs, norm_specs
+from repro_torch.models.layers import (MaskSpec, apply_mlp, apply_norm, cast, linear, mlp_specs,
+                                       norm_specs)
 from repro_torch.sharding import ParamSpec, flatten, unflatten
 
 FAMILIES = ("dense", "moe", "mla_moe", "ssm", "hybrid")
@@ -68,23 +70,73 @@ def _weight(params, name: str, ctx) -> torch.Tensor:
     return params[name] if ctx is None else ctx.gather(name, params[name])
 
 
+def _head(cfg: ArchConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
+def _lookup(params, tokens: torch.Tensor, ctx=None, cast_first: bool = False) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (in the compute dtype).  A table whose
+    vocab is split over a mesh axis (``ctx.vocab_shard``) is looked up
+    vocab-parallel: each rank its own ids' rows, zeros for the others, summed
+    over the axis ("g")."""
+    table = _weight(params, "embed", ctx)
+    shard = None if ctx is None else ctx.vocab_shard("embed")
+    if shard is None:
+        return cast(table)[tokens] if cast_first else cast(table[tokens])
+    local = tokens - shard.start
+    mine = (local >= 0) & (local < shard.stop - shard.start)
+    rows = cast(table)[torch.where(mine, local, 0)]
+    return distributed.reduce_g(torch.where(mine[..., None], rows, 0.0), shard.axis)
+
+
 def _logits(params, h: torch.Tensor, cfg: ArchConfig, ctx=None) -> torch.Tensor:
-    table = _weight(params, "embed" if cfg.tie_embeddings else "lm_head", ctx)
-    logits = torch.einsum("bsd,vd->bsv", h, cast(table))
+    """The logits over this rank's ids of the vocab (all of them off a mesh)."""
+    name = _head(cfg)
+    logits = linear(h, _weight(params, name, ctx), name, ctx, "bsd,vd->bsv")
     if cfg.padded_vocab != cfg.vocab:  # mask padding ids out of the softmax
-        # ids from 0 over the logits' width (one device's share of the vocab
-        # in the dry-run's per-device trace: the first rank's ids)
-        pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
-        logits = logits.masked_fill(pad, -1e30)
+        # the ids of the logits' columns: from this rank's first id over a
+        # mesh, from 0 in the dry-run's per-device trace (the first rank's)
+        ids = torch.arange(logits.shape[-1], device=logits.device)
+        shard = None if ctx is None else ctx.vocab_shard(name)
+        if shard is not None:
+            ids = ids + shard.start
+        logits = logits.masked_fill(ids >= cfg.vocab, -1e30)
     return logits
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy; logits (B, S, V) bf16 -> f32 statistics."""
+def _whole_logits(logits: torch.Tensor, cfg: ArchConfig, ctx=None) -> torch.Tensor:
+    """Logits of every id of the vocab for the global batch (decode and
+    prefill give them whole, as the JAX package's steps)."""
+    if ctx is None:
+        return logits
+    shard = ctx.vocab_shard(_head(cfg))
+    if shard is not None:
+        logits = distributed.gather_out(logits, shard.axis, -1)
+    return ctx.whole_batch(logits)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig | None = None,
+          ctx=None) -> torch.Tensor:
+    """Mean cross-entropy; logits (B, S, V) bf16 -> f32 statistics.  Over a
+    mesh whose ``model`` axis splits the vocab, vocab-parallel: each rank's
+    log-sum-exp over its ids and its gold logit combine over the axis, so the
+    (B, S, V) logits are never gathered."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    shard = None if ctx is None else ctx.vocab_shard(_head(cfg))
+    if shard is None:
+        gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+        return (lse - gold).mean()
+    lse = torch.logsumexp(distributed.gather_out(lse[..., None], shard.axis, -1), dim=-1)
+    local = labels.long() - shard.start
+    mine = (local >= 0) & (local < shard.stop - shard.start)
+    gold = torch.take_along_dim(logits, torch.where(mine, local, 0)[..., None], dim=-1)[..., 0]
+    gold = distributed.reduce_g(torch.where(mine, gold, 0.0), shard.axis)
     return (lse - gold).mean()
+
+
+def _local_batch(batch: dict, ctx) -> dict:
+    return batch if ctx is None else {k: ctx.local_batch(v) for k, v in batch.items()}
 
 
 def _layer(tree: dict, i: int, ctx=None, prefix: str = "") -> dict:
@@ -196,7 +248,7 @@ class DecoderLM(_Model):
         cfg = self.cfg
         aux = None
         if cfg.parallel_block:  # command-r: attn and mlp read the same norm
-            return h + mixed + apply_mlp(block["mlp"], x, cfg.mlp), aux
+            return h + mixed + apply_mlp(block["mlp"], x, cfg.mlp, ctx), aux
         h = h + mixed
         if cfg.family == "ssm":
             return h, aux
@@ -204,7 +256,7 @@ class DecoderLM(_Model):
         if cfg.family in MOE_FAMILIES and not dense:
             m_out, aux = moe_mod.apply_moe(block["moe"], x2, cfg, ctx)
         else:
-            m_out = apply_mlp(block["mlp"], x2, cfg.mlp)
+            m_out = apply_mlp(block["mlp"], x2, cfg.mlp, ctx)
         return h + m_out, aux
 
     def _mixer_full(self, block, x: torch.Tensor, mask: MaskSpec, cache: bool, ctx):
@@ -256,7 +308,7 @@ class DecoderLM(_Model):
     def _inputs_to_h(self, params, batch, ctx) -> torch.Tensor:
         if self.cfg.input_mode == "embeddings":
             return cast(batch["embeddings"])
-        return cast(_weight(params, "embed", ctx))[batch["tokens"]]
+        return _lookup(params, batch["tokens"], ctx, cast_first=True)
 
     # -- public: train loss ------------------------------------------------------------
     def loss(self, params: dict[str, torch.Tensor], batch, ctx=None):
@@ -266,11 +318,14 @@ class DecoderLM(_Model):
         ``router_aux_weight`` times the aux loss per layer."""
         cfg = self.cfg
         p = unflatten(params)
+        batch = _local_batch(batch, ctx)
         h, aux = self._run_stack(p, self._inputs_to_h(p, batch, ctx), MaskSpec(causal=True), ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        loss = _xent(_logits(p, h, cfg, ctx), batch["labels"])
+        loss = _xent(_logits(p, h, cfg, ctx), batch["labels"], cfg, ctx)
         if cfg.moe:
             loss = loss + cfg.moe.router_aux_weight * aux / max(cfg.num_layers, 1)
+        if ctx is not None:  # the mean over the batch's data shards
+            loss = ctx.pmean(loss, ("pod", "data"))
         return loss, {"xent": loss, "aux": aux}
 
     # -- public: prefill ------------------------------------------------------------------
@@ -281,6 +336,9 @@ class DecoderLM(_Model):
         of the leading dense layers), ``{}`` for ``ssm`` (no SSM state), as
         the JAX package's prefill."""
         cfg = self.cfg
+        if getattr(ctx, "mesh", None) is not None:
+            raise NotImplementedError("prefill on a mesh (SERVE_RULES, the cache written "
+                                      "sequence-sharded) is not ported (ROADMAP Queue 1 item 4i)")
         p = unflatten(params)
         mask = MaskSpec(causal=True)
         h = self._run_dense0(p, self._inputs_to_h(p, batch, ctx), mask, ctx)
@@ -339,7 +397,7 @@ class DecoderLM(_Model):
         cfg = self.cfg
         window = cfg.long_window if (long_mode and cfg.long_window) else 0
         p = unflatten(params)
-        h = cast(_weight(p, "embed", ctx)[tokens])
+        h = _lookup(p, tokens if ctx is None else ctx.local_batch(tokens), ctx)
         for i in range(self.n_dense0):
             lp = _layer(p["dense0"], i, ctx, "dense0.")
             x = apply_norm(lp["ln1"], h, cfg.norm)
@@ -362,7 +420,7 @@ class DecoderLM(_Model):
                                                     {"conv": lc["conv"], "h": lc["h_ssm"]}, cfg)
             h, _ = self._second_half(lp, h, x, self._mix(lp, a_out, s_out), ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        return _logits(p, h, cfg, ctx), cache
+        return _whole_logits(_logits(p, h, cfg, ctx), cfg, ctx), cache
 
 
 class EncDecLM(_Model):

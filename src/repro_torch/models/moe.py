@@ -8,11 +8,13 @@ experts and the residual), the GShard capacity-factor semantics.  Routing,
 dispatch and the expert products are plain PyTorch, as the JAX package
 computes them outside any Pallas kernel.
 
-Only the local path runs over a mesh: the JAX package's expert-parallel
-``shard_map`` path (a mesh with a ``model`` axis) raises
-``NotImplementedError`` (ROADMAP Queue 1 item 4g).  Its per-rank body,
-without the ``psum`` over ``model`` and the FSDP all-gathers (collectives),
-is :func:`moe_rank`; the dry-run's per-device trace runs it
+Over a mesh with a ``model`` axis (``sharding.MeshCtx``), the JAX package's
+expert-parallel ``shard_map`` path (:func:`_moe_ep`): each rank routes its
+data shard of the tokens over all experts and runs its own experts, whose
+weights ``MeshCtx.gather`` all-gathers over ``data`` where they are FSDP
+shards; the ranks' partial outputs are summed over ``model`` and the aux
+loss averaged over every rank.  Its per-rank body without the collectives
+is :func:`moe_rank`, which the dry-run's per-device trace runs
 (``launch/dryrun.py``).
 """
 from __future__ import annotations
@@ -22,8 +24,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import cast
-from repro_torch.sharding import ParamSpec
+from repro_torch import distributed
+from repro_torch.models.layers import cast, linear
+from repro_torch.sharding import ParamSpec, require_mesh_ctx
 
 
 def moe_specs(cfg, layers: int) -> dict[str, ParamSpec]:
@@ -107,11 +110,17 @@ def _moe_local(x_flat: torch.Tensor, params_l, cfg, lo: int, hi: int, capacity: 
     """Token dispatch + expert FFN for experts [lo, hi).  ``experts``: the
     (gate, up, down) weights of exactly those experts; by default sliced from
     ``params_l``, which then holds all of them."""
-    m = cfg.moe
-    d = x_flat.shape[-1]
     if experts is None:
         experts = tuple(params_l[name][lo:hi] for name in ("gate", "up", "down"))
-    idx, weights, aux = _route(x_flat, params_l["router"], m.top_k)
+    idx, weights, aux = _route(x_flat, params_l["router"], cfg.moe.top_k)
+    return _experts(x_flat, idx, weights, cfg, lo, hi, capacity, experts), aux
+
+
+def _experts(x_flat: torch.Tensor, idx, weights, cfg, lo: int, hi: int, capacity: int,
+             experts) -> torch.Tensor:
+    """The routed tokens' outputs of experts [lo, hi): dispatch, FFN, combine."""
+    m = cfg.moe
+    d = x_flat.shape[-1]
     dest, src = _dispatch_indices(idx, m.num_experts, capacity, lo, hi)
     e_loc = hi - lo
     size = e_loc * capacity
@@ -124,8 +133,7 @@ def _moe_local(x_flat: torch.Tensor, params_l, cfg, lo: int, hi: int, capacity: 
     vals = padded[torch.clamp(dest, max=size)]
     vals = torch.where((dest < size)[:, None], vals, 0.0)
     t = x_flat.shape[0]
-    y = (vals.reshape(t, m.top_k, d) * weights[..., None]).sum(1)
-    return y, aux
+    return (vals.reshape(t, m.top_k, d) * weights[..., None]).sum(1)
 
 
 def capacity_of(tokens: int, cfg) -> int:
@@ -151,21 +159,40 @@ def moe_rank(x_flat: torch.Tensor, params_l, cfg, rank: int, ranks: int):
                       experts)
 
 
+def _moe_ep(x_flat: torch.Tensor, params_l, cfg, ctx):
+    """The expert-parallel path (``repro/models/moe.py``'s ``shard_map``) on
+    this rank: its ``t_local`` tokens ``x_flat`` routed over all experts, its
+    experts' outputs (``params_l`` holds their weights, gathered whole over
+    ``data``), summed over ``model`` ("g"; the JAX package's ``psum``); the
+    aux loss averaged over every rank (``pmean``).  The dispatched tokens and
+    the routing weights pass "f", so each rank's partial gradient is summed
+    before it meets the router's, which every rank holds whole."""
+    ax = ctx.mesh.axis("model")
+    e_loc = cfg.moe.num_experts // ax.size
+    lo = ax.index * e_loc
+    idx, weights, aux = _route(x_flat, params_l["router"], cfg.moe.top_k)
+    experts = tuple(params_l[name] for name in ("gate", "up", "down"))
+    y = _experts(distributed.copy_f(x_flat, ax), idx, distributed.copy_f(weights, ax), cfg,
+                 lo, lo + e_loc, capacity_of(x_flat.shape[0], cfg), experts)
+    return distributed.reduce_g(y, ax), ctx.pmean(aux, tuple(ctx.mesh.shape))
+
+
 def apply_moe(params_l, x: torch.Tensor, cfg, ctx=None):
     """x: (B, S, D) -> (out, aux_loss).  params_l: this layer's slice.
 
-    A context whose ``expert_rank`` is (rank, ranks) (``AxisCtx``; the
-    dry-run's per-device trace sets it) takes :func:`moe_rank` over that
-    rank's experts."""
+    Over a mesh with a ``model`` axis (``sharding.MeshCtx``: x is the rank's
+    data shard) the expert-parallel path :func:`_moe_ep`; a context whose
+    ``expert_rank`` is (rank, ranks) (the dry-run's per-device trace sets
+    it) takes :func:`moe_rank` over that rank's experts."""
     m = cfg.moe
     b, s, d = x.shape
     mesh = getattr(ctx, "mesh", None)
-    if mesh is not None and "model" in mesh.shape:
-        raise NotImplementedError("apply_moe: the expert-parallel shard_map path over a mesh's "
-                                  "'model' axis is not ported (ROADMAP Queue 1 item 4g)")
     x_flat = x.reshape(-1, d)
     share = getattr(ctx, "expert_rank", None)
-    if share is not None:
+    if mesh is not None and "model" in mesh.shape:
+        require_mesh_ctx(ctx, "the expert-parallel MoE")
+        y, aux = _moe_ep(x_flat, params_l, cfg, ctx)
+    elif share is not None:
         y, aux = moe_rank(x_flat, params_l, cfg, *share)
     else:
         y, aux = _moe_local(x_flat, params_l, cfg, 0, m.num_experts,
@@ -173,7 +200,7 @@ def apply_moe(params_l, x: torch.Tensor, cfg, ctx=None):
     out = y.reshape(b, s, d)
     # shared experts (DeepSeek): a dense SwiGLU alongside the routed path
     if m.num_shared:
-        g = x @ cast(params_l["shared_gate"])
-        u = x @ cast(params_l["shared_up"])
-        out = out + (F.silu(g) * u) @ cast(params_l["shared_down"])
+        g = linear(x, params_l["shared_gate"], "shared_gate", ctx)
+        u = linear(x, params_l["shared_up"], "shared_up", ctx)
+        out = out + linear(F.silu(g) * u, params_l["shared_down"], "shared_down", ctx)
     return out, aux

@@ -1,11 +1,13 @@
-"""Batched serving engine: greedy decode with a KV cache on one device.
+"""Batched serving engine: greedy decode with a KV cache.
 
 The read-optimized half of the system: weights arrive through Shelby
 verified reads (see ``launch/serve.py``), then a batch of prompts is decoded
 step by step from position 0 (the JAX package's prefill-free flow of
 ``repro/serve/engine.py``); an encoder-decoder first encodes its frames
 into the cache.  Every step's attention runs the hand-written kernel on the
-card.
+card.  Given a ``sharding.MeshCtx``, each rank holds its shard of the
+weights and builds its shard of the cache (``ctx.local_shape``); prompts go
+in and tokens come out whole on every rank.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ class ServeEngine:
 
     def _empty_cache(self, batch: int) -> dict[str, torch.Tensor]:
         specs = self.model.cache_specs(batch, self.max_len, long_mode=self.long_mode)
-        return {name: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
+        return {name: torch.zeros(self.ctx.local_shape(s), dtype=s.dtype, device=self.device)
                 for name, s in specs.items()}
 
     @torch.inference_mode()

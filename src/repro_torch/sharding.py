@@ -14,16 +14,27 @@ mesh-axis product does not divide the dimension is dropped.  A partition is
 a plain tuple with the entries of the JAX package's ``PartitionSpec``.  The
 port has no partitioner: the dry-run (``launch/dryrun.py``) reads these
 rules to size one device's share, and ``AxisCtx.constrain`` is the identity.
+
+Over a mesh of processes (``launch/mesh.py``) each rank holds its shard of
+every leaf (:func:`shard_params`; :func:`unshard` is the inverse) and runs
+the model with a :class:`MeshCtx`, whose hooks place the collectives
+(``distributed.py``) that make the shards add up to the whole: the FSDP
+gathers of a weight, "f" and "g" around a product split over ``model``
+(:func:`product_plans`, one table for every rule table), the
+vocab-parallel embedding and logits, the sequence-sharded decode cache, the
+batch over ``data``, the gradient sums and the global norm.  Every hook is
+the identity in :class:`AxisCtx` (and in the dry-run's ``DeviceShare``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.device import resolve_device
 
 # -- default rule tables -------------------------------------------------------
@@ -211,13 +222,25 @@ def state_from_numpy(state, device=None) -> dict:
     return out
 
 
+class Shard(NamedTuple):
+    """A rank's part [start, stop) of a dim split over ``axis`` (a ``distributed.Axis``)."""
+
+    start: int
+    stop: int
+    axis: Any
+
+
 class AxisCtx:
     """Counterpart of the JAX package's sharding context, threaded through the
-    model code.  The port has no partitioner: :meth:`constrain` is the
-    identity, and so are the hooks through which a layer takes its share of
-    the work, :meth:`gather` and :meth:`kv_heads`, and ``expert_rank`` is
-    None (every expert).  The dry-run's per-device trace
-    (``launch/dryrun.py::DeviceShare``) overrides them with one device's share."""
+    model code.  Off a mesh every hook is the identity: :meth:`constrain`,
+    :meth:`gather` and :meth:`kv_heads` (the layer's share of the work),
+    :meth:`linear` (a product), :meth:`vocab_shard` and :meth:`seq_shard`
+    (None: the vocab and the cache are whole), the batch and mean hooks, and
+    the gradient and norm sums of the train step; ``expert_rank`` is None
+    (every expert).  The dry-run's per-device trace
+    (``launch/dryrun.py::DeviceShare``) overrides :meth:`gather`,
+    :meth:`kv_heads` and ``expert_rank`` with one device's share;
+    :class:`MeshCtx` overrides them all with a rank's share and its collectives."""
 
     def __init__(self, rules=None, mesh=None, remat_policy=None):
         self.rules = rules or TRAIN_RULES
@@ -236,3 +259,363 @@ class AxisCtx:
     def kv_heads(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         """The K and V heads (B, S, Hkv, hd) that the query heads ``q`` read."""
         return k, v
+
+    def linear(self, name: str, x: torch.Tensor, w: torch.Tensor, product) -> torch.Tensor:
+        """``product(x, w)``: the activation ``x`` times the weight ``name`` (its
+        leaf name, ``"wq"``), already in the compute dtype."""
+        return product(x, w)
+
+    def vocab_shard(self, name: str) -> Shard | None:
+        """This rank's ids of the vocab table ``name``, or None: the whole vocab
+        (the dry-run's share: the first rank's ids, counted from 0)."""
+        return None
+
+    def seq_shard(self, slots: int) -> Shard | None:
+        """This rank's slots of a decode cache holding ``slots`` of them here,
+        or None: the whole cache."""
+        return None
+
+    def local_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch ``x`` (its leading dim)."""
+        return x
+
+    def whole_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch of which ``x`` holds this rank's rows."""
+        return x
+
+    def pmean(self, x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+        """The mean of ``x`` over the ranks of the mesh ``axes`` (``jax.lax.pmean``)."""
+        return x
+
+    def shard(self, tree: dict[str, torch.Tensor], specs: dict[str, ParamSpec]) -> dict:
+        """This rank's shard of each whole leaf of ``tree``."""
+        return tree
+
+    def local_shape(self, spec: ParamSpec) -> tuple[int, ...]:
+        """The shape of this rank's shard of a leaf of ``spec``."""
+        return spec.shape
+
+    def reduce_grads(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The step's gradients (one rank's sums) as the gradient of the
+        global mean loss on this rank's shards."""
+        return grads
+
+    def sum_once(self, values: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The sum of one scalar per leaf (as ``values`` gives it on this rank's
+        shard), each leaf's whole counted once."""
+        return torch.stack(list(values.values())).sum()
+
+
+# -- a mesh of processes ------------------------------------------------------------
+MESH_FAMILIES = ("dense", "moe")  # what MeshCtx runs; the rest is ROADMAP Queue 1 item 4h
+FSDP_AXES = ("pod", "data")  # mesh axes a weight dim is gathered over before its products
+
+# The layers' products with a weight, by the weight's leaf name: the weight
+# dims the product contracts (the others are its outputs).  With the rule
+# table's partitions of each weight and of the activations (a weight's
+# "embed" dim is the activation's "embed_act"), they fix the collectives
+# over "model" around each product (product_plans).  Under TRAIN_RULES:
+# "f" into wq/wk/wv, gate/up and the logits (column-parallel), "g" after
+# wo and down (row-parallel); under DECODE_RULES (weights' embed dim on
+# model): the input cut to the rank's part and "g" after wq/wk/wv and
+# gate/up, an all-gather after wo and down (their embed outputs).
+CONTRACTED = {"wq": (0,), "wk": (0,), "wv": (0,), "wo": (0, 1), "gate": (0,), "up": (0,),
+              "down": (0,), "shared_gate": (0,), "shared_up": (0,), "shared_down": (0,),
+              "lm_head": (1,), "embed": (1,)}
+ACTIVATION_AXIS = {"embed": "embed_act"}
+# Weights every rank holds whole that a layer applies to an activation whose
+# dim (here: its heads) the rules may split over "model": where they do, each
+# rank's gradient is its heads' part, so the weight passes "f" (MeshCtx.gather).
+SPLIT_READERS = {"q_norm": "heads", "k_norm": "kv_heads"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductPlan:
+    """The collectives over ``model`` around one weight's product."""
+
+    copy_f: bool  # "f" on the input: every rank holds it whole, the product is split
+    cut_input: bool  # the input's last dim cut to this rank's part of the contracted dim
+    reduce_g: bool  # "g" on the output: the ranks' partial sums (taken in f32)
+    gather: bool  # the output's last dim gathered whole
+
+
+def _on(entry, axis: str) -> bool:
+    return entry is not None and axis in ((entry,) if isinstance(entry, str) else entry)
+
+
+def _padded(part: tuple, n: int) -> tuple:
+    return tuple(part) + (None,) * (n - len(part))
+
+
+def product_plans(specs: dict[str, ParamSpec], rules, mesh) -> dict[str, ProductPlan]:
+    """The :class:`ProductPlan` of every weight of ``specs`` that a layer
+    multiplies an activation by (``CONTRACTED``; the MoE's expert weights
+    take the expert-parallel path instead), keyed by leaf name."""
+    plans: dict[str, ProductPlan] = {}
+    for path, spec in specs.items():
+        name = path.rsplit(".", 1)[-1]
+        if name not in CONTRACTED or "experts" in spec.axes:
+            continue
+        axes, shape = spec.axes, spec.shape
+        if axes[:1] == ("layers",):
+            axes, shape = axes[1:], shape[1:]
+        w = _padded(logical_to_spec(axes, shape, rules, mesh), len(axes))
+        act = _padded(logical_to_spec(tuple(ACTIVATION_AXIS.get(a, a) for a in axes), shape,
+                                      rules, mesh), len(axes))
+        cin = CONTRACTED[name]
+        cout = tuple(i for i in range(len(axes)) if i not in cin)
+        model_in = any(_on(w[i], "model") for i in cin)
+        model_out = any(_on(w[i], "model") for i in cout)
+        act_in = any(_on(act[i], "model") for i in cin)
+        act_out = any(_on(act[i], "model") for i in cout)
+        plan = ProductPlan(copy_f=(model_in or model_out) and not act_in,
+                           cut_input=model_in and not act_in, reduce_g=model_in,
+                           gather=model_out and not act_out)
+        if plan.cut_input and len(cin) != 1:
+            raise NotImplementedError(f"{path}: a whole input cut over {len(cin)} dims")
+        if plans.setdefault(name, plan) != plan:
+            raise ValueError(f"{path}: the weights named {name!r} need different collectives")
+    return plans
+
+
+def _shard_index(entry, mesh, coords) -> tuple[int, int]:
+    """(index, count) of this rank's part of a dim split over ``entry``: the
+    axes of a tuple entry major to minor, as ``jax.sharding`` orders them."""
+    names = (entry,) if isinstance(entry, str) else entry
+    idx = 0
+    for name in names:
+        idx = idx * mesh.shape[name] + coords[name]
+    return idx, _axis_size(mesh, names)
+
+
+def shard_params(full: dict[str, torch.Tensor], specs: dict[str, ParamSpec], rules, mesh,
+                 coords: dict[str, int]) -> dict[str, torch.Tensor]:
+    """The shard of each whole leaf of ``full`` that the rank at ``coords``
+    holds under ``rules`` (a copy of it): the counterpart of placing a tree by
+    the JAX package's ``tree_shardings``."""
+    out = {}
+    for name, t in full.items():
+        sp = specs[name]
+        for dim, entry in enumerate(logical_to_spec(sp.axes, sp.shape, rules, mesh)):
+            if entry is not None:
+                idx, count = _shard_index(entry, mesh, coords)
+                n = t.shape[dim] // count
+                t = t.narrow(dim, idx * n, n)
+        out[name] = t.clone()
+    return out
+
+
+def unshard(shards: dict[str, torch.Tensor], specs: dict[str, ParamSpec], rules,
+            mesh) -> dict[str, torch.Tensor]:
+    """The whole leaves, on every rank, from each rank's ``shards`` (the
+    inverse of :func:`shard_params`, by all-gathers): for checkpoints and tests."""
+    out = {}
+    for name, t in shards.items():
+        sp = specs[name]
+        for dim, entry in enumerate(logical_to_spec(sp.axes, sp.shape, rules, mesh)):
+            if entry is None:
+                continue
+            if not isinstance(entry, str):
+                raise NotImplementedError(f"{name}: a dim split over several axes {entry}")
+            t = D.all_gather(t, mesh.axis(entry), dim)
+        out[name] = t
+    return out
+
+
+def require_mesh_ctx(ctx, what: str) -> None:
+    """Raise unless ``ctx`` is a :class:`MeshCtx`, the one context whose hooks
+    hold a mesh's collectives (another with a ``mesh`` set would run the
+    rank's share of ``what`` and never combine the shares)."""
+    if not isinstance(ctx, MeshCtx):
+        raise TypeError(f"{what} over a mesh needs a sharding.MeshCtx (its collectives); "
+                        f"got {type(ctx).__name__}")
+
+
+def shards_from_root(full: dict[str, torch.Tensor] | None, specs: dict[str, ParamSpec],
+                     rules_tables: list, mesh) -> list[dict[str, torch.Tensor]]:
+    """Each rank's shards, under each table of ``rules_tables``, of the leaves
+    that world rank 0 holds whole in ``full`` (None on the other ranks): rank
+    0 broadcasts one leaf at a time and every rank keeps its slices of it
+    (:func:`shard_params`), so a rank holds one whole leaf at most beside its
+    shards.  How the rank that restored a checkpoint hands it out (the JAX
+    package's checkpoint docstring: "the caller re-shards with the new mesh's
+    shardings")."""
+    out: list[dict[str, torch.Tensor]] = [{} for _ in rules_tables]
+    for name, spec in specs.items():
+        t = full[name] if full is not None else torch.empty(spec.shape, dtype=spec.dtype,
+                                                            device=mesh.device)
+        D.broadcast(t, mesh.world, 0)
+        for shards, rules in zip(out, rules_tables):
+            shards.update(shard_params({name: t}, specs, rules, mesh, mesh.coords))
+        del t
+    return out
+
+
+class MeshCtx(AxisCtx):
+    """A rank's context on a :class:`launch.mesh.ProcessMesh` for the model
+    ``cfg`` under ``rules``: every hook of :class:`AxisCtx` with this rank's
+    share and the collectives of ``distributed.py``.  Parameters, optimizer
+    state and the decode cache are the rank's shards (:meth:`shard`,
+    :meth:`local_shape`); batches, tokens, logits and losses go in and come
+    out whole, as the JAX package's jitted steps take and give them.  The
+    families of ``MESH_FAMILIES`` with token inputs only: any other raises."""
+
+    def __init__(self, rules, mesh, cfg):
+        from repro_torch.models.model import build  # the models import this module
+
+        if cfg.family not in MESH_FAMILIES or cfg.input_mode != "tokens":
+            what = (f"the {cfg.family} family" if cfg.family not in MESH_FAMILIES
+                    else f"{cfg.input_mode} inputs")
+            raise NotImplementedError(f"{cfg.name}: {what} on a mesh is not ported "
+                                      "(ROADMAP Queue 1 item 4h)")
+        super().__init__(dict(rules), mesh)
+        self.cfg = cfg
+        self.specs = build(cfg).param_specs()
+        self.parts = tree_pspecs(self.specs, self.rules, mesh)
+        self.plans = product_plans(self.specs, self.rules, mesh)
+        self.group = cfg.num_heads // cfg.num_kv_heads
+        heads = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+        self.summed = {name for name, axis in SPLIT_READERS.items()
+                       if getattr(self._split(axis, heads[axis]), "name", None) == "model"}
+
+    def _axis(self, entry):
+        if not isinstance(entry, str):
+            raise NotImplementedError(f"a dim split over several mesh axes {entry}")
+        return self.mesh.axis(entry)
+
+    def _split(self, logical: str, n: int):
+        """The mesh axis a dim of ``n`` named ``logical`` is split over, or None."""
+        entry = logical_to_spec((logical,), (n,), self.rules, self.mesh)
+        return self._axis(entry[0]) if entry else None
+
+    def gather(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        """The weight with its FSDP dims gathered whole, in the compute dtype:
+        every FSDP-split leaf is a product's weight, which the product casts
+        to it anyway, so the gather moves half the bytes of the f32 shard."""
+        from repro_torch.models.layers import cast  # the models import this module
+
+        part = self.parts[name]
+        if self.specs[name].axes[:1] == ("layers",):
+            part = part[1:]
+        for dim, entry in enumerate(part):
+            if entry is not None and any(_on(entry, a) for a in FSDP_AXES):
+                w = D.fsdp_gather(cast(w), self._axis(entry), dim)
+        if name.rsplit(".", 1)[-1] in self.summed:
+            w = D.copy_f(w, self.mesh.axis("model"))
+        return w
+
+    def kv_heads(self, q, k, v):
+        """The kv heads this rank's query heads read: all of ``k``/``v`` where
+        they are split as the query heads are; where the query heads are this
+        rank's share and the kv heads whole, the rank's own ones (through "f")."""
+        hq, hkv = q.shape[2], k.shape[2]
+        if hkv * self.group == hq:
+            return k, v
+        ax = self.mesh.axis("model")
+        first = ax.index * hq // self.group
+        last = ((ax.index + 1) * hq - 1) // self.group + 1
+        per = hq // (last - first)  # query heads per kv head, as the kernels pair them
+        if hq % (last - first) or any((ax.index * hq + j) // self.group - first != j // per
+                                      for j in range(hq)):
+            raise ValueError(f"{hq} query heads of rank {ax.index} read kv heads "
+                             f"[{first}, {last}) of {hkv} unevenly")
+        k, v = D.copy_f(k, ax), D.copy_f(v, ax)
+        return k[:, :, first:last].contiguous(), v[:, :, first:last].contiguous()
+
+    def linear(self, name, x, w, product):
+        plan = self.plans.get(name)
+        if plan is None:
+            return product(x, w)
+        ax = self.mesh.axis("model")
+        if plan.copy_f:
+            x = D.copy_f(x, ax)
+        if plan.cut_input:
+            n = x.shape[-1] // ax.size
+            x = x[..., ax.index * n:(ax.index + 1) * n]
+        if plan.reduce_g:
+            y = D.reduce_g(product(x.float(), w.float()), ax).to(x.dtype)
+        else:
+            y = product(x, w)
+        return D.gather_out(y, ax, -1) if plan.gather else y
+
+    def vocab_shard(self, name):
+        part = self.parts[name]
+        if not part or not _on(part[0], "model"):
+            return None
+        ax = self.mesh.axis("model")
+        n = self.specs[name].shape[0] // ax.size
+        return Shard(ax.index * n, (ax.index + 1) * n, ax)
+
+    def seq_shard(self, slots):
+        entry = self.rules.get("cache_seq") or ()
+        if "model" not in entry or "model" not in self.mesh.shape:
+            return None
+        ax = self.mesh.axis("model")
+        return Shard(ax.index * slots, (ax.index + 1) * slots, ax)
+
+    def _batch_axis(self, rows: int):
+        ax = self._split("batch", rows)
+        entry = [a for a in (self.rules.get("batch") or ()) if a in self.mesh.shape]
+        if entry and ax is None:
+            raise ValueError(f"a batch of {rows} rows does not split over the mesh's {entry}")
+        return ax
+
+    def local_batch(self, x):
+        ax = self._batch_axis(x.shape[0])
+        if ax is None:
+            return x
+        n = x.shape[0] // ax.size
+        return x[ax.index * n:(ax.index + 1) * n]
+
+    def whole_batch(self, x):
+        ax = self._batch_axis(x.shape[0] * self.mesh.shape.get("data", 1))
+        return x if ax is None else D.gather_out(x, ax, 0)
+
+    def pmean(self, x, axes):
+        present = [a for a in axes if a in self.mesh.shape]
+        if set(present) == set(self.mesh.shape):
+            return D.pmean(x, self.mesh.world)
+        if len(present) > 1:
+            raise NotImplementedError(f"a mean over the mesh axes {present}")
+        return D.pmean(x, self.mesh.axis(present[0])) if present else x
+
+    def shard(self, tree, specs):
+        return shard_params(tree, specs, self.rules, self.mesh, self.mesh.coords)
+
+    def local_shape(self, spec):
+        part = logical_to_spec(spec.axes, spec.shape, self.rules, self.mesh)
+        if "cache_seq" in spec.axes:  # seq_shard reads the rule: the cache must split by it
+            i = spec.axes.index("cache_seq")
+            want = self.seq_shard(1) is not None
+            if want != (len(part) > i and part[i] is not None):
+                raise ValueError(f"a cache of {spec.shape[i]} slots does not split over "
+                                 f"{self.rules.get('cache_seq')}")
+        return local_shape(spec.shape, part, self.mesh)
+
+    def reduce_grads(self, grads):
+        """Each gradient summed over the ``data`` ranks (FSDP leaves were
+        reduce-scattered by their gathers' backward already, a replicated
+        leaf is all-reduced here) and divided by their count: the gradient of
+        the mean loss.  The ``model`` ranks hold theirs whole ("f" and "g")."""
+        if "data" not in self.mesh.shape:
+            return grads
+        ax = self.mesh.axis("data")
+        out = {}
+        for name, g in grads.items():
+            if not any(_on(e, "data") for e in self.parts[name]):
+                g = D.all_reduce(g, ax)
+            out[name] = g / ax.size
+        return out
+
+    def sum_once(self, values):
+        """Each leaf's value counted on the first rank of every axis it is
+        replicated over, summed over the world."""
+        total = None
+        for name, v in values.items():
+            used = {a for e in self.parts[name] if e is not None
+                    for a in ((e,) if isinstance(e, str) else e)}
+            if all(self.mesh.coords[a] == 0 for a in self.mesh.shape if a not in used):
+                total = v if total is None else total + v
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=next(iter(values.values())).device)
+        return D.all_reduce(total, self.mesh.world)

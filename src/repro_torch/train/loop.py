@@ -53,6 +53,9 @@ class Trainer:
                  adamw: opt_mod.AdamWConfig | None = None, num_microbatches: int = 1,
                  ckpt: CheckpointManager | None = None, repair: RepairCoordinator | None = None,
                  ckpt_every: int = 50, device=None):
+        if getattr(ctx, "mesh", None) is not None and (ckpt is not None or repair is not None):
+            raise NotImplementedError("checkpoints of a train state sharded over a mesh are not "
+                                      "ported (ROADMAP Queue 1 item 4h)")
         self.cfg = cfg
         self.ctx = ctx or AxisCtx()
         self.device = resolve_device(device)
@@ -65,9 +68,11 @@ class Trainer:
 
     def init_state(self, seed: int = 0) -> dict:
         """Parameters drawn from a ``torch.Generator`` seeded with ``seed`` on
-        the trainer's device (the JAX package's init rules, other numbers)."""
+        the trainer's device (the JAX package's init rules, other numbers);
+        over a mesh, this rank's shard of them."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = init_params(build(self.cfg).param_specs(), gen, device=self.device)
+        specs = build(self.cfg).param_specs()
+        params = self.ctx.shard(init_params(specs, gen, device=self.device), specs)
         return opt_mod.init_state(params)
 
     def restore_latest(self, template_state):

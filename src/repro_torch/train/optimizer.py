@@ -45,18 +45,22 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, ctx=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, leaves in the JAX
-    package's order."""
-    leaves = [x.float().square().sum() for x in flatten(tree).values()]
-    return torch.sqrt(torch.stack(leaves).sum())
+    package's order.  Over a mesh the leaves are the rank's shards, and
+    ``ctx.sum_once`` counts each leaf's whole once: a leaf replicated over an
+    axis is not counted once per replica."""
+    leaves = {k: x.float().square().sum() for k, x in flatten(tree).items()}
+    total = torch.stack(list(leaves.values())).sum() if ctx is None else ctx.sum_once(leaves)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def update(state: dict, grads: dict[str, torch.Tensor], cfg: AdamWConfig):
-    """One AdamW step (with global-norm clipping). Returns (new_state, metrics)."""
+def update(state: dict, grads: dict[str, torch.Tensor], cfg: AdamWConfig, ctx=None):
+    """One AdamW step (with global-norm clipping). Returns (new_state, metrics).
+    Over a mesh (``ctx``) each rank updates its shards."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, ctx)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = _schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -4,7 +4,16 @@
 with microbatched gradient accumulation (one microbatch's activations held
 at a time, f32 gradients summed in order and averaged) and AdamW.
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry points.
-There is no mesh: ``shard_grad_accum`` with one raises.
+
+Over a mesh (``sharding.MeshCtx``) the state is the rank's shard and the
+batch global.  The backward of every FSDP gather (``distributed.fsdp_gather``)
+reduce-scatters that leaf's gradient onto the rank's shard in each
+microbatch, so the accumulator holds shards only: what the JAX package's
+``shard_grad_accum`` asks of XLA with a sharding constraint on the
+accumulator holds here with or without the flag, which is accepted for the
+same signature.  The replicated leaves are summed over the ``data`` ranks
+once, after the last microbatch (``MeshCtx.reduce_grads``); AdamW then
+updates each rank's shard, its clipping norm counting every leaf once.
 """
 from __future__ import annotations
 
@@ -12,9 +21,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import build
+from repro_torch.sharding import require_mesh_ctx
 from repro_torch.train import optimizer as opt
-
-_NOT_PORTED = "is not ported (ROADMAP Queue 1 item 4)"
 
 
 def make_loss_fn(cfg: ArchConfig, ctx=None):
@@ -28,9 +36,12 @@ def make_loss_fn(cfg: ArchConfig, ctx=None):
 
 def make_train_step(cfg: ArchConfig, ctx=None, adamw: opt.AdamWConfig | None = None,
                     num_microbatches: int = 1, shard_grad_accum: bool = False):
-    if shard_grad_accum and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(f"make_train_step: shard_grad_accum over a mesh {_NOT_PORTED}")
+    """``shard_grad_accum`` changes nothing here: the FSDP gathers' backward
+    already accumulates onto the shard (module docstring)."""
     adamw = adamw or opt.AdamWConfig()
+    if getattr(ctx, "mesh", None) is not None:
+        require_mesh_ctx(ctx, "make_train_step")
+    reduce = (lambda g: g) if ctx is None else ctx.reduce_grads
     loss_fn = make_loss_fn(cfg, ctx)
 
     def grad_fn(params, batch):
@@ -46,6 +57,7 @@ def make_train_step(cfg: ArchConfig, ctx=None, adamw: opt.AdamWConfig | None = N
         params = state["params"]
         if num_microbatches == 1:
             loss, grads = grad_fn(params, batch)
+            grads = reduce(grads)
         else:
             def split(x):
                 return x.reshape((num_microbatches, x.shape[0] // num_microbatches) + x.shape[1:])
@@ -59,9 +71,10 @@ def make_train_step(cfg: ArchConfig, ctx=None, adamw: opt.AdamWConfig | None = N
                 for k, acc in grads.items():
                     acc.add_(g[k])  # in place: one f32 accumulator per parameter
                 losses.append(loss_i)
+            grads = reduce(grads)
             grads = {k: g / num_microbatches for k, g in grads.items()}
             loss = torch.stack(losses).mean()
-        new_state, opt_metrics = opt.update(state, grads, adamw)
+        new_state, opt_metrics = opt.update(state, grads, adamw, ctx)
         return new_state, {"loss": loss, **opt_metrics}
 
     return train_step

@@ -622,8 +622,9 @@ def _bwd_inputs(case, device):
 def test_attention_backward_kernel_matches_plain_version(cuda, case):
     q, k, v, do, kw = _bwd_inputs(case, cuda)
     o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    b, sq, h, hd = q.shape  # the lse call takes the kernel the dispatch rule names
     assert torch.equal(o, fa.flash_attention_variant(
-        "tile" if fa.tensor_cores_take(q.dtype, q.shape[3]) else "general", q, k, v, **kw))
+        fa.choose_variant(q.dtype, sq, h, k.shape[2], hd), q, k, v, **kw))
     o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-5)
     launches = fab.flash_attention_bwd.launches
@@ -1085,3 +1086,137 @@ def test_dryrun_prediction_against_the_cards_peak(cuda, kind):
     temp_gap = measured - arg_bytes - pred["memory"]["temp_bytes"]
     assert abs(temp_gap) <= max(0.05 * pred["memory"]["temp_bytes"], 256 * 1024), (
         measured, pred["memory"])
+
+
+# -- the mesh: "split" with lse, the Gloo card route, a 2 x 2 world on one card ------------
+@pytest.mark.parametrize("b,sk,h,hkv,hd,pos,kpos", [
+    (4, 16, 4, 2, 16, 3, "arange"),          # the CPU mesh test's decode, one split
+    (2, 2048, 32, 8, 128, 1000, "arange"),   # granite-8b, a 2,048-slot shard: several splits
+    (2, 2048, 32, 8, 128, 1000, "shard1"),   # the second model rank's shard: no visible key
+    (16, 4096, 32, 4, 128, 3000, "arange"),  # yi-9b widths, 4,096 slots
+    (1, 2048, 25, 5, 64, 1500, "ring"),      # hymba's ring before it fills (UNWRITTEN slots)
+])
+def test_split_with_lse_matches_plain_version(cuda, b, sk, h, hkv, hd, pos, kpos):
+    """Decode rows (< 64 per kv head) take "split", which writes the row
+    log-sum-exp when asked: o as without it, lse as the plain version's
+    (-1e30 exactly for a row that sees no key)."""
+    from repro_torch.models.attention import ring_positions
+
+    gen = torch.Generator(device=cuda).manual_seed(sk + pos)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).bfloat16()
+    kp = {"arange": torch.arange(sk, dtype=torch.int32, device=cuda),
+          "shard1": torch.arange(sk, 2 * sk, dtype=torch.int32, device=cuda),
+          "ring": ring_positions(pos, sk, cuda)}[kpos]
+    kw = dict(q_positions=torch.tensor([pos], dtype=torch.int32, device=cuda), k_positions=kp,
+              causal=True, window=sk if kpos == "ring" else 0)
+    split = fa.flash_attention.variant_launches["split"]
+    o, lse = ops.flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.variant_launches["split"] == split + 1
+    assert torch.equal(o, ops.flash_attention(q, k, v, **kw))
+    o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(o, o_ref, atol=2**-7, rtol=2**-7)
+    if kpos == "shard1":
+        assert bool((lse == fa.NEG_INF).all())
+    else:
+        torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-5)
+
+
+def _gloo_card_rank(mesh):
+    """Each collective on card tensors (the route built from all_reduce)
+    against the sum written out from both ranks' inputs."""
+    from repro_torch import distributed as D
+
+    ax = mesh.axis("model")
+    xs = [torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(r)).to(mesh.device)
+          for r in range(2)]
+    xs[0][0, 0, 0] = -0.0
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        mine = xs[ax.index].to(dtype)
+        want = torch.cat([x.to(dtype) for x in xs], 1)
+        got = D.all_gather(mine, ax, 1)
+        out[f"gather.{dtype}"] = bool(torch.equal(got, want)
+                                      and torch.equal(torch.signbit(got), torch.signbit(want)))
+        total = (xs[0].to(dtype).float() + xs[1].to(dtype).float()).to(dtype)
+        out[f"scatter.{dtype}"] = bool(torch.equal(D.reduce_scatter(mine, ax, 1),
+                                                   total.narrow(1, ax.index * 2, 2)))
+        out[f"sum.{dtype}"] = bool(torch.equal(D.all_reduce(mine, ax), total))
+        out[f"device.{dtype}"] = got.device.type
+    out["route"] = D.ROUTES[(torch.distributed.get_backend(ax.group), "cuda")]
+    return out
+
+
+def test_gloo_collectives_on_card_tensors(cuda):
+    from repro_torch.launch.mesh import launch
+
+    for rank in launch(_gloo_card_rank, data=1, model=2, device="cuda", timeout=300):
+        assert rank.pop("route") == "all_reduce"
+        assert {k: v for k, v in rank.items() if not k.startswith("device")} == {
+            k: True for k in rank if not k.startswith("device")}
+        assert {v for k, v in rank.items() if k.startswith("device")} == {"cuda"}
+
+
+def _mesh_card_rank(mesh, params, cache, toks, batch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build
+    from repro_torch.sharding import DECODE_RULES, TRAIN_RULES, MeshCtx, unshard
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.step import make_train_step
+
+    dev = mesh.device
+    cfg = get_smoke("granite-8b")
+    model = build(cfg)
+    to = lambda tree: {k: torch.from_numpy(v).to(dev) for k, v in tree.items()}  # noqa: E731
+    params = to(params)
+    cache_specs = model.cache_specs(4, 16)
+    dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+    c = dctx.shard({k: v.bfloat16() for k, v in to(cache).items()}, cache_specs)
+    fa.reset_launches()
+    with torch.no_grad():
+        lg, nc = model.decode_step(dctx.shard(params, model.param_specs()), c,
+                                   torch.from_numpy(toks).to(dev), 3, dctx)
+    split = fa.flash_attention.variant_launches["split"]
+    tctx = MeshCtx(TRAIN_RULES, mesh, cfg)
+    step = make_train_step(cfg, tctx, num_microbatches=2, shard_grad_accum=True)
+    _, met = step(init_state(tctx.shard(params, model.param_specs())), to(batch))
+    return {"logits": lg, "cache": unshard(nc, cache_specs, dctx.rules, mesh), "split": split,
+            "loss": met["loss"], "device": lg.device.type}
+
+
+def test_mesh_on_one_card_matches_one_process(cuda):
+    """A 2 x 2 Gloo world of four processes on the one card: granite-smoke's
+    decode over a cache split over model ("split" with lse in every rank)
+    and a train step with shard_grad_accum, against one process on the card."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import launch
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_smoke("granite-8b")
+    model = build(cfg)
+    params = init_params(model.param_specs(), torch.Generator().manual_seed(2), device="cpu")
+    rng = np.random.default_rng(0)
+    cache = {k: rng.normal(size=s.shape).astype(np.float32)
+             for k, s in model.cache_specs(4, 16).items()}
+    toks = rng.integers(0, cfg.vocab, (4, 1))
+    batch = {k: rng.integers(0, cfg.vocab, (4, 16)) for k in ("tokens", "labels")}
+    ranks = launch(_mesh_card_rank, {k: v.numpy() for k, v in params.items()}, cache, toks, batch,
+                   data=2, model=2, device="cuda", timeout=600)
+    p = {k: v.to(cuda) for k, v in params.items()}
+    c = {k: torch.from_numpy(v).to(cuda).bfloat16() for k, v in cache.items()}
+    with torch.no_grad():
+        lg, nc = model.decode_step(p, c, torch.from_numpy(toks).to(cuda), 3)
+    _, met = make_train_step(cfg, num_microbatches=2)(
+        init_state(p), {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    for r in ranks:
+        assert r["device"] == "cuda" and r["split"] == cfg.num_layers
+        assert np.abs(r["logits"] - lg.float().cpu().numpy()).max() < 0.05
+        for k in nc:
+            want = nc[k].float().cpu().numpy()
+            assert np.abs(r["cache"][k] - want).max() <= 2**-4 * np.abs(want).max()
+        assert abs(float(r["loss"]) - float(met["loss"])) < 0.02

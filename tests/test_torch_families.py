@@ -537,11 +537,13 @@ def test_moe_expert_parallel_path_raises():
     class Mesh:
         shape = {"data": 1, "model": 2}
 
+    # the path runs under sharding.MeshCtx (tests/test_torch_mesh.py); a context
+    # without its collectives and a mesh set refuses it rather than run one rank's share
     ctx = TAxisCtx()
     ctx.mesh = Mesh()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4g"):
+    with pytest.raises(TypeError, match="needs a sharding.MeshCtx"):
         TMoE.apply_moe(layer, torch.zeros((1, 4, cfg.d_model)), cfg, ctx)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4g"):  # through the model
+    with pytest.raises(TypeError, match="needs a sharding.MeshCtx"):  # through the model
         tbuild(cfg).loss(_port_params("qwen3-moe-30b-a3b"),
                          _port_batch(_batch("qwen3-moe-30b-a3b")), ctx)
 

@@ -47,7 +47,8 @@ def test_port_files_exist():
                 "src/repro_torch/configs/deepseek_v2_lite.py",
                 "src/repro_torch/configs/whisper_tiny.py", "src/repro_torch/launch/dryrun.py",
                 "src/repro_torch/launch/shapes.py", "src/repro_torch/launch/mesh.py",
-                "src/repro_torch/launch/cost_analysis.py", "chip_smoke.py"):
+                "src/repro_torch/launch/cost_analysis.py", "src/repro_torch/distributed.py",
+                "chip_smoke.py"):
         assert rel in names
 
 

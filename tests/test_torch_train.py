@@ -328,9 +328,9 @@ def test_microbatches_average_the_gradients():
 def test_unported_options_raise():
     cfg = tconfigs.get_smoke("granite-8b")
     tstep.make_decode_step(cfg, long_mode=True)  # long mode is ported
-    mesh_ctx = TAxisCtx()
+    mesh_ctx = TAxisCtx()  # a mesh without MeshCtx's collectives (tests/test_torch_mesh.py)
     mesh_ctx.mesh = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="needs a sharding.MeshCtx"):
         tstep.make_train_step(cfg, mesh_ctx, shard_grad_accum=True)
     tstep.make_train_step(cfg, TAxisCtx(), shard_grad_accum=True)  # no mesh: nothing to shard
     p = params_from_numpy(_jax_params("granite-8b"), device="cpu")
@@ -349,7 +349,7 @@ def test_unported_options_raise():
                  for k, v in tbuild(moe_cfg).param_specs().items() if k.startswith("blocks.moe.")}
     ep_ctx = TAxisCtx()
     ep_ctx.mesh = type("Mesh", (), {"shape": {"data": 1, "model": 2}})()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="needs a sharding.MeshCtx"):
         TMoE.apply_moe(moe_layer, torch.zeros((1, 2, moe_cfg.d_model)), moe_cfg, ep_ctx)
 
 
