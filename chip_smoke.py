@@ -34,7 +34,9 @@ the phase that caused it; any failure exits non-zero and prints no result:
    hd_v 128 through ``models/layers.py``, V zero-padded, beside SDPA at
    Ev 128), and "split" with its row log-sum-exp at phase 19's decode (a
    rank's 2 rows over its 2,048 of 4,096 slots, granite-8b's widths; the
-   second model rank's shard, which sees no key, too) against
+   second model rank's shard, which sees no key, too; hymba's long mode: a
+   rank's 1,024 slots of the 2,048-slot ring under the window, after the ring
+   wrapped, and the second rank's half before it was written) against
    ``flash_attention_lse_ref``, timed beside SDPA; ``flash_attention_bwd``
    against its plain version within
    ``BWD_TOL`` at phase 15's shape (B 4, S 4096, H 24, Hkv 2, hd 128), at
@@ -107,14 +109,14 @@ the phase that caused it; any failure exits non-zero and prints no result:
 14. the registered scenarios on the card (``repro_torch.scenarios``):
    ``serve_grid``, ``concurrent``, ``background``, ``churn``, ``das`` and
    ``tune_admission`` at full size through ``run_scenario(..., device=
-   "cuda")``, each under the profiler, every declared SLO a gate; digests
+   "cuda")``, not profiled (phases 7, 10 and 12 profile the same
+   kernels), every declared SLO a gate; digests
    and headline numbers equal to live CPU runs of the JAX package; then
    ``engine`` with its events/s SLO reported, not raised (the one open
    finding: its 100k speedup), every other number gated; ``churn`` again
    under ``SHELBY_SIMSAN=1`` (same digest) and a sanitized one-epoch
    ``run_sim`` equal to the CPU's; a 3-point sweep of ``tune_admission``'s
-   fetch budget whose digests and argmax equal the JAX package's; device
-   intervals read from the profiler's kineto events (no chrome-trace file);
+   fetch budget whose digests and argmax equal the JAX package's;
 15. training over Shelby (``launch/train.py``'s ``train``) at starcoder2-3b's
    published widths, depth cut to 2 layers, on ``build_cluster``: a
    16,777,216-token corpus blob, batches of 8 x 4096 in two microbatches
@@ -171,18 +173,25 @@ the phase that caused it; any failure exits non-zero and prints no result:
 19. the mesh (path ``mesh``, ``mesh_phase``): a 2 x 2 ("data", "model")
    world of four processes on the one card over Gloo (``launch/mesh.py``),
    granite-8b at published widths with depth cut to 1 and fan-in scaled
-   weights: rank 0 holds the Shelby cluster, publishes the weights, restores
-   them by paid k-of-n reads and hands every rank its shards; every rank
-   serves a generation with ``ServeEngine`` and a ``MeshCtx`` (batch 4 over
-   data, a 4,096-slot cache over model: "split" with lse, the partial
-   attentions combined), then a train step of 4 x 4096 in 2 microbatches
-   with ``shard_grad_accum``; qwen3-moe's widths at one layer, the
-   expert-parallel MoE over 1 x 4096; launches counted per rank (a "split"
-   per layer and step, "tile" and "wgmma" as in phase 15), each rank's peak
-   memory and collective bytes printed; then against one process on the
-   card: the MoE, the losses, and gates on decode logits, caches and the
-   gradient, which two faults planted in the mesh (the combine ignoring
-   lse, the data replicas' gradients not summed) must fail; the f32 partial
+   weights that rank 0 makes on the card and hands out as every rank's
+   shards; every rank serves a generation with ``ServeEngine`` and a
+   ``MeshCtx`` (batch 4 over data, a 4,096-slot cache over model: "split"
+   with lse, the partial attentions combined), then a train step of 4 x 4096
+   in 2 microbatches with ``shard_grad_accum``; qwen3-moe's widths at one
+   layer, the expert-parallel MoE over 1 x 4096; then every other family on
+   the same world: hymba-1.5b at published widths cut to 2 layers (served,
+   long mode teacher-forced at positions 2,040-2,060 from a seeded whole
+   2,048-slot ring split 1,024 slots a rank, one 2 x 4096 step), whisper-tiny
+   whole (served over seeded frames, one step), falcon-mamba, deepseek-v2-lite
+   and phi-3-vision at smoke widths (served, one step); a hymba-smoke train
+   state checkpointed from the mesh through rank 0's Shelby cluster (an SP
+   loses its chunks, the repair, the restore into the mesh and into one
+   process, the bytes one process writes); launches counted per rank and
+   block, each rank's peak memory and collective bytes printed; then against
+   one process on the card: the MoE, the losses, and gates on decode logits,
+   caches and the gradient of every family, which three faults planted in
+   the mesh (the combine ignoring lse, the data replicas' gradients not
+   summed, hymba's in_proj split contiguously) must fail; the f32 partial
    products timed against bf16.  Four ranks share one card: nothing here
    measures multi-GPU speed;
 20. the script's seconds, the card again, one JSON line per kernel, then the
@@ -298,6 +307,14 @@ MESH_MOE_ARCH, MESH_MOE_SEQ = "qwen3-moe-30b-a3b", 4096  # 1 layer: 128 experts,
 MESH_MOE_ATOL, MESH_AUX_ATOL = 0.05, 1e-5
 MESH_CACHE_NOISE_FACTOR = 3.0  # the caches' relative L2 distance from one process's, in
 # multiples of that process's own bf16 error (its caches against f32 compute)
+# every other family in the same world
+MESH_HYMBA_LAYERS = 2  # hymba-1.5b's published widths, depth 32 -> 2, as phase 16
+MESH_LONG_POSITIONS = range(2040, 2061)  # long mode teacher-forced across the 2,048-slot ring's
+# wrap (1,024 slots a rank) from a seeded whole ring: no 2,000 decode steps to get there
+MESH_HYMBA_TRAIN = (2, 4096)  # one step of two train_4k rows, a row a data rank
+MESH_WHISPER_TRAIN = (2, 64)  # whisper-tiny, 64 tokens over 1,500 seeded frames
+MESH_SMOKE_ARCHS = ("falcon-mamba-7b", "deepseek-v2-lite-16b", "phi-3-vision-4.2b")
+MESH_SMOKE_TRAIN = (4, 64)
 MESH_TIMEOUT = 900  # seconds the world may take, or it fails
 WARM_GENERATIONS = 9
 CHURN_EPOCHS = 3
@@ -1384,11 +1401,13 @@ def _run_scenario_profiled(name: str, profiled: bool = True, **kw) -> tuple:
 
 def scenario_phase(gk, device: str = "cuda") -> dict:
     """The registered scenarios at full size on ``device``: each of
-    ``SCENARIOS`` through ``run_scenario`` under the profiler (a declared
-    SLO that fails raises), its digest and headline numbers held to the JAX
-    package's; ``engine`` with ``raise_on_violation=False``, every SLO but
-    ``ENGINE_OPEN_SLO`` a gate; ``churn`` again under ``SHELBY_SIMSAN=1``
-    (these two timed without the profiler);
+    ``SCENARIOS`` through ``run_scenario`` (a declared SLO that fails
+    raises), its digest and headline numbers held to the JAX package's;
+    ``engine`` with ``raise_on_violation=False``, every SLO but
+    ``ENGINE_OPEN_SLO`` a gate; ``churn`` again under ``SHELBY_SIMSAN=1``.
+    None runs under the profiler: its post-processing took 125 s against
+    54 s of the scenarios' own wall time, and phases 7, 10 and 12 profile
+    the same kernels;
     a sanitized one-epoch ``run_sim`` against the CPU's; a sweep of
     ``tune_admission``'s fetch budget."""
     from repro_torch.core.simulation import honest_population, run_sim
@@ -1415,7 +1434,8 @@ def scenario_phase(gk, device: str = "cuda") -> dict:
 
     for name in SCENARIOS:
         seen = gk.gf_matmul.launches
-        res, busy, printed = _run_scenario_profiled(name, smoke=False, device=device)
+        res, busy, printed = _run_scenario_profiled(name, profiled=False, smoke=False,
+                                                    device=device)
         row = rows[name] = scenario_row(name, res, busy, printed, gk.gf_matmul.launches - seen)
         if name in SCENARIO_DIGESTS and row["digest"] != SCENARIO_DIGESTS[name]:
             raise SystemExit(f"scenario {name}: digest {row['digest']}, "
@@ -2372,13 +2392,15 @@ def dryrun_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
 
 
 def check_split_lse(name: str, b: int, sk: int, h: int, hkv: int, hd: int, pos: int,
-                    k_start: int, gen) -> dict:
+                    k_start: int, gen, ring: int = 0) -> dict:
     """"split" with the row log-sum-exp at a rank's decode shape (its data
-    shard of the batch, its shard of the cache's slots from ``k_start``):
-    o within ``ATTN_TOL`` and lse within ``LSE_ATOL`` of the plain version
-    (-1e30 exactly for rows that see no key); the kernel timed (device ms
-    from the profiler, host ms by CUDA events) beside its bound, the plain
-    version and ``scaled_dot_product_attention`` over the same keys."""
+    shard of the batch, its shard of the cache's slots from ``k_start``; with
+    ``ring``, its slice of a ring of that many slots under a window of
+    ``ring``: the positions ``ring_positions`` gives, UNWRITTEN for a slot not
+    written yet): o within ``ATTN_TOL`` and lse within ``LSE_ATOL`` of the
+    plain version (-1e30 exactly for rows that see no key); the kernel timed
+    (device ms from the profiler, host ms by CUDA events) beside its bound,
+    the plain version and ``scaled_dot_product_attention`` over the same keys."""
     import torch
     import torch.nn.functional as F
 
@@ -2389,15 +2411,20 @@ def check_split_lse(name: str, b: int, sk: int, h: int, hkv: int, hd: int, pos: 
     k = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
     v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
     qpos = torch.tensor([pos], dtype=torch.int32, device="cuda")
-    kpos = torch.arange(k_start, k_start + sk, dtype=torch.int32, device="cuda")
-    kw = dict(q_positions=qpos, k_positions=kpos, causal=True)
+    if ring:
+        from repro_torch.models.attention import ring_positions
+
+        kpos = ring_positions(pos, ring, "cuda")[k_start:k_start + sk].contiguous()
+    else:
+        kpos = torch.arange(k_start, k_start + sk, dtype=torch.int32, device="cuda")
+    kw = dict(q_positions=qpos, k_positions=kpos, causal=True, window=ring)
     split = fa.flash_attention.variant_launches["split"]
     o, lse = ops.flash_attention_lse(q, k, v, **kw)
     o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     if fa.flash_attention.variant_launches["split"] != split + 1:
         raise SystemExit(f"{name}: the lse call did not take the split kernel")
-    vis = fa.visible(qpos, kpos, True, 0)
+    vis = fa.visible(qpos, kpos, True, ring)
     atol, rtol = ATTN_TOL["bfloat16"]
     err = (o.float() - o_ref.float()).abs()
     bad = int((err > atol + rtol * o_ref.float().abs()).sum())
@@ -2420,7 +2447,7 @@ def check_split_lse(name: str, b: int, sk: int, h: int, hkv: int, hd: int, pos: 
     ms, traces = _device_ms(kern, 20)
     lib_ms, lib_traces = _device_ms(lib, 20)
     bound, by = attention_bound_ms(q, k, vis)
-    row = {"case": name, "shape": [b, 1, sk, h, hkv, hd], "causal": True, "window": 0,
+    row = {"case": name, "shape": [b, 1, sk, h, hkv, hd], "causal": True, "window": ring,
            "dtype": "bfloat16", "variant": "split", "with_lse": True, "violations": bad,
            "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
            "sees_keys": bool(vis.any()), "ms": ms, "host_ms": host, "previous_ms": None,
@@ -2497,18 +2524,14 @@ def _fan_in(params: dict, specs: dict) -> dict:
 
 
 def _mesh_rank(mesh, seed: int, layers: int) -> dict:
-    """One rank of the mesh phase (``mesh_phase``) at ``layers`` layers: its
-    main path counted, then the comparisons (rank 0 runs the one-process
-    references) and the planted faults."""
+    """One rank of the mesh phase (``mesh_phase``) at granite-8b's ``layers``
+    layers: its main path counted, then the comparisons (rank 0 runs the
+    one-process references) and the planted faults; then every other family
+    (``_mesh_family``) and the sharded checkpoint (``_mesh_checkpoint``)."""
     import torch
 
     from repro_torch import distributed as D
     from repro_torch.configs import get
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_attention_bwd as fab
-    from repro_torch.kernels import gf_matmul as gk
-    from repro_torch.kernels import sample_hash as sh
-    from repro_torch.launch.cluster import build_cluster
     from repro_torch.models import attention
     from repro_torch.models import layers as L
     from repro_torch.models import moe as moe_mod
@@ -2516,7 +2539,6 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding import (DECODE_RULES, TRAIN_RULES, MeshCtx, init_params,
                                       shards_from_root)
-    from repro_torch.storage.checkpoint import CheckpointManager
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step
 
@@ -2533,28 +2555,18 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
         torch.cuda.synchronize()
         torch.distributed.barrier()
 
-    gk.gf_matmul.launches = sh.sample_hash.launches = 0
-    fa.reset_launches()
-    fab.reset_launches()
+    segments: dict[str, dict] = {}  # the counted blocks' launches, by block
+    _zero_counts()
     D.reset_moved()
     torch.cuda.reset_peak_memory_stats()
     t_path = time.perf_counter()
-    # 1. rank 0 holds the cluster: publish, then a paid k-of-n restore decoded on the card
+    # 1. rank 0 makes the seeded weights on the card and hands every rank its shards (the
+    # Shelby round trip of phase 19 is the sharded train state's checkpoint, below)
     full = None
     if root:
-        _, _, rpc, client = build_cluster(num_sps=8, device=dev)
-        published = _fan_in(init_params(specs, torch.Generator(device=dev).manual_seed(seed),
-                                        device=dev), specs)
-        mgr = CheckpointManager(client, num_host_shards=2)
-        t = time.perf_counter()
-        rec = mgr.save(step=0, state=published)
-        out["publish_s"], out["weight_bytes"] = time.perf_counter() - t, rec.total_bytes
-        t = time.perf_counter()
-        full = {k: v.to(dev) for k, v in mgr.restore(0, published).items()}
-        torch.cuda.synchronize()
-        out["restore_s"] = time.perf_counter() - t
-        out["restored_equal"] = all(torch.equal(full[k], published[k]) for k in published)
-        del published, mgr, client, rpc
+        full = _fan_in(init_params(specs, torch.Generator(device=dev).manual_seed(seed),
+                                   device=dev), specs)
+        out["weight_bytes"] = sum(t.numel() * t.element_size() for t in full.values())
     t = time.perf_counter()
     dshards, tshards = shards_from_root(full, specs, [DECODE_RULES, TRAIN_RULES], mesh)
     sync_all()
@@ -2609,12 +2621,7 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     del lp, mshards
     sync_all()
     out["path_s"] = time.perf_counter() - t_path
-    out["launches"] = {"gf_matmul": gk.gf_matmul.launches,
-                       "flash_attention": fa.flash_attention.launches,
-                       "flash_attention_bwd": fab.flash_attention_bwd.launches,
-                       "sample_hash": sh.sample_hash.launches}
-    out["variants"] = dict(fa.flash_attention.variant_launches)
-    out["designs"] = dict(fab.flash_attention_bwd.design_launches)
+    segments["granite"] = _read_counts()
     out["moved_bytes"], out["collective_calls"] = dict(D.moved), dict(D.calls)
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
@@ -2635,17 +2642,12 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     # again with a planted fault, which the comparisons must reject
     steps = MESH_PROMPT + MESH_GEN - 1
     cache_specs = model.cache_specs(MESH_BATCH, MESH_TF_SLOTS)
-    fed = [torch.as_tensor(tokens[:, pos:pos + 1], device=dev).long() for pos in range(steps)]
+    fed = torch.as_tensor(tokens[:, :steps], device=dev).long()
 
     def mesh_decode():
         cache = {n: torch.zeros(dctx.local_shape(sp), dtype=sp.dtype, device=dev)
                  for n, sp in cache_specs.items()}
-        logits = []
-        with torch.no_grad():
-            for pos in range(steps):
-                lg, cache = model.decode_step(dshards, cache, fed[pos], pos, dctx)
-                logits.append(lg.float()[:, 0, :cfg.vocab] if root else None)
-        return logits, cache
+        return _mesh_teacher_forced(model, dshards, cache, fed, range(steps), dctx)
 
     mesh_logits, cache = mesh_decode()
     combine, attention.combine_partials = attention.combine_partials, _combine_ignoring_lse
@@ -2658,17 +2660,10 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
                           device=dev)
     gbatch = {"tokens": gtoks[:, :-1], "labels": gtoks[:, 1:]}
 
-    def grads(params, ctx, batch):
-        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-        loss, _ = model.loss(leaves, batch, ctx)
-        g = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
-                                                 materialize_grads=True)))
-        return float(loss.detach()), (g if ctx is None else ctx.reduce_grads(g))
-
-    loss_mesh, g_mesh = grads(tshards, tctx, gbatch)
+    loss_mesh, g_mesh = _mesh_grads(model, tshards, tctx, gbatch)
     scatter, D.reduce_scatter = D.reduce_scatter, _scatter_unsummed
     try:
-        _, g_fault = grads(tshards, tctx, gbatch)
+        _, g_fault = _mesh_grads(model, tshards, tctx, gbatch)
     finally:
         D.reduce_scatter = scatter
     del tshards
@@ -2679,11 +2674,7 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     if root:  # the one process: decode, the train steps, the gradient
         ref_cache = {n: torch.zeros(sp.shape, dtype=sp.dtype, device=dev)
                      for n, sp in cache_specs.items()}
-        one_logits = []
-        with torch.no_grad():
-            for pos in range(steps):
-                lg, ref_cache = model.decode_step(full, ref_cache, fed[pos], pos)
-                one_logits.append(lg.float()[:, 0, :cfg.vocab])
+        one_logits, ref_cache = _mesh_teacher_forced(model, full, ref_cache, fed, range(steps))
         out["logit_max_abs_err"] = max(float((m - o).abs().max())
                                        for m, o in zip(mesh_logits, one_logits))
         out["fault_logit_max_abs_err"] = max(float((m - o).abs().max())
@@ -2695,20 +2686,17 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
         # the one process's own bf16 error: its logits (reported) and caches against f32
         # compute and caches (the forward kernels take f32)
         cache32 = {n: torch.zeros(sp.shape, device=dev) for n, sp in cache_specs.items()}
-        own = 0.0
         L.COMPUTE_DTYPE = torch.float32
         try:
-            with torch.no_grad():
-                for pos in range(steps):
-                    lg, cache32 = model.decode_step(full, cache32, fed[pos], pos)
-                    own = max(own, float((one_logits[pos] - lg[:, 0, :cfg.vocab]).abs().max()))
+            f32_logits, cache32 = _mesh_teacher_forced(model, full, cache32, fed, range(steps))
         finally:
             L.COMPUTE_DTYPE = torch.bfloat16
-        out["logit_bf16_vs_f32_err"] = own
+        out["logit_bf16_vs_f32_err"] = max(float((a - b).abs().max())
+                                           for a, b in zip(one_logits, f32_logits))
         own = [(float((ref_cache[n].float() - c).square().sum()), float(c.square().sum()))
                for n, c in cache32.items()]
         out["cache_bf16_vs_f32_rel"] = (sum(a for a, _ in own) / sum(b for _, b in own)) ** 0.5
-        del cache32, one_logits, mesh_logits, fault_logits
+        del cache32, one_logits, f32_logits, mesh_logits, fault_logits
         step1 = make_train_step(cfg, num_microbatches=MESH_MICROBATCHES)
         state = opt.init_state(full)
         ref_losses = []
@@ -2720,11 +2708,11 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
         torch.cuda.empty_cache()
         # bf16 on the card, and f32 compute on the CPU plain path (the backward kernel takes
         # bf16 only): the one process's own bf16 error
-        loss_ref, ref = grads(full, None, gbatch)
+        loss_ref, ref = _mesh_grads(model, full, None, gbatch)
         L.COMPUTE_DTYPE = torch.float32
         try:
-            loss_f32, ref32 = grads({k: v.cpu() for k, v in full.items()}, None,
-                                    {k: v.cpu() for k, v in gbatch.items()})
+            loss_f32, ref32 = _mesh_grads(model, {k: v.cpu() for k, v in full.items()}, None,
+                                          {k: v.cpu() for k, v in gbatch.items()})
         finally:
             L.COMPUTE_DTYPE = torch.bfloat16
         noise = sum(float((ref[k].float().cpu() - ref32[k]).square().sum()) for k in ref)
@@ -2740,7 +2728,360 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
         dist, _, _ = _shard_err(ref, mine, specs, TRAIN_RULES, mesh)
         if root:
             out[f"{key}_rel_dist_mesh_vs_one"] = dist ** 0.5 / norm ** 0.5
+    del full, ref
+    torch.cuda.empty_cache()
     sync_all()
+    # 6. every other family on the same world, then a sharded train state's checkpoint
+    for i, (key, cfg_f, train, long_mode) in enumerate(_mesh_families()):
+        out[key] = _mesh_family(mesh, cfg_f, seed + 10 + i, segments, train=train,
+                                long_mode=long_mode)
+        torch.cuda.empty_cache()
+        sync_all()
+    out["checkpoint"] = _mesh_checkpoint(mesh, seed, segments)
+    out["segments"] = segments
+    out.update(_sum_counts(segments.values()))
+    sync_all()
+    return out
+
+
+def _zero_counts() -> None:
+    """Every kernel wrapper's launch counts (and attention's by variant, the
+    backward's by design) set to 0, in this process."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import gf_matmul as gk
+    from repro_torch.kernels import sample_hash as sh
+
+    gk.gf_matmul.launches = sh.sample_hash.launches = 0
+    fa.reset_launches()
+    fab.reset_launches()
+
+
+def _read_counts() -> dict:
+    """This process's launch counts since :func:`_zero_counts`."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import gf_matmul as gk
+    from repro_torch.kernels import sample_hash as sh
+
+    return {"launches": {"gf_matmul": gk.gf_matmul.launches,
+                         "flash_attention": fa.flash_attention.launches,
+                         "flash_attention_bwd": fab.flash_attention_bwd.launches,
+                         "sample_hash": sh.sample_hash.launches},
+            "variants": dict(fa.flash_attention.variant_launches),
+            "designs": dict(fab.flash_attention_bwd.design_launches)}
+
+
+def _sum_counts(counts) -> dict:
+    """The sum of :func:`_read_counts` results, key by key."""
+    counts = list(counts)
+    return {part: {k: sum(c[part][k] for c in counts) for k in counts[0][part]}
+            for part in ("launches", "variants", "designs")}
+
+
+@contextlib.contextmanager
+def _counted(segments: dict, name: str):
+    """A block of the mesh's main path: counts zeroed before, read after into
+    ``segments[name]`` (the comparisons between blocks are not counted)."""
+    _zero_counts()
+    yield
+    segments[name] = _read_counts()
+
+
+def _mesh_families() -> list:
+    """(key, config, (train rows, seq), long mode) of each family phase 19 runs
+    besides granite-8b and the MoE layer: hymba-1.5b at its published widths
+    cut to MESH_HYMBA_LAYERS (long mode too), whisper-tiny whole, and
+    MESH_SMOKE_ARCHS at smoke widths (deepseek with capacity factor 64, so
+    that the mesh and one process keep the same tokens)."""
+    from repro_torch.configs import get, get_smoke
+
+    out = [("hymba", dataclasses.replace(get("hymba-1.5b"), num_layers=MESH_HYMBA_LAYERS),
+            MESH_HYMBA_TRAIN, True),
+           ("whisper", get("whisper-tiny"), MESH_WHISPER_TRAIN, False)]
+    for arch in MESH_SMOKE_ARCHS:
+        cfg = get_smoke(arch)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
+        out.append((cfg.name, cfg, MESH_SMOKE_TRAIN, False))
+    return out
+
+
+def _mesh_grads(model, params, ctx, batch):
+    """(loss, gradients) of ``model`` at ``params`` (a rank's shards with a
+    ``MeshCtx``, the whole leaves without), as the train step takes them."""
+    import torch
+
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    loss, _ = model.loss(leaves, batch, ctx)
+    g = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                             materialize_grads=True)))
+    return float(loss.detach()), (g if ctx is None else ctx.reduce_grads(g))
+
+
+def _mesh_teacher_forced(model, params, cache, toks, positions, ctx=None, long_mode=False):
+    """``toks`` (B, len(positions)) decoded teacher-forced at ``positions``:
+    the logits of each (f32, the vocab's ids; None off rank 0 of a mesh) and
+    the cache, updated in place."""
+    import torch
+
+    root = ctx is None or ctx.mesh.rank == 0
+    vocab = model.cfg.vocab
+    logits = []
+    with torch.no_grad():
+        for i, pos in enumerate(positions):
+            lg, cache = model.decode_step(params, cache, toks[:, i:i + 1], pos, ctx,
+                                          long_mode=long_mode)
+            logits.append(lg.float()[:, 0, :vocab] if root else None)
+    return logits, cache
+
+
+def _mesh_family(mesh, cfg, seed: int, segments: dict, *, train, long_mode: bool) -> dict:
+    """One family of phase 19 on the mesh.  Counted (``segments[cfg.name]``):
+    rank 0 makes fan-in scaled weights on the card and hands every rank its
+    shards under DECODE_RULES and TRAIN_RULES (LONG_RULES shards weights as
+    DECODE_RULES); ``ServeEngine`` generates MESH_BATCH x (MESH_PROMPT +
+    MESH_GEN) tokens (an encoder-decoder over seeded frames, each rank
+    encoding its rows); in ``long_mode`` the model is teacher-forced at
+    MESH_LONG_POSITIONS under LONG_RULES (batch 1) from a seeded whole ring
+    that rank 0 hands out, so that the ring wraps without 2,000 decode
+    steps; one train step at ``train`` (rows, seq).  Then, uncounted, against
+    one process on the card (rank 0): decode teacher-forced through
+    MESH_TF_SLOTS slots from position 0, the long-mode logits and ring, and
+    the gradient at MESH_GRAD_BATCH x MESH_GRAD_SEQ, each beside the one
+    process's own bf16 error (f32 compute on the card; the gradient's on the
+    CPU plain path); for a Mamba family the decode again with ``in_proj``
+    split contiguously over model (a planted fault the gates must reject).
+    Returns the ranks' agreement and, on rank 0, the gate values."""
+    import torch
+
+    from repro_torch import sharding as S
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import (DECODE_RULES, LONG_RULES, TRAIN_RULES, MeshCtx,
+                                      init_params, shards_from_root)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+
+    dev, root = mesh.device, mesh.rank == 0
+    model = build(cfg)
+    specs = model.param_specs()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_BATCH, MESH_PROMPT)).astype(np.int32)
+    frames = (torch.randn((MESH_BATCH, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)
+              if cfg.is_encdec else None)
+
+    def batch_of(rows, seq):
+        b = model_batch(cfg, torch.randint(0, cfg.vocab, (rows, seq + 1), generator=gen,
+                                           device=dev), dev)
+        if frames is not None:
+            b["frames"] = frames[:rows]
+        return b
+
+    tbatch = batch_of(*train)
+    out: dict = {"arch": cfg.name, "layers": cfg.num_layers, "routed": cfg.moe is not None}
+    long_specs = model.cache_specs(1, cfg.long_window, long_mode=True) if long_mode else {}
+    ring = None
+    if long_mode and root:  # a ring of long_window slots written at every position below
+        rgen = torch.Generator(device=dev).manual_seed(seed + 1)  # gen draws alike on every rank
+        ring = {n: (torch.randn(sp.shape, generator=rgen, device=dev) * 0.5).to(sp.dtype)
+                for n, sp in long_specs.items()}
+    long_toks = torch.randint(0, cfg.vocab, (1, len(MESH_LONG_POSITIONS)), generator=gen,
+                              device=dev)
+    with _counted(segments, cfg.name):
+        t = time.perf_counter()
+        full = None
+        if root:
+            full = _fan_in(init_params(specs, torch.Generator(device=dev).manual_seed(seed),
+                                       device=dev), specs)
+        dshards, tshards = shards_from_root(full, specs, [DECODE_RULES, TRAIN_RULES], mesh)
+        out["hand_out_s"] = time.perf_counter() - t
+        dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+        engine = ServeEngine(cfg, dshards, ctx=dctx, max_len=MESH_SLOTS)
+        t = time.perf_counter()
+        out["tokens"] = engine.generate(prompts, MESH_GEN, frames=frames)
+        out["generation_s"] = time.perf_counter() - t
+        del engine
+        if long_mode:
+            lctx = MeshCtx(LONG_RULES, mesh, cfg)
+            t = time.perf_counter()
+            lcache = shards_from_root(ring, long_specs, [LONG_RULES], mesh)[0]
+            long_logits, lcache = _mesh_teacher_forced(model, dshards, lcache, long_toks,
+                                                       MESH_LONG_POSITIONS, lctx, True)
+            torch.cuda.synchronize()
+            out["long_s"] = time.perf_counter() - t
+        tctx = MeshCtx(TRAIN_RULES, mesh, cfg)
+        step = make_train_step(cfg, tctx)
+        t = time.perf_counter()
+        state, metrics = step(opt.init_state(tshards), tbatch)
+        out["loss"] = float(metrics["loss"])  # waits for the step
+        out["step_s"] = time.perf_counter() - t
+        del state, metrics
+    # uncounted: the mesh against one process on the card
+    steps = MESH_PROMPT + MESH_GEN - 1
+    toks = torch.randint(0, cfg.vocab, (MESH_BATCH, steps), generator=gen, device=dev)
+    cache_specs = model.cache_specs(MESH_BATCH, MESH_TF_SLOTS)
+
+    def mesh_decode(ctx):
+        cache = {n: torch.zeros(ctx.local_shape(sp), dtype=sp.dtype, device=dev)
+                 for n, sp in cache_specs.items()}
+        if frames is not None:
+            with torch.no_grad():
+                cache["enc_out"] = model.encode(dshards, ctx.local_batch(frames), ctx).to(
+                    cache["enc_out"].dtype)
+        return _mesh_teacher_forced(model, dshards, cache, toks, range(steps), ctx)
+
+    mesh_logits, cache = mesh_decode(dctx)
+    fault_logits = fault_cache = None
+    if cfg.ssm is not None:  # in_proj's [x | z] cut contiguously: rank 0 all of x, 1 all of z
+        fused = dict(S.FUSED)
+        S.FUSED.clear()
+        try:
+            fault_logits, fault_cache = mesh_decode(MeshCtx(DECODE_RULES, mesh, cfg))
+        finally:
+            S.FUSED.update(fused)
+    gbatch = batch_of(MESH_GRAD_BATCH, MESH_GRAD_SEQ)
+    loss_mesh, g_mesh = _mesh_grads(model, tshards, tctx, gbatch)
+    del dshards, tshards
+    torch.cuda.empty_cache()
+    refs = {}
+    if root:  # the one process: bf16, and its own error against f32 compute
+        for dtype in (torch.bfloat16, torch.float32):
+            L.COMPUTE_DTYPE = dtype
+            try:
+                one = {n: torch.zeros(sp.shape, device=dev, dtype=sp.dtype
+                                      if dtype == torch.bfloat16 else torch.float32)
+                       for n, sp in cache_specs.items()}
+                if frames is not None:
+                    with torch.no_grad():
+                        one["enc_out"] = model.encode(full, frames).to(one["enc_out"].dtype)
+                refs[dtype] = _mesh_teacher_forced(model, full, one, toks, range(steps))
+                if long_mode:
+                    lone = {n: t.clone() if dtype == torch.bfloat16 else t.float()
+                            for n, t in ring.items()}
+                    refs[dtype, "long"] = _mesh_teacher_forced(model, full, lone, long_toks,
+                                                               MESH_LONG_POSITIONS, None, True)
+            finally:
+                L.COMPUTE_DTYPE = torch.bfloat16
+
+        def err(a, b):
+            return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+        def rel(a, b):
+            num = sum(float((a[n].float() - b[n].float()).square().sum()) for n in b)
+            return (num / sum(float(b[n].float().square().sum()) for n in b)) ** 0.5
+
+        (one_logits, one_cache), (f32_logits, f32_cache) = refs[torch.bfloat16], refs[
+            torch.float32]
+        out.update(logit_max_abs_err=err(mesh_logits, one_logits),
+                   logit_bf16_vs_f32_err=err(one_logits, f32_logits),
+                   logit_max_abs=max(float(x.abs().max()) for x in one_logits),
+                   cache_bf16_vs_f32_rel=rel(one_cache, f32_cache))
+        if fault_logits is not None:
+            out["fault_logit_max_abs_err"] = err(fault_logits, one_logits)
+        if long_mode:
+            (lone_logits, lone_cache), (l32_logits, l32_cache) = refs[
+                torch.bfloat16, "long"], refs[torch.float32, "long"]
+            out.update(long_logit_max_abs_err=err(long_logits, lone_logits),
+                       long_logit_bf16_vs_f32_err=err(lone_logits, l32_logits),
+                       long_cache_bf16_vs_f32_rel=rel(lone_cache, l32_cache))
+        loss_ref, g_ref = _mesh_grads(model, full, None, gbatch)
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            loss_f32, g_f32 = _mesh_grads(model, {k: v.cpu() for k, v in full.items()}, None,
+                                          {k: v.cpu() for k, v in gbatch.items()})
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        noise = sum(float((g_ref[k].float().cpu() - g_f32[k]).square().sum()) for k in g_ref)
+        norm = sum(float(g_f32[k].square().sum()) for k in g_f32)
+        out.update(grad_loss=[loss_mesh, loss_ref, loss_f32],
+                   grad_rel_err_card_bf16_vs_cpu_f32=(noise / norm) ** 0.5)
+        del g_f32
+    else:
+        one_cache = g_ref = None
+        lone_cache = None
+    for key, mine in (("cache", cache), ("fault_cache", fault_cache)):
+        if mine is not None:
+            dist, size, worst = _shard_err(one_cache, mine, cache_specs, DECODE_RULES, mesh)
+            out[f"{key}_rel_dist"] = (dist / size) ** 0.5
+    if long_mode:
+        dist, size, _ = _shard_err(lone_cache, lcache, long_specs, LONG_RULES, mesh)
+        out["long_cache_rel_dist"] = (dist / size) ** 0.5
+    dist, _, _ = _shard_err(g_ref, g_mesh, specs, TRAIN_RULES, mesh)
+    if root:
+        out["grad_rel_dist_mesh_vs_one"] = (dist / norm) ** 0.5
+    del full, refs, g_ref, g_mesh, cache, fault_cache
+    return out
+
+
+def _mesh_checkpoint(mesh, seed: int, segments: dict) -> dict:
+    """A hymba-smoke train state sharded over the mesh, checkpointed through
+    rank 0's Shelby cluster (``Trainer`` with a ``MeshCtx``; counted as
+    ``segments["checkpoint"]``): a step and a save, an SP that loses every
+    chunk, a step, a save and the repair, the restore into the mesh.  Then,
+    uncounted: the restore equal to the state, bit for bit, on every rank and
+    in one process on rank 0, and the checkpoint bytes equal to
+    ``serialize_pytree`` of the whole state."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.cluster import build_cluster
+    from repro_torch.sharding import TRAIN_RULES, MeshCtx, flatten, root_from_shards
+    from repro_torch.storage.checkpoint import CheckpointManager, serialize_pytree
+    from repro_torch.storage.repair import RepairCoordinator
+    from repro_torch.train.loop import Trainer
+
+    dev, root = mesh.device, mesh.rank == 0
+    cfg = get_smoke("hymba-1.5b")
+    rng = np.random.default_rng(seed)
+
+    def batches():
+        while True:
+            toks = rng.integers(0, cfg.vocab, (MESH_BATCH, MESH_GRAD_SEQ + 1))
+            yield toks[:, :-1], toks[:, 1:]
+
+    out = {}
+    with _counted(segments, "checkpoint"):
+        mgr = repair = sps = client = None
+        if root:
+            contract, sps, rpc, client = build_cluster(num_sps=8, device=dev)
+            mgr = CheckpointManager(client, num_host_shards=2)
+            repair = RepairCoordinator(contract, sps, rpc.layout)
+        ctx = MeshCtx(TRAIN_RULES, mesh, cfg)
+        trainer = Trainer(cfg, ctx=ctx, ckpt=mgr, repair=repair, ckpt_every=1)
+        feed = batches()
+        t = time.perf_counter()
+        state, rep1 = trainer.run(trainer.init_state(seed), feed, 1)
+        if root:  # an SP loses every chunk it stored
+            victim = next(iter(sps))
+            sps[victim].crash()
+            sps[victim].recover()
+            sps[victim].wipe()
+        state, rep2 = trainer.run(state, feed, 1, start_step=1)
+        restored, step = trainer.restore_latest(None)
+        torch.cuda.synchronize()
+        out["s"] = time.perf_counter() - t
+    out.update(restored_step=step, restarts=trainer.restarts,
+               reports=[(r.ckpt_bytes, r.repairs, r.losses) for r in (rep1, rep2)])
+    same = all(torch.equal(restored[k][n], state[k][n]) for k in ("params", "m", "v")
+               for n in state[k]) and int(restored["step"]) == int(state["step"])
+    flags = D.all_reduce(torch.tensor([int(same)], device=dev), mesh.world)
+    out["mesh_equal"] = int(flags[0]) == mesh.size
+    whole = {k: root_from_shards(state[k], trainer.specs, TRAIN_RULES, mesh)
+             for k in ("params", "m", "v")}
+    if root:
+        whole["step"] = state["step"].cpu()
+        one = Trainer(cfg, ckpt=mgr, device=dev)
+        got, one_step = one.restore_latest(one.init_state())
+        out["one_equal"] = one_step == step and all(
+            torch.equal(a.cpu(), b) for a, b in zip(flatten(got).values(), flatten(whole).values()))
+        data = b"".join(r.data for r in client.get_many(
+            [(b, 0, None) for b in mgr.records[step].shard_blob_ids]))
+        out["bytes_equal"] = data[:mgr.records[step].total_bytes] == serialize_pytree(whole)
+        out["repair_clean"] = not repair.failures and not repair.scan_lost_chunks()
     return out
 
 
@@ -2796,36 +3137,70 @@ def _mesh_cfg(layers: int):
     return dataclasses.replace(get(MESH_ARCH), num_layers=layers)
 
 
+def _family_failures(r: dict, prefix: str = "") -> list[str]:
+    """The gates of ``_mesh_failures`` that one family's rank-0 results ``r``
+    fail (``prefix`` "fault_": the planted fault's decode), its long mode's
+    too, and its gradient's.  A family with routed experts holds its logits
+    within SERVE_LOGIT_ATOL plus LOGIT_NOISE_FACTOR times the one process's
+    own bf16 error, as phase 17 holds deepseek's prefill: where two experts'
+    router probabilities lie within bf16 rounding, any bf16 computation
+    (the mesh's partial sums too) may swap them."""
+    failed = []
+    atol = SERVE_LOGIT_ATOL + (LOGIT_NOISE_FACTOR * r["logit_bf16_vs_f32_err"]
+                               if r["routed"] else 0.0)
+    if not r[f"{prefix}logit_max_abs_err"] <= atol:
+        failed.append("logits")
+    if not r[f"{prefix}cache_rel_dist"] <= MESH_CACHE_NOISE_FACTOR * r["cache_bf16_vs_f32_rel"]:
+        failed.append("caches")
+    if prefix:
+        return failed
+    if "long_logit_max_abs_err" in r and not (
+            r["long_logit_max_abs_err"] <= SERVE_LOGIT_ATOL
+            and r["long_cache_rel_dist"] <= MESH_CACHE_NOISE_FACTOR
+            * r["long_cache_bf16_vs_f32_rel"]):
+        failed.append("long mode")
+    if not r["grad_rel_dist_mesh_vs_one"] <= (
+            TRAIN_NOISE_FACTOR * r["grad_rel_err_card_bf16_vs_cpu_f32"] + TRAIN_GRAD_FLOOR):
+        failed.append("gradient")
+    return failed
+
+
 def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
     """The mesh (path ``mesh``): a MESH_DATA x MESH_MODEL ("data", "model")
     world of four processes on the one card over Gloo (``launch/mesh.py``).
     granite-8b at its published widths, depth ``layers``, with fan-in scaled
-    weights (``_fan_in``): rank 0 holds the Shelby cluster, publishes the
-    seeded weights, restores them by paid k-of-n reads (the Clay decode by
-    ``gf_matmul`` on the card) and hands every rank its shards
-    (``sharding.shards_from_root``) under DECODE_RULES and TRAIN_RULES; each
-    rank runs ``ServeEngine`` with a ``MeshCtx`` (batch MESH_BATCH over data,
-    a cache of MESH_SLOTS slots over model: "split" with lse and the
-    combine), MESH_GENERATIONS generations, then MESH_TRAIN_STEPS train steps
-    of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ in MESH_MICROBATCHES microbatches
-    with ``shard_grad_accum``; qwen3-moe's widths at one layer, the
-    expert-parallel MoE (64 experts a rank) over a 1 x MESH_MOE_SEQ batch.
-    Each rank's launches are counted over that path and summed for the
-    ``kernels`` line; each rank's peak memory and the bytes it handed to each
-    kind of collective are printed.  Then, uncounted, against one process on
-    the card (rank 0): the MoE's y and aux, the training losses within
-    TRAIN_LOSS_ATOL, and the gates of ``_mesh_failures``: decode logits
-    teacher-forced over the generated tokens through a MESH_TF_SLOTS-slot
-    cache (both model ranks' shards hold keys), the caches against the one
-    process's own bf16 error (its caches against f32 compute), and the
-    gradient at the restored weights (MESH_GRAD_BATCH x MESH_GRAD_SEQ)
-    against the one process's own bf16 error (its gradient against f32
-    compute on the CPU plain path: the backward kernel takes bf16 only).  The same gates must
-    reject two planted faults run on the mesh: the partial attentions
-    combined with their lse ignored, and the FSDP gradients not summed over
-    the data replicas.  The f32 partial products are timed against bf16 at
-    a rank's shapes.  Four ranks share one card: no number here says
-    anything of multi-GPU speed."""
+    weights (``_fan_in``) that rank 0 makes on the card and hands every rank
+    as its shards (``sharding.shards_from_root``) under DECODE_RULES and
+    TRAIN_RULES; each rank runs ``ServeEngine`` with a ``MeshCtx`` (batch
+    MESH_BATCH over data, a cache of MESH_SLOTS slots over model: "split" with
+    lse and the combine), MESH_GENERATIONS generations, then
+    MESH_TRAIN_STEPS train steps of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ in
+    MESH_MICROBATCHES microbatches with ``shard_grad_accum``; qwen3-moe's
+    widths at one layer, the expert-parallel MoE (64 experts a rank) over a
+    1 x MESH_MOE_SEQ batch.  Then every other family (``_mesh_family``):
+    hymba-1.5b at its published widths (MESH_HYMBA_LAYERS layers: served,
+    long mode across its ring's wrap, a 2 x 4096 step), whisper-tiny whole
+    (served on seeded frames, a step) and MESH_SMOKE_ARCHS at smoke widths;
+    and a hymba-smoke train state checkpointed from the mesh through rank
+    0's Shelby cluster (``_mesh_checkpoint``: an SP loses its chunks, the
+    repair, the restore into the mesh and into one process).  Each rank's
+    launches are counted over those blocks and summed for the ``kernels``
+    line; each rank's peak memory and the bytes it handed to each kind of
+    collective in granite's block are printed.  Then, uncounted, against one
+    process on the card (rank 0): the MoE's y and aux, the training losses
+    within TRAIN_LOSS_ATOL, and the gates of ``_mesh_failures`` (and
+    ``_family_failures``): decode logits teacher-forced through a
+    MESH_TF_SLOTS-slot cache (both model ranks' shards hold keys), the caches
+    against the one process's own bf16 error (its caches against f32
+    compute), and the gradient at MESH_GRAD_BATCH x MESH_GRAD_SEQ against the
+    one process's own bf16 error (its gradient against f32 compute on the CPU
+    plain path: the backward kernel takes bf16 only).  The same gates must
+    reject three planted faults run on the mesh: the partial attentions
+    combined with their lse ignored, the FSDP gradients not summed over the
+    data replicas, and hymba's fused ``in_proj`` split contiguously over
+    model.  The f32 partial products are timed against bf16 at a rank's
+    shapes.  Four ranks share one card: no number here says anything of
+    multi-GPU speed."""
     import torch
 
     from repro_torch.launch.mesh import launch
@@ -2837,38 +3212,63 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
                    backend="gloo", timeout=MESH_TIMEOUT)
     wall = time.perf_counter() - t_phase
     root = ranks[0]
+    families = [key for key, *_ in _mesh_families()]
     for r in ranks:
-        print(json.dumps({"mesh_rank": {k: v for k, v in r.items() if k != "tokens"}},
+        print(json.dumps({"mesh_rank": {k: v for k, v in r.items()
+                                        if k != "tokens" and k not in families}},
                          default=float), flush=True)
     steps = MESH_PROMPT + MESH_GEN - 1
     splits = MESH_GENERATIONS * steps * layers
     tiles = 2 * layers * MESH_MICROBATCHES * MESH_TRAIN_STEPS
     wgmma = layers * MESH_MICROBATCHES * MESH_TRAIN_STEPS
+    hymba_splits = MESH_HYMBA_LAYERS * (steps + len(MESH_LONG_POSITIONS))
     for r in ranks:
         if r["device"].split(":")[0] != "cuda":
             raise SystemExit(f"mesh rank {r['rank']} ran on {r['device']}")
+        granite = r["segments"]["granite"]
         want = {"tile": tiles, "split": splits, "general": 0}
-        if r["variants"] != want or r["designs"].get("wgmma") != wgmma:
-            raise SystemExit(f"mesh rank {r['rank']} launched {r['variants']}, "
-                             f"backward {r['designs']}; want {want} and {wgmma} wgmma")
+        if granite["variants"] != want or granite["designs"].get("wgmma") != wgmma:
+            raise SystemExit(f"mesh rank {r['rank']} launched {granite['variants']}, "
+                             f"backward {granite['designs']}; want {want} and {wgmma} wgmma")
+        hymba = r["segments"][r["hymba"]["arch"]]
+        if (hymba["variants"]["split"] != hymba_splits or not hymba["variants"]["tile"]
+                or not hymba["designs"]["wgmma"] or hymba["variants"]["general"]):
+            raise SystemExit(f"mesh rank {r['rank']}: hymba launched {hymba}; want "
+                             f"{hymba_splits} split")
+        for key in families:
+            seg = r["segments"][r[key]["arch"]]
+            if r[key]["arch"] != "falcon-mamba-smoke" and not (
+                    seg["launches"]["flash_attention"] and seg["launches"]["flash_attention_bwd"]):
+                raise SystemExit(f"mesh rank {r['rank']}: {key} made no attention launch: {seg}")
+            if not np.array_equal(r[key]["tokens"], root[key]["tokens"]) or not np.isfinite(
+                    r[key]["loss"]) or r[key]["loss"] != root[key]["loss"]:
+                raise SystemExit(f"mesh rank {r['rank']}: {key}'s tokens or loss differ from "
+                                 "rank 0's")
         if not np.array_equal(r["tokens"], root["tokens"]):
             raise SystemExit(f"mesh rank {r['rank']} generated other tokens than rank 0")
         if not all(np.isfinite(r["losses"])) or r["losses"] != root["losses"]:
             raise SystemExit(f"mesh rank {r['rank']}'s losses {r['losses']} differ from rank 0's")
-    if root["launches"]["gf_matmul"] == 0 or not root["restored_equal"]:
-        raise SystemExit("mesh: rank 0's restore made no gf_matmul launch or differs")
+        if r["checkpoint"]["reports"] != root["checkpoint"]["reports"] or not (
+                r["checkpoint"]["restarts"] == 1 and r["checkpoint"]["mesh_equal"]):
+            raise SystemExit(f"mesh rank {r['rank']}: the checkpoint's restore or reports "
+                             f"differ: {r['checkpoint']}")
+    ck = root["checkpoint"]
+    if (root["segments"]["checkpoint"]["launches"]["gf_matmul"] == 0
+            or not (ck["one_equal"] and ck["bytes_equal"] and ck["repair_clean"])
+            or ck["reports"][1][1] == 0):
+        raise SystemExit(f"mesh: the sharded train state's checkpoint is off: {ck}")
     # the path's counts: each rank's, summed (the parent launches nothing in this phase)
-    read = {"launches": {k: sum(r["launches"][k] for r in ranks) for k in root["launches"]},
-            "variants": {k: sum(r["variants"][k] for r in ranks) for k in root["variants"]},
-            "designs": {k: sum(r["designs"][k] for r in ranks) for k in root["designs"]}}
+    read = _sum_counts([{part: r[part] for part in ("launches", "variants", "designs")}
+                        for r in ranks])
     gen_s = root["generation_s"][-1]
     tokens = MESH_BATCH * steps
     train_tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
     failed, planted = _mesh_failures(root), _mesh_failures(root, "fault_")
+    fam_failed = {key: _family_failures(root[key]) for key in families}
+    fam_planted = _family_failures(root["hymba"], "fault_")
     row = {
         "world": f"{MESH_DATA} x {MESH_MODEL} gloo, one card", "layers": layers, "wall_s": wall,
-        "weight_bytes": root["weight_bytes"], "publish_s": root["publish_s"],
-        "restore_s": root["restore_s"], "hand_out_s": root["hand_out_s"],
+        "weight_bytes": root["weight_bytes"], "hand_out_s": root["hand_out_s"],
         "generation_s": root["generation_s"], "decode_tok/s": tokens / gen_s,
         "step_s": root["step_s"], "tokens/s": train_tokens / root["step_s"][-1],
         "losses": root["losses"], "losses_one_process": root["losses_ref"],
@@ -2890,15 +3290,23 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
             "fault_cache_rel_dist", "fault_cache_max_abs_err",
             "fault_grad_rel_dist_mesh_vs_one", "moe_max_abs_err", "moe_aux_err")},
         "grad_loss": [root["grad_loss"], root["grad_loss_ref"], root["grad_loss_f32"]],
+        "families": {key: {k: v for k, v in root[key].items() if k != "tokens"}
+                     for key in families},
+        "families_failed": fam_failed, "in_proj_contiguous_rejected_by": fam_planted,
+        "checkpoint": ck, "launches_by_block": root["segments"],
         "launches": read}
     print(json.dumps({"mesh": row}, default=float), flush=True)
     loss_err = max(abs(a - b) for a, b in zip(root["losses"], root["losses_ref"]))
-    if (failed or root["moe_max_abs_err"] > MESH_MOE_ATOL or root["moe_aux_err"] > MESH_AUX_ATOL
-            or loss_err > TRAIN_LOSS_ATOL
-            or abs(root["grad_loss"] - root["grad_loss_ref"]) > TRAIN_LOSS_ATOL):
-        raise SystemExit(f"the mesh disagrees with one process on the card ({failed}): {row}")
-    if not {"logits", "caches"} & set(planted) or "gradient" not in planted:
-        raise SystemExit(f"the mesh's gates passed a planted fault ({planted}): {row}")
+    if (failed or any(fam_failed.values()) or root["moe_max_abs_err"] > MESH_MOE_ATOL
+            or root["moe_aux_err"] > MESH_AUX_ATOL or loss_err > TRAIN_LOSS_ATOL
+            or abs(root["grad_loss"] - root["grad_loss_ref"]) > TRAIN_LOSS_ATOL
+            or any(abs(root[key]["grad_loss"][0] - root[key]["grad_loss"][1]) > TRAIN_LOSS_ATOL
+                   for key in families)):
+        raise SystemExit(f"the mesh disagrees with one process on the card ({failed}, "
+                         f"{fam_failed}): {row}")
+    if not {"logits", "caches"} & set(planted) or "gradient" not in planted or not fam_planted:
+        raise SystemExit(f"the mesh's gates passed a planted fault ({planted}, "
+                         f"in_proj {fam_planted}): {row}")
     return {"row": row, **read}
 
 
@@ -2937,11 +3345,7 @@ def main(argv=None) -> int:
     variant_launches: dict[str, dict[str, int]] = {}  # path -> attention kernel -> launches
     design_launches: dict[str, dict[str, int]] = {}  # path -> backward design -> launches
 
-    def zero_counts() -> None:
-        for fn in wrappers.values():
-            fn.launches = 0
-        fa.reset_launches()
-        fab.reset_launches()
+    zero_counts = _zero_counts
 
     def read_counts(path: str) -> dict[str, int]:
         path_launches[path] = {name: fn.launches for name, fn in wrappers.items()}
@@ -3069,6 +3473,13 @@ def main(argv=None) -> int:
     for name, k_start in (("mesh_decode_lse", 0), ("mesh_decode_lse_blind", shard)):
         attn_checks.append(check_split_lse(name, MESH_BATCH // MESH_DATA, shard, 32, 8, 128,
                                            MESH_PROMPT + MESH_GEN - 1, k_start, gen))
+    # phase 19's hymba in long mode: a rank's 1,024 slots of the 2,048-slot ring (window
+    # 2,048), after the ring wrapped; the second rank's half before any of it was written
+    ring = 2048
+    for name, pos, k_start in (("mesh_ring_shard_lse", MESH_LONG_POSITIONS[-1], 0),
+                               ("mesh_ring_shard_lse_blind", 1000, ring // MESH_MODEL)):
+        attn_checks.append(check_split_lse(name, 1, ring // MESH_MODEL, 25, 5, 64, pos,
+                                           k_start, gen, ring=ring))
 
     _phase("flash_attention_bwd vs plain (bf16; phase 15's shape: B 4, S 4096, H 24, Hkv 2, "
            "hd 128; phase 16's: B 1, S 4096, H 25, Hkv 5, hd 64; phase 17's: B 1, S 4096, "
@@ -3365,8 +3776,9 @@ def main(argv=None) -> int:
 
     # -- 19. the mesh: a 2 x 2 world of four processes on the card --------------------------
     _phase(f"mesh: {MESH_DATA} x {MESH_MODEL} ranks on the card over Gloo; {MESH_ARCH} at "
-           f"published widths, {args.mesh_layers} layers, from Shelby: serve and train; "
-           f"{MESH_MOE_ARCH}'s expert-parallel MoE")
+           f"published widths, {args.mesh_layers} layers: serve and train; "
+           f"{MESH_MOE_ARCH}'s expert-parallel MoE; hymba-1.5b, whisper-tiny, "
+           f"{', '.join(MESH_SMOKE_ARCHS)}; a sharded train state through Shelby")
     zero_counts()  # the ranks count their own launches; the parent makes none here
     mesh = mesh_phase(args.seed, layers=args.mesh_layers)
     path_launches["mesh"] = mesh["launches"]

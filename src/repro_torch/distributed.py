@@ -15,8 +15,10 @@ explicit: the model code reaches these functions through the hooks of
   backward all-reduce: an activation every rank holds whole, read by a
   product split over the axis), :func:`gather_out` (forward all-gather,
   backward the rank's own slice: an output split over the axis that every
-  rank then reads whole) and :func:`pmean` (forward all-reduce mean,
-  backward identity: a value averaged over ranks, as ``jax.lax.pmean``).
+  rank then reads whole), :func:`own_part` (its inverse: forward the
+  rank's own slice of a tensor every rank holds whole, backward an
+  all-gather) and :func:`pmean` (forward all-reduce mean, backward
+  identity: a value averaged over ranks, as ``jax.lax.pmean``).
 
 Gradients follow Megatron's convention: a value that the ranks of an axis
 hold whole is the same on each of them, and so is its gradient; the "f" and
@@ -201,6 +203,17 @@ class _GatherOut(torch.autograd.Function):
         return _own_slice(g, ctx.axis, ctx.dim), None, None
 
 
+class _OwnPart(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _own_slice(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axis, ctx.dim), None, None
+
+
 class _PMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
@@ -229,6 +242,13 @@ def copy_f(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 def gather_out(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim``; each rank's gradient is its slice."""
     return _GatherOut.apply(x, axis, dim)
+
+
+def own_part(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``x``, which every rank holds whole;
+    the ranks' gradients of their slices concatenated (the inverse of
+    :func:`gather_out`)."""
+    return _OwnPart.apply(x, axis, dim)
 
 
 def pmean(x: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -104,6 +104,17 @@ class ProcessMesh:
         return self._axes[name]
 
 
+def process_mesh(data: int, model: int, device: torch.device) -> ProcessMesh:
+    """A ``data`` x ``model`` :class:`ProcessMesh` over the world this process
+    belongs to: every rank calls it, in the same order.  A world may hold
+    several (a 2 x 2 mesh and a 4 x 1 one over the same four ranks: how a
+    checkpoint written by one restores into the other)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return ProcessMesh(init_device_mesh(device.type, (data, model), mesh_dim_names=MESH_AXES),
+                       device)
+
+
 def _host(tree):
     """A rank's result with its tensors as numpy arrays (bf16 widened to f32,
     exactly), so that it pickles by value."""
@@ -120,7 +131,6 @@ def _host(tree):
 def _rank_main(rank: int, world: int, store: str, shape: tuple[int, int], device: str,
                backend: str, timeout: float, fn, args, results) -> None:
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     try:
         if device == "cuda":
@@ -132,8 +142,7 @@ def _rank_main(rank: int, world: int, store: str, shape: tuple[int, int], device
         dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=timeout))
-        dm = init_device_mesh(dev.type, shape, mesh_dim_names=MESH_AXES)
-        out = fn(ProcessMesh(dm, dev), *args)
+        out = fn(process_mesh(*shape, dev), *args)
         results.put((rank, "ok", _host(out)))
     except BaseException:  # noqa: BLE001 -- the rank's traceback is the parent's error
         results.put((rank, "error", traceback.format_exc()))

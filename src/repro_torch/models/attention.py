@@ -1,7 +1,7 @@
 """GQA/MHA attention module: parameter specs and the train, prefill and
 decode paths, as in ``repro/models/attention.py``.
 
-The q/k/v/o projections are plain products (``torch.einsum``); the
+The q/k/v/o projections are products through ``layers.linear``; the
 attention itself is ``layers.flash_attention`` (full sequences, with a
 hand-written backward kernel under autograd) or ``layers.decode_attention``,
 both of which run the hand-written kernels on the card.  The KV cache is
@@ -135,10 +135,7 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg, *, window: int = 
     s_cache = cache["k"].shape[1]
     shard = None if ctx is None else ctx.seq_shard(s_cache)
     if shard is not None:
-        if window:
-            raise NotImplementedError("a ring buffer split over a mesh axis (long mode) is not "
-                                      "ported (ROADMAP Queue 1 item 4h)")
-        o = _decode_sharded(q, k, v, cache, pos, shard, ctx)
+        o = _decode_sharded(q, k, v, cache, pos, shard, ctx, window)
         return _out(params, o, ctx), cache
     slot = pos % s_cache if window else pos
     k_new = cache_update(cache["k"], k, slot)
@@ -152,18 +149,28 @@ def attn_decode(params, x: torch.Tensor, cache, pos: int, cfg, *, window: int = 
     return _out(params, o, ctx), {"k": k_new, "v": v_new}
 
 
-def _decode_sharded(q, k, v, cache, pos: int, shard, ctx) -> torch.Tensor:
+def _decode_sharded(q, k, v, cache, pos: int, shard, ctx, window: int = 0) -> torch.Tensor:
     """Decode attention over a cache whose slots [shard.start, shard.stop)
-    this rank holds: the owning rank writes slot ``pos`` (every other rank's
-    shard is left as it was, as the JAX package's ``shard_map`` update); each
-    rank attends over its shard with the row log-sum-exp, and the ranks'
-    partial outputs combine by :func:`combine_partials`."""
-    if shard.start <= pos < shard.stop:
-        cache_update(cache["k"], k, pos - shard.start)
-        cache_update(cache["v"], v, pos - shard.start)
-    k_positions = torch.arange(shard.start, shard.stop, dtype=torch.int32, device=q.device)
+    this rank holds: the owning rank writes slot ``pos`` (``pos % S`` of a
+    ring of S slots when ``window``; every other rank's shard is left as it
+    was, as the JAX package's ``shard_map`` update); each rank attends over
+    its shard with the row log-sum-exp, its slots at their positions (for a
+    ring, its slice of :func:`ring_positions`, ``UNWRITTEN`` for a slot not
+    written yet, under the window), and the ranks' partial outputs combine
+    by :func:`combine_partials`: a shard that sees no key weighs 0."""
+    slots = shard.stop - shard.start
+    ring = slots * shard.axis.size
+    slot = pos % ring if window else pos
+    if shard.start <= slot < shard.stop:
+        cache_update(cache["k"], k, slot - shard.start)
+        cache_update(cache["v"], v, slot - shard.start)
+    if window:
+        k_positions = ring_positions(pos, ring, q.device)[shard.start:shard.stop]
+    else:
+        k_positions = torch.arange(shard.start, shard.stop, dtype=torch.int32, device=q.device)
     ka, va = ctx.kv_heads(q, cache["k"], cache["v"])
-    o, lse = decode_attention(q, ka, va, k_positions, pos, with_lse=True)
+    o, lse = decode_attention(q, ka, va, k_positions.contiguous(), pos, window=window,
+                              with_lse=True)
     return combine_partials(o, lse, shard.axis)
 
 

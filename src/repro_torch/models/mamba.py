@@ -10,13 +10,23 @@ kernel here; neither has the port.
 
 Decode path: O(1) per token, carrying (conv_state, ssm_state), updated in
 place in the caller's cache.
+
+The four products go through ``layers.linear`` under their leaf names, so
+over a mesh (``sharding.MeshCtx``) each rank runs its share of the
+``ssm_inner`` channels: ``in_proj`` gives it its channels of x and of z (a
+part-wise split, ``sharding.FUSED``), the conv, ``dt``, the scan and the
+skip act per channel with no communication, ``x_proj`` sums the ranks'
+partial (dt_r, B, C) ("g"), ``dt_proj`` maps the whole dt_r onto the rank's
+channels and ``out_proj`` sums again.  B and C, whole on every rank, are
+read by its channels alone (``ctx.split_read``).  The channels a rank
+computes are those of its shard of the decode cache's ``conv`` and ``h``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import cast
+from repro_torch.models.layers import cast, linear
 from repro_torch.sharding import ParamSpec
 
 
@@ -51,16 +61,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b
 
 
-def _ssm_params(p, x_in: torch.Tensor, cfg):
+def _ssm_params(p, x_in: torch.Tensor, cfg, ctx=None):
     """Common projections: returns (dt, a, b_in, c_out) for scan/step.
 
     ``F.softplus`` returns x itself above x = 20 where ``jax.nn.softplus``
     adds log1p(exp(-x)) < 2.1e-9: below the rounding of either dtype."""
     s = cfg.ssm
     r = s.dt_rank or max(cfg.d_model // 16, 1)
-    xdb = x_in @ cast(p["x_proj"])  # (..., r + 2n)
+    xdb = linear(x_in, p["x_proj"], "x_proj", ctx)  # (..., r + 2n)
     dt_r, b_ssm, c_ssm = torch.split(xdb, [r, s.state, s.state], dim=-1)
-    dt = F.softplus(dt_r @ cast(p["dt_proj"]) + cast(p["dt_bias"]))  # (..., di)
+    if ctx is not None:  # whole on every rank, read by its channels
+        b_ssm = ctx.split_read(b_ssm, "ssm_inner", s.d_inner)
+        c_ssm = ctx.split_read(c_ssm, "ssm_inner", s.d_inner)
+    dt = F.softplus(linear(dt_r, p["dt_proj"], "dt_proj", ctx) + cast(p["dt_bias"]))  # (..., di)
     a = -torch.exp(p["a_log"].float())  # (di, n)
     return dt, a, b_ssm, c_ssm
 
@@ -98,10 +111,10 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor):
 
 def apply_ssm(p, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
     """Full-sequence selective scan. x: (B, S, D_in) -> (B, S, D_in)."""
-    xz = x @ cast(p["in_proj"])  # (B, S, 2di)
+    xz = linear(x, p["in_proj"], "in_proj", ctx)  # (B, S, 2di)
     x_in, z = xz.chunk(2, dim=-1)
     x_in = F.silu(_causal_conv(x_in, cast(p["conv_w"]), cast(p["conv_b"])))
-    dt, a, b_ssm, c_ssm = _ssm_params(p, x_in, cfg)
+    dt, a, b_ssm, c_ssm = _ssm_params(p, x_in, cfg, ctx)
 
     # linear recurrence h_t = A_t h_{t-1} + B_t, associative over t
     a_bar = torch.exp(dt[..., None].float() * a)  # (B, S, di, n)
@@ -111,7 +124,7 @@ def apply_ssm(p, x: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
     y = (h * c_ssm.float()[..., None, :]).sum(-1)  # (B, S, di)
     y = y.to(x.dtype) + cast(p["d_skip"]) * x_in
     y = y * F.silu(z)
-    return y @ cast(p["out_proj"])
+    return linear(y, p["out_proj"], "out_proj", ctx)
 
 
 def init_ssm_cache_shape(cfg, batch: int) -> dict[str, tuple[int, ...]]:
@@ -125,20 +138,20 @@ def init_ssm_cache_shape(cfg, batch: int) -> dict[str, tuple[int, ...]]:
 def apply_ssm_decode(p, x: torch.Tensor, cache, cfg, ctx=None):
     """One-token step. x: (B, 1, D_in); cache: {'conv', 'h'}, updated in
     place.  Returns (out (B, 1, D_in), cache)."""
-    xz = x @ cast(p["in_proj"])
+    xz = linear(x, p["in_proj"], "in_proj", ctx)
     x_in, z = xz[:, 0].chunk(2, dim=-1)  # (B, di)
     # conv ring: window = [conv_state, x_in]
     win = torch.cat([cache["conv"], x_in[:, None]], dim=1)  # (B, cw, di)
     conv_out = (win * cast(p["conv_w"])[None]).sum(1) + cast(p["conv_b"])
     x_c = F.silu(conv_out)
-    dt, a, b_ssm, c_ssm = _ssm_params(p, x_c, cfg)
+    dt, a, b_ssm, c_ssm = _ssm_params(p, x_c, cfg, ctx)
     a_bar = torch.exp(dt[..., None].float() * a)  # (B, di, n)
     b_bar = (dt * x_c).float()[..., None] * b_ssm.float()[..., None, :]
     h = a_bar * cache["h"] + b_bar  # (B, di, n)
     y = (h * c_ssm.float()[..., None, :]).sum(-1).to(x.dtype)
     y = y + cast(p["d_skip"]) * x_c
     y = y * F.silu(z)
-    out = (y @ cast(p["out_proj"]))[:, None]
+    out = linear(y, p["out_proj"], "out_proj", ctx)[:, None]
     cache["conv"].copy_(win[:, 1:])
     cache["h"].copy_(h)
     return out, cache

@@ -10,6 +10,15 @@ which zero-pads V to the keys' head dim for the kernels.  Decode folds
 the latent cache directly; that is plain products and a softmax, as the JAX
 package's is plain JAX outside any Pallas kernel (its K would be
 kv_lora_rank + rope = 576 wide, past the kernels' 256).
+
+Every product goes through ``layers.linear`` under its leaf name.  Over a
+mesh (``sharding.MeshCtx``) the expanded path splits heads as attention
+does (the shared RoPE key, whole on every rank, is read by its heads:
+``ctx.split_read``); ``kv_lora`` stays whole in every rule table.  The
+absorbed decode over a latent cache split over ``model`` (``ctx.seq_shard``)
+takes each rank's scores over its slots, a softmax with the row log-sum-exp
+and its partial latent context, which the ranks combine
+(``attention.combine_partials``) before ``W_uv``.
 """
 from __future__ import annotations
 
@@ -17,8 +26,8 @@ import math
 
 import torch
 
-from repro_torch.models.attention import cache_update
-from repro_torch.models.layers import MaskSpec, apply_norm, apply_rope, cast, flash_attention
+from repro_torch.models.attention import cache_update, combine_partials
+from repro_torch.models.layers import MaskSpec, apply_norm, apply_rope, flash_attention, linear
 from repro_torch.sharding import ParamSpec
 
 NEG_INF = -1e30
@@ -48,36 +57,36 @@ def _scale(cfg) -> float:
     return 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
 
 
-def _latents(p, x: torch.Tensor, cfg):
+def _latents(p, x: torch.Tensor, cfg, ctx=None):
     """x -> (c_kv normed (B, S, rank), k_rope (B, S, rope), before RoPE)."""
-    dkv = x @ cast(p["w_dkv"])
+    dkv = linear(x, p["w_dkv"], "w_dkv", ctx)
     c_kv, k_rope = dkv.split([cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim], dim=-1)
     return apply_norm({"scale": p["kv_norm"]}, c_kv, "rmsnorm"), k_rope
 
 
-def _queries(p, x: torch.Tensor, cfg, positions: torch.Tensor):
+def _queries(p, x: torch.Tensor, cfg, positions: torch.Tensor, ctx=None):
     m = cfg.mla
-    q = torch.einsum("bsd,dhk->bshk", x, cast(p["wq"]))
+    q = linear(x, p["wq"], "wq", ctx, "bsd,dhk->bshk")
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
-def apply_mla_full(p, x: torch.Tensor, cfg, positions=None):
+def apply_mla_full(p, x: torch.Tensor, cfg, positions=None, ctx=None):
     """Training / prefill path (expanded keys and values): x (B, S, D) ->
     (out (B, S, D), cache ``{"c_kv" (B, S, rank), "k_rope" (B, S, rope)}``)."""
-    m = cfg.mla
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    c_kv, k_rope = _latents(p, x, cfg)
+    c_kv, k_rope = _latents(p, x, cfg, ctx)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # (B, S, 1, rope)
-    q_nope, q_rope = _queries(p, x, cfg, positions)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, cast(p["w_uk"]))
-    v = torch.einsum("bsr,rhk->bshk", c_kv, cast(p["w_uv"]))
-    k = torch.cat([k_nope, k_rope.expand(-1, -1, k_nope.shape[2], -1)], dim=-1)
+    q_nope, q_rope = _queries(p, x, cfg, positions, ctx)
+    k_nope = linear(c_kv, p["w_uk"], "w_uk", ctx, "bsr,rhk->bshk")
+    v = linear(c_kv, p["w_uv"], "w_uv", ctx, "bsr,rhk->bshk")
+    k_shared = k_rope if ctx is None else ctx.split_read(k_rope, "heads", cfg.num_heads)
+    k = torch.cat([k_nope, k_shared.expand(-1, -1, k_nope.shape[2], -1)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = flash_attention(q, k, v, mask=MaskSpec(causal=True), scale=_scale(cfg))
-    out = torch.einsum("bshk,hkd->bsd", o, cast(p["wo"]))
+    out = linear(o, p["wo"], "wo", ctx, "bshk,hkd->bsd")
     return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]}
 
 
@@ -87,26 +96,44 @@ def init_mla_cache_shape(cfg, batch: int, cache_len: int) -> dict[str, tuple[int
             "k_rope": (batch, cache_len, m.qk_rope_head_dim)}
 
 
-def apply_mla_decode(p, x: torch.Tensor, cache, pos: int, cfg):
+def apply_mla_decode(p, x: torch.Tensor, cache, pos: int, cfg, ctx=None):
     """Absorbed one-token decode: x (B, 1, D); cache ``{"c_kv", "k_rope"}``
     (B, S, *), written at ``pos`` in place; slots past ``pos`` are masked.
-    Returns (out (B, 1, D), cache)."""
+    A cache whose slots are split over a mesh axis (``ctx.seq_shard``) is
+    this rank's shard: the owning rank writes slot ``pos``, every rank takes
+    its slots' partial latent context with the row log-sum-exp, and the
+    ranks combine them.  Returns (out (B, 1, D), cache)."""
+    plan = getattr(ctx, "plans", {}).get("w_uk")
+    if plan is not None and (plan.copy_f or plan.reduce_g or plan.gather or plan.cut_output):
+        # the absorbed product contracts w_uk's head_dim, not the kv_lora of its plan
+        raise NotImplementedError(f"the absorbed decode with w_uk split over a mesh ({plan})")
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    c_kv_new, k_rope_new = _latents(p, x, cfg)  # (B, 1, rank), (B, 1, rope)
+    c_kv_new, k_rope_new = _latents(p, x, cfg, ctx)  # (B, 1, rank), (B, 1, rope)
     k_rope_new = apply_rope(k_rope_new[:, :, None, :], posv, cfg.rope_theta)[:, :, 0]
-    c_cache = cache_update(cache["c_kv"], c_kv_new, pos)
-    r_cache = cache_update(cache["k_rope"], k_rope_new, pos)
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    slots = c_cache.shape[1]
+    shard = None if ctx is None else ctx.seq_shard(slots)
+    start = 0 if shard is None else shard.start
+    if start <= pos < start + slots:
+        cache_update(c_cache, c_kv_new, pos - start)
+        cache_update(r_cache, k_rope_new, pos - start)
 
-    q_nope, q_rope = _queries(p, x, cfg, posv)  # (B, 1, H, *)
+    q_nope, q_rope = _queries(p, x, cfg, posv, ctx)  # (B, 1, H, *)
     # W_uk folded into the query: the scores run in the latent space
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, cast(p["w_uk"]))  # (B, 1, H, rank)
+    q_lat = linear(q_nope, p["w_uk"], "w_uk", ctx, "bshk,rhk->bshr")  # (B, 1, H, rank)
     s_lat = torch.einsum("bshr,btr->bhst", q_lat, c_cache)  # (B, H, 1, S)
     s_rope = torch.einsum("bshk,btk->bhst", q_rope, r_cache)
     s = (s_lat + s_rope).float() * _scale(cfg)
-    valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
+    valid = torch.arange(start, start + slots, device=x.device) <= pos
     s = s.masked_fill(~valid, NEG_INF)
-    probs = torch.softmax(s, dim=-1)
+    if shard is None:
+        probs = torch.softmax(s, dim=-1)
+    else:  # this shard's partial softmax, by its row log-sum-exp (NEG_INF: no key seen)
+        lse = torch.logsumexp(s, dim=-1)  # (B, H, 1)
+        probs = torch.exp(s - lse[..., None])
     ctx_lat = torch.einsum("bhst,btr->bshr", probs.to(c_cache.dtype), c_cache)  # (B, 1, H, rank)
-    o = torch.einsum("bshr,rhk->bshk", ctx_lat, cast(p["w_uv"]))  # W_uv folded in
-    out = torch.einsum("bshk,hkd->bsd", o, cast(p["wo"]))
+    if shard is not None:
+        ctx_lat = combine_partials(ctx_lat, lse, shard.axis)
+    o = linear(ctx_lat, p["w_uv"], "w_uv", ctx, "bshr,rhk->bshk")  # W_uv folded in
+    out = linear(o, p["wo"], "wo", ctx, "bshk,hkd->bsd")
     return out, {"c_kv": c_cache, "k_rope": r_cache}

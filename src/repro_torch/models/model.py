@@ -266,13 +266,13 @@ class DecoderLM(_Model):
         kv: dict = {}
         a_out = s_out = None
         if cfg.family == "mla_moe":  # also the leading dense layers
-            a_out, kv = mla_mod.apply_mla_full(block["mla"], x, cfg)
+            a_out, kv = mla_mod.apply_mla_full(block["mla"], x, cfg, ctx=ctx)
         elif cfg.family in ATTENTION_FAMILIES and cache:
             a_out, kv = attn.attn_prefill(block["attn"], x, cfg, mask=mask, ctx=ctx)
         elif cfg.family in ATTENTION_FAMILIES:
             a_out = attn.attn_full(block["attn"], x, cfg, mask=mask, ctx=ctx)
         if cfg.family in SSM_FAMILIES:
-            s_out = ssm_mod.apply_ssm(block["ssm"], x, cfg)
+            s_out = ssm_mod.apply_ssm(block["ssm"], x, cfg, ctx)
         return self._mix(block, a_out, s_out), kv if cache else {}
 
     def _block_full(self, block, h: torch.Tensor, mask: MaskSpec, ctx, dense: bool = False):
@@ -402,7 +402,8 @@ class DecoderLM(_Model):
             lp = _layer(p["dense0"], i, ctx, "dense0.")
             x = apply_norm(lp["ln1"], h, cfg.norm)
             a_out, _ = mla_mod.apply_mla_decode(
-                lp["mla"], x, {"c_kv": cache["c_kv0"][i], "k_rope": cache["k_rope0"][i]}, pos, cfg)
+                lp["mla"], x, {"c_kv": cache["c_kv0"][i], "k_rope": cache["k_rope0"][i]}, pos, cfg,
+                ctx)
             h, _ = self._second_half(lp, h, x, a_out, ctx, dense=True)
         main = {k: v for k, v in cache.items() if not k.endswith("0")}
         for i in range(_layers(p["blocks"])):
@@ -414,10 +415,10 @@ class DecoderLM(_Model):
                                             window=window, ctx=ctx)
             if cfg.family == "mla_moe":
                 a_out, _ = mla_mod.apply_mla_decode(
-                    lp["mla"], x, {"c_kv": lc["c_kv"], "k_rope": lc["k_rope"]}, pos, cfg)
+                    lp["mla"], x, {"c_kv": lc["c_kv"], "k_rope": lc["k_rope"]}, pos, cfg, ctx)
             if cfg.family in SSM_FAMILIES:
                 s_out, _ = ssm_mod.apply_ssm_decode(lp["ssm"], x,
-                                                    {"conv": lc["conv"], "h": lc["h_ssm"]}, cfg)
+                                                    {"conv": lc["conv"], "h": lc["h_ssm"]}, cfg, ctx)
             h, _ = self._second_half(lp, h, x, self._mix(lp, a_out, s_out), ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
         return _whole_logits(_logits(p, h, cfg, ctx), cfg, ctx), cache
@@ -460,7 +461,7 @@ class EncDecLM(_Model):
         lp = _layer(stack, i, ctx, "enc_blocks.")
         x = apply_norm(lp["ln1"], h, cfg.norm)
         h = h + attn.attn_full(lp["attn"], x, cfg, mask=MaskSpec(causal=False), ctx=ctx)
-        return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm), cfg.mlp)
+        return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm), cfg.mlp, ctx)
 
     def _encode(self, p, frames: torch.Tensor, ctx=None) -> torch.Tensor:
         h = cast(frames)
@@ -471,7 +472,8 @@ class EncDecLM(_Model):
     def encode(self, params: dict[str, torch.Tensor], frames: torch.Tensor,
                ctx=None) -> torch.Tensor:
         """frames: (B, S_enc, D), the stub frontend's output -> the encoder's
-        states (B, S_enc, D) in the compute dtype."""
+        states (B, S_enc, D) in the compute dtype (over a mesh: the rank's
+        rows of the batch in, the same rows out)."""
         return self._encode(unflatten(params), frames, ctx)
 
     def _cross(self, lp, h: torch.Tensor, enc_out: torch.Tensor, ctx) -> torch.Tensor:
@@ -480,7 +482,7 @@ class EncDecLM(_Model):
         xx = apply_norm(lp["ln_x"], h, cfg.norm)
         h = h + attn.attn_full(lp["cross_attn"], xx, cfg, mask=MaskSpec(causal=False),
                                rope=False, kv_source=enc_out, ctx=ctx)
-        return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm), cfg.mlp)
+        return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm), cfg.mlp, ctx)
 
     def _dec_layer(self, stack, i: int, h: torch.Tensor, enc_out: torch.Tensor,
                    ctx) -> torch.Tensor:
@@ -494,12 +496,15 @@ class EncDecLM(_Model):
         Returns (loss, metrics): the mean cross-entropy (aux 0)."""
         cfg = self.cfg
         p = unflatten(params)
+        batch = _local_batch(batch, ctx)
         enc_out = self._encode(p, batch["frames"], ctx)
-        h = cast(_weight(p, "embed", ctx))[batch["tokens"]]
+        h = _lookup(p, batch["tokens"], ctx, cast_first=True)
         for i in range(cfg.num_layers):
             h = _per_layer(self._dec_layer, p["dec_blocks"], i, h, enc_out, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        loss = _xent(_logits(p, h, cfg, ctx), batch["labels"])
+        loss = _xent(_logits(p, h, cfg, ctx), batch["labels"], cfg, ctx)
+        if ctx is not None:  # the mean over the batch's data shards
+            loss = ctx.pmean(loss, ("pod", "data"))
         return loss, {"xent": loss, "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
 
     def prefill(self, params: dict[str, torch.Tensor], batch, ctx=None):
@@ -507,6 +512,9 @@ class EncDecLM(_Model):
         token (id 0): (logits (B, 1, padded_vocab), cache ``{"k", "v"}``
         (layers, B, 1, Hkv, hd) and ``"enc_out"``), as the JAX package's."""
         cfg = self.cfg
+        if getattr(ctx, "mesh", None) is not None:
+            raise NotImplementedError("prefill on a mesh (SERVE_RULES, the cache written "
+                                      "sequence-sharded) is not ported (ROADMAP Queue 1 item 4i)")
         p = unflatten(params)
         enc_out = self._encode(p, batch["frames"], ctx)
         h = cast(_weight(p, "embed", ctx))[torch.zeros((enc_out.shape[0], 1), dtype=torch.int64,
@@ -542,11 +550,11 @@ class EncDecLM(_Model):
     def decode_step(self, params: dict[str, torch.Tensor], cache: dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int, ctx=None, *, long_mode: bool = False):
         """tokens (B, 1); the cache's ``enc_out`` set by the caller (the
-        engine encodes the frames into it).  Returns (logits, cache), ``k``/
-        ``v`` updated in place."""
+        engine encodes the frames into it; over a mesh, the rank's rows).
+        Returns (logits, cache), ``k``/``v`` updated in place."""
         cfg = self.cfg
         p = unflatten(params)
-        h = cast(_weight(p, "embed", ctx)[tokens])
+        h = _lookup(p, tokens if ctx is None else ctx.local_batch(tokens), ctx)
         enc_out = cache["enc_out"]
         for i in range(cfg.num_layers):
             lp = _layer(p["dec_blocks"], i, ctx, "dec_blocks.")
@@ -556,7 +564,7 @@ class EncDecLM(_Model):
                                         ctx=ctx)
             h = self._cross(lp, h + a_out, enc_out, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        return _logits(p, h, cfg, ctx), cache
+        return _whole_logits(_logits(p, h, cfg, ctx), cfg, ctx), cache
 
 
 def build(cfg: ArchConfig) -> DecoderLM | EncDecLM:

@@ -6,8 +6,9 @@ step by step from position 0 (the JAX package's prefill-free flow of
 ``repro/serve/engine.py``); an encoder-decoder first encodes its frames
 into the cache.  Every step's attention runs the hand-written kernel on the
 card.  Given a ``sharding.MeshCtx``, each rank holds its shard of the
-weights and builds its shard of the cache (``ctx.local_shape``); prompts go
-in and tokens come out whole on every rank.
+weights and builds its shard of the cache (``ctx.local_shape``; an
+encoder-decoder encodes its rows of the frames into it); prompts and
+frames go in and tokens come out whole on every rank.
 """
 from __future__ import annotations
 
@@ -56,8 +57,8 @@ class ServeEngine:
         if self.cfg.is_encdec:
             if frames is None:
                 raise ValueError(f"{self.cfg.name} is an encoder-decoder: generate needs frames")
-            enc_out = self.model.encode(self.params, torch.as_tensor(frames, device=self.device),
-                                        self.ctx)
+            frames = self.ctx.local_batch(torch.as_tensor(frames, device=self.device))
+            enc_out = self.model.encode(self.params, frames, self.ctx)
             cache["enc_out"] = enc_out.to(torch.bfloat16)
         given = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
         out = [given[:, i] for i in range(p)]

@@ -24,6 +24,12 @@ gathers of a weight, "f" and "g" around a product split over ``model``
 vocab-parallel embedding and logits, the sequence-sharded decode cache, the
 batch over ``data``, the gradient sums and the global norm.  Every hook is
 the identity in :class:`AxisCtx` (and in the dry-run's ``DeviceShare``).
+A leaf whose dim holds several parts side by side (Mamba's ``in_proj``:
+the columns of x, then those of z) splits part-wise (``FUSED``): each rank
+holds its share of every part, and the whole leaf keeps the JAX package's
+layout.  World rank 0 hands out whole leaves (:func:`shards_from_root`)
+and takes them back (:func:`root_from_shards`) one leaf at a time: how a
+checkpoint of a sharded train state is restored and saved.
 """
 from __future__ import annotations
 
@@ -287,6 +293,11 @@ class AxisCtx:
         """The mean of ``x`` over the ranks of the mesh ``axes`` (``jax.lax.pmean``)."""
         return x
 
+    def split_read(self, x: torch.Tensor, logical: str, n: int) -> torch.Tensor:
+        """An activation ``x`` that every rank holds whole, read by this rank's
+        share of a dim of ``n`` named ``logical`` (its heads, its SSM channels)."""
+        return x
+
     def shard(self, tree: dict[str, torch.Tensor], specs: dict[str, ParamSpec]) -> dict:
         """This rank's shard of each whole leaf of ``tree``."""
         return tree
@@ -307,7 +318,6 @@ class AxisCtx:
 
 
 # -- a mesh of processes ------------------------------------------------------------
-MESH_FAMILIES = ("dense", "moe")  # what MeshCtx runs; the rest is ROADMAP Queue 1 item 4h
 FSDP_AXES = ("pod", "data")  # mesh axes a weight dim is gathered over before its products
 
 # The layers' products with a weight, by the weight's leaf name: the weight
@@ -318,15 +328,27 @@ FSDP_AXES = ("pod", "data")  # mesh axes a weight dim is gathered over before it
 # "f" into wq/wk/wv, gate/up and the logits (column-parallel), "g" after
 # wo and down (row-parallel); under DECODE_RULES (weights' embed dim on
 # model): the input cut to the rank's part and "g" after wq/wk/wv and
-# gate/up, an all-gather after wo and down (their embed outputs).
+# gate/up, an all-gather after wo and down (their embed outputs).  Mamba
+# (ssm_inner on model in every table): "f" into in_proj and dt_proj, "g"
+# after x_proj and out_proj under TRAIN_RULES; under DECODE_RULES in_proj's
+# embed dim takes model first, so its input is cut, its output summed whole
+# ("g") and each rank keeps its channels of x and of z.  MLA: w_uk and w_uv
+# contract kv_lora in the expanded path and head_dim in the absorbed
+# decode, where the tables leave both whole (no collective).
 CONTRACTED = {"wq": (0,), "wk": (0,), "wv": (0,), "wo": (0, 1), "gate": (0,), "up": (0,),
               "down": (0,), "shared_gate": (0,), "shared_up": (0,), "shared_down": (0,),
-              "lm_head": (1,), "embed": (1,)}
+              "lm_head": (1,), "embed": (1,), "in_proj": (0,), "x_proj": (0,),
+              "dt_proj": (0,), "out_proj": (0,), "w_dkv": (0,), "w_uk": (0,), "w_uv": (0,)}
 ACTIVATION_AXIS = {"embed": "embed_act"}
 # Weights every rank holds whole that a layer applies to an activation whose
 # dim (here: its heads) the rules may split over "model": where they do, each
 # rank's gradient is its heads' part, so the weight passes "f" (MeshCtx.gather).
 SPLIT_READERS = {"q_norm": "heads", "k_norm": "kv_heads"}
+# Leaves whose dim named here holds that many equal parts side by side:
+# Mamba's in_proj (d, 2 d_inner) is [x | z].  Split over a mesh axis, each
+# rank holds its share of each part (rank 0: the first half of x's columns
+# and of z's), so that its channels of x and of z are those of its SSM state.
+FUSED = {"in_proj": ("ssm_inner", 2)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,6 +359,8 @@ class ProductPlan:
     cut_input: bool  # the input's last dim cut to this rank's part of the contracted dim
     reduce_g: bool  # "g" on the output: the ranks' partial sums (taken in f32)
     gather: bool  # the output's last dim gathered whole
+    cut_output: bool = False  # the whole output's last dim cut to this rank's part
+    parts: int = 1  # the output's last dim holds this many parts, each split (FUSED)
 
 
 def _on(entry, axis: str) -> bool:
@@ -368,9 +392,12 @@ def product_plans(specs: dict[str, ParamSpec], rules, mesh) -> dict[str, Product
         model_out = any(_on(w[i], "model") for i in cout)
         act_in = any(_on(act[i], "model") for i in cin)
         act_out = any(_on(act[i], "model") for i in cout)
+        fused = FUSED.get(name)
         plan = ProductPlan(copy_f=(model_in or model_out) and not act_in,
                            cut_input=model_in and not act_in, reduce_g=model_in,
-                           gather=model_out and not act_out)
+                           gather=model_out and not act_out,
+                           cut_output=act_out and not model_out,
+                           parts=fused[1] if fused and axes[cout[-1]] == fused[0] else 1)
         if plan.cut_input and len(cin) != 1:
             raise NotImplementedError(f"{path}: a whole input cut over {len(cin)} dims")
         if plans.setdefault(name, plan) != plan:
@@ -388,19 +415,35 @@ def _shard_index(entry, mesh, coords) -> tuple[int, int]:
     return idx, _axis_size(mesh, names)
 
 
+def _parts(name: str, spec: ParamSpec, dim: int) -> int:
+    """How many equal parts dim ``dim`` of the leaf ``name`` holds side by side (``FUSED``)."""
+    fused = FUSED.get(name.rsplit(".", 1)[-1])
+    return fused[1] if fused and spec.axes[dim] == fused[0] else 1
+
+
+def _by_part(t: torch.Tensor, dim: int, parts: int, fn) -> torch.Tensor:
+    """``fn(t, dim)`` applied within each of the ``parts`` equal parts of dim
+    ``dim`` of ``t``, the parts then side by side again."""
+    if parts == 1:
+        return fn(t, dim)
+    dim %= t.ndim
+    return fn(t.unflatten(dim, (parts, t.shape[dim] // parts)), dim + 1).flatten(dim, dim + 1)
+
+
 def shard_params(full: dict[str, torch.Tensor], specs: dict[str, ParamSpec], rules, mesh,
                  coords: dict[str, int]) -> dict[str, torch.Tensor]:
     """The shard of each whole leaf of ``full`` that the rank at ``coords``
     holds under ``rules`` (a copy of it): the counterpart of placing a tree by
-    the JAX package's ``tree_shardings``."""
+    the JAX package's ``tree_shardings``; a ``FUSED`` dim splits part-wise."""
     out = {}
     for name, t in full.items():
         sp = specs[name]
         for dim, entry in enumerate(logical_to_spec(sp.axes, sp.shape, rules, mesh)):
             if entry is not None:
                 idx, count = _shard_index(entry, mesh, coords)
-                n = t.shape[dim] // count
-                t = t.narrow(dim, idx * n, n)
+                t = _by_part(t, dim, _parts(name, sp, dim),
+                             lambda x, d: x.narrow(d, idx * (x.shape[d] // count),
+                                                   x.shape[d] // count))
         out[name] = t.clone()
     return out
 
@@ -417,7 +460,8 @@ def unshard(shards: dict[str, torch.Tensor], specs: dict[str, ParamSpec], rules,
                 continue
             if not isinstance(entry, str):
                 raise NotImplementedError(f"{name}: a dim split over several axes {entry}")
-            t = D.all_gather(t, mesh.axis(entry), dim)
+            t = _by_part(t, dim, _parts(name, sp, dim),
+                         lambda x, d: D.all_gather(x, mesh.axis(entry), d))
         out[name] = t
     return out
 
@@ -442,12 +486,31 @@ def shards_from_root(full: dict[str, torch.Tensor] | None, specs: dict[str, Para
     shardings")."""
     out: list[dict[str, torch.Tensor]] = [{} for _ in rules_tables]
     for name, spec in specs.items():
-        t = full[name] if full is not None else torch.empty(spec.shape, dtype=spec.dtype,
-                                                            device=mesh.device)
+        if full is not None:
+            t = full[name].to(mesh.device).contiguous()
+        else:
+            t = torch.empty(spec.shape, dtype=spec.dtype, device=mesh.device)
         D.broadcast(t, mesh.world, 0)
         for shards, rules in zip(out, rules_tables):
             shards.update(shard_params({name: t}, specs, rules, mesh, mesh.coords))
         del t
+    return out
+
+
+def root_from_shards(shards: dict[str, torch.Tensor], specs: dict[str, ParamSpec], rules,
+                     mesh) -> dict[str, torch.Tensor] | None:
+    """The inverse of :func:`shards_from_root`: on world rank 0 the whole
+    leaves of each rank's ``shards`` under ``rules``, as CPU tensors (None on
+    the other ranks).  One leaf at a time is gathered (:func:`unshard`) and
+    moved to the host, so a rank's device holds one whole leaf at most beside
+    its shards: how a sharded train state reaches the rank that writes its
+    checkpoint."""
+    out = {} if mesh.rank == 0 else None
+    for name, t in shards.items():
+        whole = unshard({name: t}, specs, rules, mesh)[name]
+        if out is not None:
+            out[name] = whole.cpu()
+        del whole
     return out
 
 
@@ -456,24 +519,19 @@ class MeshCtx(AxisCtx):
     ``cfg`` under ``rules``: every hook of :class:`AxisCtx` with this rank's
     share and the collectives of ``distributed.py``.  Parameters, optimizer
     state and the decode cache are the rank's shards (:meth:`shard`,
-    :meth:`local_shape`); batches, tokens, logits and losses go in and come
-    out whole, as the JAX package's jitted steps take and give them.  The
-    families of ``MESH_FAMILIES`` with token inputs only: any other raises."""
+    :meth:`local_shape`); batches (tokens, embeddings, frames), logits and
+    losses go in and come out whole, as the JAX package's jitted steps take
+    and give them.  Every family of ``models/model.py``."""
 
     def __init__(self, rules, mesh, cfg):
         from repro_torch.models.model import build  # the models import this module
 
-        if cfg.family not in MESH_FAMILIES or cfg.input_mode != "tokens":
-            what = (f"the {cfg.family} family" if cfg.family not in MESH_FAMILIES
-                    else f"{cfg.input_mode} inputs")
-            raise NotImplementedError(f"{cfg.name}: {what} on a mesh is not ported "
-                                      "(ROADMAP Queue 1 item 4h)")
         super().__init__(dict(rules), mesh)
         self.cfg = cfg
         self.specs = build(cfg).param_specs()
         self.parts = tree_pspecs(self.specs, self.rules, mesh)
         self.plans = product_plans(self.specs, self.rules, mesh)
-        self.group = cfg.num_heads // cfg.num_kv_heads
+        self.group = cfg.num_heads // max(cfg.num_kv_heads, 1)
         heads = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
         self.summed = {name for name, axis in SPLIT_READERS.items()
                        if getattr(self._split(axis, heads[axis]), "name", None) == "model"}
@@ -494,12 +552,12 @@ class MeshCtx(AxisCtx):
         to it anyway, so the gather moves half the bytes of the f32 shard."""
         from repro_torch.models.layers import cast  # the models import this module
 
-        part = self.parts[name]
-        if self.specs[name].axes[:1] == ("layers",):
-            part = part[1:]
-        for dim, entry in enumerate(part):
+        spec = self.specs[name]
+        lead = 1 if spec.axes[:1] == ("layers",) else 0
+        for dim, entry in enumerate(self.parts[name][lead:]):
             if entry is not None and any(_on(entry, a) for a in FSDP_AXES):
-                w = D.fsdp_gather(cast(w), self._axis(entry), dim)
+                w = _by_part(cast(w), dim, _parts(name, spec, dim + lead),
+                             lambda t, d: D.fsdp_gather(t, self._axis(entry), d))
         if name.rsplit(".", 1)[-1] in self.summed:
             w = D.copy_f(w, self.mesh.axis("model"))
         return w
@@ -536,7 +594,17 @@ class MeshCtx(AxisCtx):
             y = D.reduce_g(product(x.float(), w.float()), ax).to(x.dtype)
         else:
             y = product(x, w)
-        return D.gather_out(y, ax, -1) if plan.gather else y
+        if plan.gather:
+            return _by_part(y, -1, plan.parts, lambda t, d: D.gather_out(t, ax, d))
+        if plan.cut_output:
+            return _by_part(y, -1, plan.parts, lambda t, d: D.own_part(t, ax, d))
+        return y
+
+    def split_read(self, x, logical, n):
+        """``x`` through "f" where the dim is split over ``model``: each rank's
+        gradient of ``x`` is its share's part, summed over the axis."""
+        ax = self._split(logical, n)
+        return D.copy_f(x, ax) if ax is not None and ax.name == "model" else x
 
     def vocab_shard(self, name):
         part = self.parts[name]

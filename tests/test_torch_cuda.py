@@ -1124,6 +1124,47 @@ def test_split_with_lse_matches_plain_version(cuda, b, sk, h, hkv, hd, pos, kpos
         torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-5)
 
 
+@pytest.mark.parametrize("pos", [1000, 1500, 2040, 2047, 2048, 2060, 3071])
+def test_split_with_lse_over_a_ring_shard(cuda, pos):
+    """hymba's long mode on a 2-rank mesh: each rank attends over its 1,024
+    slots of the 2,048-slot ring (H 25, Hkv 5, hd 64) under a window of
+    2,048 -- twice its slots -- at its slice of ``ring_positions``, not a
+    ring of its own.  Each shard's "split" with lse equals the plain
+    version (a shard whose slots are all unwritten, as the second one's at
+    position 1000, sees no key: lse -1e30), and the two shards' partials
+    combined by their lse equal attention over the whole ring."""
+    from repro_torch.models.attention import ring_positions
+
+    ring, half = 2048, 1024
+    gen = torch.Generator(device=cuda).manual_seed(pos)
+    q = torch.randn((1, 1, 25, 64), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((1, ring, 5, 64), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((1, ring, 5, 64), generator=gen, device=cuda).bfloat16()
+    qpos = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    kpos = ring_positions(pos, ring, cuda)
+    parts = []
+    for r in range(2):
+        sl = slice(r * half, (r + 1) * half)
+        kw = dict(q_positions=qpos, k_positions=kpos[sl].contiguous(), causal=True, window=ring)
+        split = fa.flash_attention.variant_launches["split"]
+        o, lse = ops.flash_attention_lse(q, k[:, sl].contiguous(), v[:, sl].contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.variant_launches["split"] == split + 1
+        o_ref, lse_ref = fa.flash_attention_lse_ref(q, k[:, sl], v[:, sl], **kw)
+        torch.testing.assert_close(o, o_ref, atol=2**-7, rtol=2**-7)
+        if bool((kpos[sl] > pos).all()):  # every slot unwritten (UNWRITTEN > any position)
+            assert bool((lse == fa.NEG_INF).all())
+        else:
+            torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-5)
+        parts.append((o.float(), lse))
+    m = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(lse - m).transpose(1, 2)[..., None] for _, lse in parts]
+    combined = (w[0] * parts[0][0] + w[1] * parts[1][0]) / (w[0] + w[1])
+    whole = fa.flash_attention_ref(q, k, v, q_positions=qpos, k_positions=kpos, causal=True,
+                                   window=ring)
+    torch.testing.assert_close(combined, whole.float(), atol=2**-7, rtol=2**-7)
+
+
 def _gloo_card_rank(mesh):
     """Each collective on card tensors (the route built from all_reduce)
     against the sum written out from both ranks' inputs."""

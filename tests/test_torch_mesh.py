@@ -34,8 +34,8 @@ mask on the second model rank), yi-smoke with one kv head (the kv heads do
 not divide the model axis) and qwen3-moe-smoke with drops and the aux loss
 (whose reference is the mean of the gradients of the data shards' losses,
 each computed in one process with its shard's capacity); the global norm
-of shards with replicated leaves; and every family the mesh does not run
-raises.
+of shards with replicated leaves.  The other families on the mesh are
+``tests/test_torch_mesh_families.py``'s.
 """
 import dataclasses
 import os
@@ -68,8 +68,6 @@ SEQ_CACHE_REL = 2**-8  # the sequence's caches against one process: relative L2,
 # unit roundoff (the second layer's inputs carry the combine's bf16 rounding)
 GRAD_CASES = (("granite-8b", {"vocab": 250}), ("yi-9b", {"num_kv_heads": 1}),
               ("qwen3-moe-30b-a3b", {}))
-OTHER_FAMILIES = ("falcon-mamba-7b", "hymba-1.5b", "deepseek-v2-lite-16b", "whisper-tiny",
-                  "phi-3-vision-4.2b")
 
 
 def _moe_cfg(cfg):
@@ -415,8 +413,3 @@ def test_global_norm_counts_replicated_leaves_once(runs):
     for r in runs[3]:
         assert abs(float(r["norm"]) - want) <= 1e-5 * want
 
-
-@pytest.mark.parametrize("arch", OTHER_FAMILIES)
-def test_other_families_raise_on_a_mesh(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4h"):
-        MeshCtx(TRAIN_RULES, None, get_smoke(arch))
