@@ -307,6 +307,9 @@ MESH_MOE_ARCH, MESH_MOE_SEQ = "qwen3-moe-30b-a3b", 4096  # 1 layer: 128 experts,
 MESH_MOE_ATOL, MESH_AUX_ATOL = 0.05, 1e-5
 MESH_CACHE_NOISE_FACTOR = 3.0  # the caches' relative L2 distance from one process's, in
 # multiples of that process's own bf16 error (its caches against f32 compute)
+MESH_PREFILL_SEQ = 4096  # the prefill under SERVE_RULES: MESH_BATCH x 4096 tokens, 2 rows
+# and 2,048 cache slots a rank
+MESH_PREFILL_CACHE_FLOOR = 0.01  # its cache: within 3x the one process's own error + this
 # every other family in the same world
 MESH_HYMBA_LAYERS = 2  # hymba-1.5b's published widths, depth 32 -> 2, as phase 16
 MESH_LONG_POSITIONS = range(2040, 2061)  # long mode teacher-forced across the 2,048-slot ring's
@@ -2488,6 +2491,27 @@ def _shard_err(full, shards, specs, rules, mesh) -> tuple[float, float, float]:
     return float(sums[0]), float(sums[1]), float(D.all_reduce(worst, mesh.world, "max"))
 
 
+@contextlib.contextmanager
+def _swapped_slots(ctx):
+    """A planted fault: ``ctx.cache_part`` cuts each model rank's slots of the
+    prefill's cache at the other model rank's coordinate."""
+    coords, part = ctx.mesh.coords, ctx.cache_part
+
+    def swapped(t, spec):
+        mine = coords["model"]
+        coords["model"] = ctx.mesh.shape["model"] - 1 - mine
+        try:
+            return part(t, spec)
+        finally:
+            coords["model"] = mine
+
+    ctx.cache_part = swapped
+    try:
+        yield
+    finally:
+        del ctx.cache_part
+
+
 def _combine_ignoring_lse(o, lse, axis):
     """A planted fault: the ranks' partial attentions averaged, their lse ignored."""
     from repro_torch import distributed as D
@@ -2535,12 +2559,13 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     from repro_torch.models import attention
     from repro_torch.models import layers as L
     from repro_torch.models import moe as moe_mod
+    from repro_torch.launch.dryrun import collectives
     from repro_torch.models.model import build
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.sharding import (DECODE_RULES, TRAIN_RULES, MeshCtx, init_params,
-                                      shards_from_root)
+    from repro_torch.sharding import (DECODE_RULES, SERVE_RULES, TRAIN_RULES, MeshCtx,
+                                      init_params, shards_from_root)
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
 
     dev = mesh.device
     if dev.type != "cuda":
@@ -2568,9 +2593,15 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
                                    device=dev), specs)
         out["weight_bytes"] = sum(t.numel() * t.element_size() for t in full.values())
     t = time.perf_counter()
-    dshards, tshards = shards_from_root(full, specs, [DECODE_RULES, TRAIN_RULES], mesh)
+    dshards, tshards, sshards = shards_from_root(full, specs,
+                                                 [DECODE_RULES, TRAIN_RULES, SERVE_RULES], mesh)
     sync_all()
     out["hand_out_s"] = time.perf_counter() - t
+    live = {}  # the collectives of one prefill, decode and train step, for the dry-run's trace
+
+    def moved():
+        return dict(D.moved), dict(D.calls)
+
     # 2. serving: the batch over data, the cache's slots over model
     dctx = MeshCtx(DECODE_RULES, mesh, cfg)
     engine = ServeEngine(cfg, dshards, ctx=dctx, max_len=MESH_SLOTS)
@@ -2583,6 +2614,31 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
         gen_s.append(time.perf_counter() - t)
     out["generation_s"], out["tokens"] = gen_s, tokens
     del engine
+    # one decode step over a MESH_SLOTS-slot cache, its collectives counted
+    cache = {n: torch.zeros(dctx.local_shape(sp), dtype=sp.dtype, device=dev)
+             for n, sp in model.cache_specs(MESH_BATCH, MESH_SLOTS).items()}
+    before = moved()
+    make_decode_step(cfg, dctx)(dshards, cache, torch.as_tensor(prompts[:, :1], device=dev).long(),
+                                MESH_SLOTS - 1)
+    live["decode"] = collectives(before)
+    del cache
+    # 2b. prefill under SERVE_RULES: the rows over data, the cache written into each rank's
+    # shard (its 2,048 slots, every kv head); the last position's logits whole
+    sctx = MeshCtx(SERVE_RULES, mesh, cfg)
+    ptoks = torch.randint(0, cfg.vocab, (MESH_BATCH, MESH_PREFILL_SEQ), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed + 4))
+    prefill = make_prefill_step(cfg, sctx)
+    peak = torch.cuda.max_memory_allocated()
+    sync_all()
+    torch.cuda.reset_peak_memory_stats()
+    before = moved()
+    t = time.perf_counter()
+    plogits, pcache = prefill(sshards, {"tokens": ptoks})
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t
+    live["prefill"] = collectives(before)
+    out["prefill_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["prefill_cache_shapes"] = {n: list(c.shape) for n, c in pcache.items()}
     # 3. training steps with shard_grad_accum
     tctx = MeshCtx(TRAIN_RULES, mesh, cfg)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -2592,11 +2648,14 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     step = make_train_step(cfg, tctx, num_microbatches=MESH_MICROBATCHES, shard_grad_accum=True)
     state = opt.init_state(tshards)
     losses, step_s = [], []
-    for _ in range(MESH_TRAIN_STEPS):
+    for i in range(MESH_TRAIN_STEPS):
         t = time.perf_counter()
+        before = moved()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))  # waits for the step
         step_s.append(time.perf_counter() - t)
+        if i == 0:
+            live["train"] = collectives(before)
     out["losses"], out["step_s"] = losses, step_s
     out["grad_norm"] = float(metrics["grad_norm"])
     del state
@@ -2623,7 +2682,8 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     out["path_s"] = time.perf_counter() - t_path
     segments["granite"] = _read_counts()
     out["moved_bytes"], out["collective_calls"] = dict(D.moved), dict(D.calls)
-    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["max_memory_allocated"] = max(peak, torch.cuda.max_memory_allocated())
+    out["live_collectives"] = live
 
     # 5. against one process on the card (rank 0), uncounted.  Every rank first finishes
     # its mesh work and frees the card, so that rank 0's one-process references fit.
@@ -2656,6 +2716,10 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     finally:
         attention.combine_partials = combine
     del dshards
+    # the prefill again with a planted fault: each model rank keeps the other's slots
+    with _swapped_slots(sctx):
+        fault_plogits, fault_pcache = prefill(sshards, {"tokens": ptoks})
+    del sshards
     gtoks = torch.randint(0, cfg.vocab, (MESH_GRAD_BATCH, MESH_GRAD_SEQ + 1), generator=gen,
                           device=dev)
     gbatch = {"tokens": gtoks[:, :-1], "labels": gtoks[:, 1:]}
@@ -2670,7 +2734,7 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.distributed.barrier()
-    ref_cache = ref = None
+    ref_cache = ref = ref_pcache = None
     if root:  # the one process: decode, the train steps, the gradient
         ref_cache = {n: torch.zeros(sp.shape, dtype=sp.dtype, device=dev)
                      for n, sp in cache_specs.items()}
@@ -2720,10 +2784,32 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
         out.update(grad_loss=loss_mesh, grad_loss_ref=loss_ref, grad_loss_f32=loss_f32,
                    grad_rel_err_card_bf16_vs_cpu_f32=noise ** 0.5 / norm ** 0.5)
         del ref32
+        # the prefill in one process, in bf16 and (its own error) in f32 compute
+        one_prefill = make_prefill_step(cfg)
+        one_plogits, ref_pcache = one_prefill(full, {"tokens": ptoks})
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            _, pcache32 = one_prefill(full, {"tokens": ptoks})
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        vocab = cfg.vocab
+        for key, lg in (("prefill_logit_max_abs_err", plogits),
+                        ("fault_prefill_logit_max_abs_err", fault_plogits)):
+            out[key] = float((lg.float() - one_plogits.float())[..., :vocab].abs().max())
+        own = [(float((ref_pcache[n].float() - c).square().sum()), float(c.square().sum()))
+               for n, c in pcache32.items()]
+        out["prefill_cache_bf16_vs_f32_rel"] = (sum(a for a, _ in own)
+                                                / sum(b for _, b in own)) ** 0.5
+        del one_plogits, pcache32
     for key, mine in (("cache", cache), ("fault_cache", fault_cache)):
         dist, size, worst = _shard_err(ref_cache, mine, cache_specs, DECODE_RULES, mesh)
         out[f"{key}_rel_dist"], out[f"{key}_max_abs_err"] = (dist / size) ** 0.5, worst
     del cache, fault_cache, ref_cache
+    pspecs = model.cache_specs(MESH_BATCH, MESH_PREFILL_SEQ)
+    for key, mine in (("prefill_cache", pcache), ("fault_prefill_cache", fault_pcache)):
+        dist, size, worst = _shard_err(ref_pcache, mine, pspecs, SERVE_RULES, mesh)
+        out[f"{key}_rel_dist"], out[f"{key}_max_abs_err"] = (dist / size) ** 0.5, worst
+    del pcache, fault_pcache, plogits, fault_plogits, ref_pcache
     for key, mine in (("grad", g_mesh), ("fault_grad", g_fault)):
         dist, _, _ = _shard_err(ref, mine, specs, TRAIN_RULES, mesh)
         if root:
@@ -3090,8 +3176,16 @@ def _mesh_failures(r: dict, prefix: str = "") -> list[str]:
     fail (``prefix`` "fault_": those of the run with a planted fault): decode
     logits within SERVE_LOGIT_ATOL; the caches' relative L2 distance within
     MESH_CACHE_NOISE_FACTOR times the one process's own bf16 error, the
-    gradient's within TRAIN_NOISE_FACTOR times its own plus TRAIN_GRAD_FLOOR."""
+    gradient's within TRAIN_NOISE_FACTOR times its own plus TRAIN_GRAD_FLOOR;
+    the prefill's logits within SERVE_LOGIT_ATOL and its cache within
+    MESH_CACHE_NOISE_FACTOR times its own plus MESH_PREFILL_CACHE_FLOOR."""
     failed = []
+    if not r[f"{prefix}prefill_logit_max_abs_err"] <= SERVE_LOGIT_ATOL:
+        failed.append("prefill logits")
+    if not r[f"{prefix}prefill_cache_rel_dist"] <= (
+            MESH_CACHE_NOISE_FACTOR * r["prefill_cache_bf16_vs_f32_rel"]
+            + MESH_PREFILL_CACHE_FLOOR):
+        failed.append("prefill cache")
     if not r[f"{prefix}logit_max_abs_err"] <= SERVE_LOGIT_ATOL:
         failed.append("logits")
     if not r[f"{prefix}cache_rel_dist"] <= MESH_CACHE_NOISE_FACTOR * r["cache_bf16_vs_f32_rel"]:
@@ -3129,6 +3223,23 @@ def _partial_products(gen) -> dict:
         bf16_ms, _ = _device_ms(lambda: torch.einsum(eq, x, w), 10)
         out[name] = {"f32_partial_ms": f32_ms, "bf16_ms": bf16_ms}
     return out
+
+
+def _traced_collectives(layers: int) -> dict:
+    """The collectives of granite's prefill, decode step and train step at
+    phase 19's shapes as the dry-run counts them: ``launch/dryrun.py::
+    estimate`` on a MESH_DATA x MESH_MODEL trace mesh (meta tensors, rank 0)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import estimate
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cells = {"prefill": (ShapeCell("prefill_32k", MESH_PREFILL_SEQ, MESH_BATCH, "prefill"), None),
+             "decode": (ShapeCell("decode_32k", MESH_SLOTS, MESH_BATCH, "decode"), None),
+             "train": (ShapeCell("train_4k", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train"),
+                       MESH_MICROBATCHES)}
+    mesh = make_local_mesh(MESH_DATA, MESH_MODEL)
+    return {kind: estimate(_mesh_cfg(layers), cell, mesh, microbatch_override=mb)["collectives"]
+            for kind, (cell, mb) in cells.items()}
 
 
 def _mesh_cfg(layers: int):
@@ -3173,9 +3284,14 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
     as its shards (``sharding.shards_from_root``) under DECODE_RULES and
     TRAIN_RULES; each rank runs ``ServeEngine`` with a ``MeshCtx`` (batch
     MESH_BATCH over data, a cache of MESH_SLOTS slots over model: "split" with
-    lse and the combine), MESH_GENERATIONS generations, then
-    MESH_TRAIN_STEPS train steps of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ in
-    MESH_MICROBATCHES microbatches with ``shard_grad_accum``; qwen3-moe's
+    lse and the combine), MESH_GENERATIONS generations and one more decode
+    step, a prefill of MESH_BATCH x MESH_PREFILL_SEQ tokens under SERVE_RULES
+    (its cache written into each rank's shard: 2,048 slots, every kv head),
+    then MESH_TRAIN_STEPS train steps of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ in
+    MESH_MICROBATCHES microbatches with ``shard_grad_accum``; rank 0's
+    collectives of that decode step, prefill and first train step must equal,
+    kind by kind, bytes and calls, what ``launch/dryrun.py::estimate`` traces
+    for them on a MESH_DATA x MESH_MODEL trace mesh; qwen3-moe's
     widths at one layer, the expert-parallel MoE (64 experts a rank) over a
     1 x MESH_MOE_SEQ batch.  Then every other family (``_mesh_family``):
     hymba-1.5b at its published widths (MESH_HYMBA_LAYERS layers: served,
@@ -3194,11 +3310,12 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
     against the one process's own bf16 error (its caches against f32
     compute), and the gradient at MESH_GRAD_BATCH x MESH_GRAD_SEQ against the
     one process's own bf16 error (its gradient against f32 compute on the CPU
-    plain path: the backward kernel takes bf16 only).  The same gates must
-    reject three planted faults run on the mesh: the partial attentions
-    combined with their lse ignored, the FSDP gradients not summed over the
-    data replicas, and hymba's fused ``in_proj`` split contiguously over
-    model.  The f32 partial products are timed against bf16 at a rank's
+    plain path: the backward kernel takes bf16 only), the prefill's logits
+    and cache likewise.  The same gates must reject four planted faults run
+    on the mesh: the partial attentions combined with their lse ignored, the
+    FSDP gradients not summed over the data replicas, the model ranks'
+    slots of the prefill's cache swapped, and hymba's fused ``in_proj``
+    split contiguously over model.  The f32 partial products are timed against bf16 at a rank's
     shapes.  Four ranks share one card: no number here says anything of
     multi-GPU speed."""
     import torch
@@ -3218,8 +3335,8 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
                                         if k != "tokens" and k not in families}},
                          default=float), flush=True)
     steps = MESH_PROMPT + MESH_GEN - 1
-    splits = MESH_GENERATIONS * steps * layers
-    tiles = 2 * layers * MESH_MICROBATCHES * MESH_TRAIN_STEPS
+    splits = (MESH_GENERATIONS * steps + 1) * layers  # and the one counted decode step
+    tiles = (2 * MESH_MICROBATCHES * MESH_TRAIN_STEPS + 1) * layers  # and the prefill
     wgmma = layers * MESH_MICROBATCHES * MESH_TRAIN_STEPS
     hymba_splits = MESH_HYMBA_LAYERS * (steps + len(MESH_LONG_POSITIONS))
     for r in ranks:
@@ -3264,6 +3381,7 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
     tokens = MESH_BATCH * steps
     train_tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
     failed, planted = _mesh_failures(root), _mesh_failures(root, "fault_")
+    trace = _traced_collectives(layers)
     fam_failed = {key: _family_failures(root[key]) for key in families}
     fam_planted = _family_failures(root["hymba"], "fault_")
     row = {
@@ -3277,6 +3395,13 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
         "moved_bytes_by_rank": [r["moved_bytes"] for r in ranks],
         "collective_calls_by_rank": [r["collective_calls"] for r in ranks],
         "partial_products": products,
+        "prefill": {"shape": [MESH_BATCH, MESH_PREFILL_SEQ],
+                    "wall_s": [r["prefill_s"] for r in ranks],
+                    "max_memory_allocated_by_rank": [r["prefill_max_memory_allocated"]
+                                                     for r in ranks],
+                    "collectives_by_rank": [r["live_collectives"]["prefill"] for r in ranks],
+                    "cache_shapes": root["prefill_cache_shapes"]},
+        "trace_collectives": trace, "live_collectives_rank0": root["live_collectives"],
         "gates": {"logit_atol": SERVE_LOGIT_ATOL,
                   "cache_rel": MESH_CACHE_NOISE_FACTOR * root["cache_bf16_vs_f32_rel"],
                   "grad_rel": TRAIN_NOISE_FACTOR * root["grad_rel_err_card_bf16_vs_cpu_f32"]
@@ -3288,7 +3413,9 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
             "grad_rel_dist_mesh_vs_one",
             "grad_rel_err_card_bf16_vs_cpu_f32", "fault_logit_max_abs_err",
             "fault_cache_rel_dist", "fault_cache_max_abs_err",
-            "fault_grad_rel_dist_mesh_vs_one", "moe_max_abs_err", "moe_aux_err")},
+            "fault_grad_rel_dist_mesh_vs_one", "moe_max_abs_err", "moe_aux_err",
+            "prefill_logit_max_abs_err", "prefill_cache_rel_dist", "prefill_cache_max_abs_err",
+            "prefill_cache_bf16_vs_f32_rel", "fault_prefill_cache_rel_dist")},
         "grad_loss": [root["grad_loss"], root["grad_loss_ref"], root["grad_loss_f32"]],
         "families": {key: {k: v for k, v in root[key].items() if k != "tokens"}
                      for key in families},
@@ -3304,9 +3431,13 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
                    for key in families)):
         raise SystemExit(f"the mesh disagrees with one process on the card ({failed}, "
                          f"{fam_failed}): {row}")
-    if not {"logits", "caches"} & set(planted) or "gradient" not in planted or not fam_planted:
+    if (not {"logits", "caches"} & set(planted) or "gradient" not in planted
+            or "prefill cache" not in planted or not fam_planted):
         raise SystemExit(f"the mesh's gates passed a planted fault ({planted}, "
                          f"in_proj {fam_planted}): {row}")
+    if trace != root["live_collectives"]:
+        raise SystemExit(f"the dry-run's trace counts other collectives than rank 0 made: "
+                         f"traced {trace}, live {root['live_collectives']}")
     return {"row": row, **read}
 
 
@@ -3463,6 +3594,11 @@ def main(argv=None) -> int:
         ("whisper_cross_train", ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, 1500, 6, 6, 64, False, 0,
          ar(ENCDEC_TRAIN_SEQ), ar(1500)),
         ("whisper_cross_decode", serve_batch, 1, 1500, 6, 6, 64, False, 0, ar(1), ar(1500)),
+        # phase 19's prefill on the mesh: a rank's rows (2 of 4) over 4,096 tokens at
+        # granite-8b's widths over model = 2 (H 16 / Hkv 4 a rank, hd 128)
+        ("mesh_prefill", MESH_BATCH // MESH_DATA, MESH_PREFILL_SEQ, MESH_PREFILL_SEQ,
+         32 // MESH_MODEL, 8 // MESH_MODEL, 128, True, 0, ar(MESH_PREFILL_SEQ),
+         ar(MESH_PREFILL_SEQ)),
     ]
     attn_checks = check_flash_attention(attn_cases, gen)
     # phase 17's deepseek: MLA at hd 192 / hd_v 128 (V padded), H 16 = Hkv, 1 x 4096
@@ -3776,7 +3912,7 @@ def main(argv=None) -> int:
 
     # -- 19. the mesh: a 2 x 2 world of four processes on the card --------------------------
     _phase(f"mesh: {MESH_DATA} x {MESH_MODEL} ranks on the card over Gloo; {MESH_ARCH} at "
-           f"published widths, {args.mesh_layers} layers: serve and train; "
+           f"published widths, {args.mesh_layers} layers: serve, prefill and train; "
            f"{MESH_MOE_ARCH}'s expert-parallel MoE; hymba-1.5b, whisper-tiny, "
            f"{', '.join(MESH_SMOKE_ARCHS)}; a sharded train state through Shelby")
     zero_counts()  # the ranks count their own launches; the parent makes none here

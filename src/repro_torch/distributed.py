@@ -35,10 +35,18 @@ fixed; no error is caught to pick one):
   slot written, summed over a view of its bytes (uint8: each byte has one
   non-zero term, so the sum is exact for any dtype, signed zeros kept), and
   ``reduce_scatter`` a sum of which the rank keeps its slice.
+* A meta tensor (the dry-run's trace, ``launch/dryrun.py``, over a
+  ``launch.mesh.TraceMesh`` whose axes hold no process group): each
+  collective returns a meta tensor of the shape the live one returns, and
+  nothing is sent.  The route is the tensor's device, whatever the axis.
 
 Sums of floating tensors narrower than f32 (bf16 activations) are taken in
-f32 and cast back.  :data:`moved` counts the bytes each rank hands to each
-kind of collective (the payload, per rank), for the chip smoke test's report.
+f32 and cast back.  :data:`moved` counts the payload each rank hands to each
+kind of collective, the same on every route: ``all_reduce`` its (f32)
+buffer, ``all_gather`` its own part, ``reduce_scatter`` its whole (f32)
+input, ``broadcast`` the tensor; :data:`calls` counts the calls.  So a meta
+trace of a step counts what a live rank of the same step counts (the
+dry-run's ``collectives``; the chip smoke test's report).
 """
 from __future__ import annotations
 
@@ -74,6 +82,8 @@ class Axis:
 
 
 def _route(x: torch.Tensor, axis: Axis) -> str:
+    if x.device.type == "meta":
+        return "meta"
     key = (dist.get_backend(axis.group), x.device.type)
     if key not in ROUTES:
         raise ValueError(f"no collective route for backend {key[0]!r} with {key[1]} tensors")
@@ -85,11 +95,6 @@ def _count(kind: str, t: torch.Tensor) -> None:
     calls[kind] += 1
 
 
-def _sum_in_place(buf: torch.Tensor, axis: Axis, kind: str) -> None:
-    _count(kind, buf)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=axis.group)
-
-
 def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
     """The sum (or max) of ``x`` over the ranks of ``axis``, a new tensor."""
     if op not in ("sum", "max"):
@@ -99,8 +104,9 @@ def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
     out = x.to(torch.float32 if wide else x.dtype, memory_format=torch.contiguous_format,
                copy=True)
     _count("all_reduce", out)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
-                    group=axis.group)
+    if out.device.type != "meta":
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                        group=axis.group)
     return out.to(x.dtype) if wide else out
 
 
@@ -108,14 +114,16 @@ def all_gather(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order."""
     xt = x.movedim(dim, 0).contiguous()
     n = xt.shape[0]
-    if _route(x, axis) == "native":
+    route = _route(x, axis)
+    _count("all_gather", xt)
+    if route != "all_reduce":
         out = xt.new_empty((axis.size * n,) + xt.shape[1:])
-        _count("all_gather", xt)
-        _all_gather_tensor(out, xt, group=axis.group)
+        if route == "native":
+            _all_gather_tensor(out, xt, group=axis.group)
     else:  # a zero buffer with this rank's slot written, summed bit for bit
         out = xt.new_zeros((axis.size * n,) + xt.shape[1:])
         out[axis.index * n:(axis.index + 1) * n] = xt
-        _sum_in_place(out.view(torch.uint8), axis, "all_gather")
+        dist.all_reduce(out.view(torch.uint8), op=dist.ReduceOp.SUM, group=axis.group)
     return out.movedim(0, dim)
 
 
@@ -128,13 +136,15 @@ def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split "
                          f"over {axis.size} ranks of {axis.name!r}")
     n = xt.shape[0] // axis.size
-    if _route(x, axis) == "native":
+    route = _route(x, axis)
+    _count("reduce_scatter", xt)
+    if route != "all_reduce":
         out = xt.new_empty((n,) + xt.shape[1:])
-        _count("reduce_scatter", xt)
-        _reduce_scatter_tensor(out, xt, group=axis.group)
+        if route == "native":
+            _reduce_scatter_tensor(out, xt, group=axis.group)
     else:  # the sum, of which this rank keeps its slice
         buf = xt.clone()
-        _sum_in_place(buf, axis, "reduce_scatter")
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=axis.group)
         out = buf[axis.index * n:(axis.index + 1) * n].clone()
     out = out.movedim(0, dim)
     return out.to(x.dtype) if wide else out
@@ -151,7 +161,8 @@ def broadcast(x: torch.Tensor, axis: Axis, src_index: int = 0) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError(f"broadcast: a non-contiguous tensor of strides {x.stride()}")
     _count("broadcast", x)
-    dist.broadcast(x, group=axis.group, group_src=src_index)
+    if x.device.type != "meta":
+        dist.broadcast(x, group=axis.group, group_src=src_index)
     return x
 
 

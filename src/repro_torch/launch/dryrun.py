@@ -11,59 +11,50 @@ so the port cannot compile that program; instead, for each cell this:
      ``local_shape``: ``memory.argument_bytes``, exact (the train state
      ``{params, m, v, step}``, or the bf16 serving weights, the batch, the
      decode cache and position),
-  3. traces one device's share of the step (``train/step.py``'s train,
-     prefill or decode step, through the port's model code and the kernels'
-     meta paths) on the meta device, where nothing is allocated, under
-     ``launch/cost_analysis.py``: ``memory.temp_bytes`` is the trace's peak
-     live bytes above its arguments, ``cost`` its FLOPs and boundary bytes,
+  3. traces rank 0's share of the step (``train/step.py``'s train, prefill
+     or decode step with a ``sharding.MeshCtx``, through the port's model
+     code, the collectives' and the kernels' meta paths) on the meta
+     device, where nothing is allocated, under ``launch/cost_analysis.py``:
+     ``memory.temp_bytes`` is the trace's peak live bytes above its
+     arguments, ``cost`` its FLOPs and boundary bytes, ``collectives`` the
+     bytes and calls of each kind,
   4. writes a JSON record to ``--out`` (resumable cache keyed by cell id).
 
 Usage (the CPU is enough: nothing runs on a device):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 
-One device's share, and how it differs from GSPMD's program:
+What is traced: rank 0 of the cell's mesh running the port's own sharded
+program (on a mesh of one device, the one-process program).
+``sharding.MeshCtx`` on a ``launch.mesh.TraceMesh`` (the production mesh's
+shape, rank 0's coordinates, axes with no process group) runs the step as
+a rank of a live ``ProcessMesh`` runs it, on meta tensors:
 
-* The per-device batch is ``global_batch`` over the data-parallel degree
-  (``batch`` -> ``("pod", "data")``; long_500k's batch of 1 stays whole),
-  cut into the JAX package's microbatches (``shapes.num_microbatches``);
-  every microbatch is traced.
-* Widths are divided by the ``model`` degree where ``logical_to_spec``
-  shards them under the trace's table: ``heads``, ``kv_heads``, ``mlp``,
-  ``vocab``, ``ssm_inner`` and ``experts`` -> ``model``, every other
-  dimension of a weight whole.  Under TRAIN and SERVE rules that is the
-  cell's own split.  Under DECODE and LONG rules the weights are split on
-  ``embed`` instead (row-parallel products with an all-reduce), which
-  gives each device the same share of every product (one ``model``-th)
-  but not the same activations: the trace's are split over heads where
-  GSPMD's are partial sums over the whole width.  MLA's decode is the one
-  place where the shares differ: the trace splits the absorbed ``w_uk`` /
-  ``w_uv`` products over heads (GSPMD replicates them) and keeps ``w_dkv``
-  whole (GSPMD splits it on ``embed``).  The decode cache is traced whole
-  along ``cache_seq`` with its kv heads split as the query heads are: the
-  same attention FLOPs as GSPMD's sequence-sharded cache, whose combine is
-  a collective.
-* A weight is held as its exact shard and gathered to its trace shape one
-  layer at a time, inside the layer's recomputed body (``AxisCtx.gather``,
-  overridden by :class:`DeviceShare`; the backward maps the gradient back
-  to the shard, a reduce-scatter): so the trace's peak holds one layer's
-  gathered weights and, in training, their gradient before the
-  reduce-scatter.  Under DECODE rules the "gather" is a reshard that GSPMD
-  does not make: it overstates the temporaries by one layer's share of
-  weights.
-* Where ``heads`` divides the model axis and ``kv_heads`` does not
-  (qwen3-moe 32/4, granite 32/8, yi 32/4, command-r 96/8 on 16), GSPMD
-  replicates the K and V projections and repeats K and V to the query
-  heads; the trace computes K and V whole too (the same FLOPs) and then
-  attends the first rank's query heads to the kv heads they read, a copy
-  of one kv head (:meth:`DeviceShare.kv_heads`).  A prefill's
-  cache is returned with those heads over the whole sequence, where GSPMD
-  writes it out sequence-sharded.
-* The MoE layers run the expert-parallel rank body (``models/moe.py::
-  moe_rank``, rank 0): routing over all experts, dispatch to the rank's
-  E / 16, capacity from the device's tokens.
-* Collectives are not traced (no partitioned program yet: ROADMAP Queue 1
-  item 4g), so ``collectives`` is null.
+* The inputs are rank 0's shards: the parameters (and ``m``, ``v``) and
+  the decode cache as ``logical_to_spec`` lays them out; the batch goes in
+  whole, as the live steps take it, and each microbatch's rows for the
+  ``data`` axis (``("pod", "data")`` on the multi-pod mesh, one trace axis
+  of 32) are a view of it.  ``memory.argument_bytes`` counts each input's
+  per-device shard.
+* The products follow ``sharding.product_plans`` (Megatron's "f" and "g"
+  around column- and row-parallel products, the row-parallel partial sums
+  in f32, the vocab-parallel embedding, logits and loss); FSDP shards are
+  gathered in bf16 one layer at a time inside the recomputed body, their
+  gradients reduce-scattered; under DECODE and LONG rules the weights are
+  split on ``embed`` (the input cut to the rank's part, "g" after).  The
+  query heads read the rank's own kv heads (``MeshCtx.kv_heads``); the
+  decode cache is the rank's slots, attended with the row log-sum-exp and
+  combined over ``model``; the prefill writes its cache into the rank's
+  shard (``MeshCtx.cache_part``: kv heads gathered over ``model``, then
+  its slots).  The MoE layers run the expert-parallel path (``models/
+  moe.py::_moe_ep``, rank 0's E / model experts, the capacity of its
+  tokens).
+* ``collectives``: each collective the trace makes (``distributed.py``'s
+  meta route) counts its payload and its call, per kind, exactly as a
+  live rank counts them in ``distributed.moved`` and ``calls``, under the
+  JAX package's kind names (``all-reduce``, ``all-gather``,
+  ``reduce-scatter``).  The payload is what the rank hands over (an
+  all-gather's own part), not the bytes on a wire.
 * The attention kernels' FLOPs are what they perform: causal and window
   tiles that a block never sees are skipped (the JAX package's chunked
   attention computes every block), so the trace's FLOPs fall short of
@@ -78,30 +69,25 @@ import traceback
 
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.configs import ALL_ARCHS, get
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCell, cell_applicable
 from repro_torch.launch.cost_analysis import CostAnalysis
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import TraceMesh, make_production_mesh
 from repro_torch.launch.shapes import batch_specs, decode_specs, num_microbatches, serve_param_specs
 from repro_torch.models.model import build
-from repro_torch.sharding import (
-    DECODE_RULES,
-    LONG_RULES,
-    SERVE_RULES,
-    TRAIN_RULES,
-    AxisCtx,
-    local_shape,
-    logical_to_spec,
-)
+from repro_torch.sharding import (DECODE_RULES, LONG_RULES, SERVE_RULES, TRAIN_RULES, AxisCtx,
+                                  MeshCtx)
 from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
 
 DEFAULT_OUT = "results/dryrun_h100"
 # The card's memory, torch.cuda.get_device_properties(0).total_memory on an
 # "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi --query-gpu=name,power.limit)
 H100_BUDGET_BYTES = 85_017_493_504
-TRACE_WIDTHS = ("heads", "kv_heads", "mlp", "vocab", "ssm_inner", "experts")
-COLLECTIVES_REASON = ("not traced: the port has no partitioned program yet "
-                      "(ROADMAP Queue 1 item 4g)")
+# distributed.py's kinds that a step makes, under the JAX package's names
+# (its launch/hlo_analysis.py); a broadcast only hands weights out
+COLLECTIVE_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                    "reduce_scatter": "reduce-scatter"}
 
 
 def _cell_id(arch: str, shape: str, mesh_kind: str) -> str:
@@ -117,15 +103,6 @@ def cell_rules(shape: ShapeCell) -> dict:
     return dict(DECODE_RULES if shape.kind == "decode" else SERVE_RULES)
 
 
-def trace_rules(rules: dict) -> dict:
-    """The table the trace's shapes follow: the cell's ``batch``, the widths
-    over ``model``, everything else whole."""
-    out = dict.fromkeys(rules)
-    out.update({name: ("model",) for name in TRACE_WIDTHS})
-    out["batch"] = rules.get("batch")
-    return out
-
-
 def _nbytes(shape, dtype: torch.dtype) -> int:
     n = dtype.itemsize
     for d in shape:
@@ -137,86 +114,43 @@ def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
-class _Gather(torch.autograd.Function):
-    """A weight's shard gathered to its trace shape (on the meta device: a
-    new tensor of that shape); the gradient back to the shard's shape."""
-
-    @staticmethod
-    def forward(ctx, w, shape):
-        ctx.shard = tuple(w.shape)
-        return w.new_empty(shape)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.new_empty(ctx.shard), None
-
-
-class DeviceShare(AxisCtx):
-    """The context of one device's share of a partitioned step, traced alone:
-    :meth:`gather` gives each weight its trace shape, :meth:`kv_heads` the kv
-    heads that the device's query heads read, and MoE layers take the rank
-    body of ``expert_rank`` (rank 0 of the expert-parallel ranks)."""
-
-    def __init__(self, rules: dict, trace_shapes: dict[str, tuple], experts: int, group: int):
-        super().__init__(rules)
-        self.trace_shapes = trace_shapes  # weight name (one layer's for stacks) -> shape
-        self.expert_rank = (0, experts) if experts > 1 else None
-        self.group = group  # query heads per kv head
-
-    def gather(self, name: str, w: torch.Tensor) -> torch.Tensor:
-        shape = self.trace_shapes.get(name)
-        if shape is None or tuple(w.shape) == shape:
-            return w
-        if w.device.type != "meta":
-            raise ValueError(f"DeviceShare traces meta tensors; {name} is on {w.device}")
-        return _Gather.apply(w, shape)
-
-    def kv_heads(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-        """All of ``k`` and ``v`` where the kv heads are split as the query
-        heads are; where the query heads are one device's share and the kv
-        heads whole (Hkv does not divide the model axis, so the JAX package
-        replicates them), the kv heads ``h // group`` of the first rank's
-        query heads h, copied out."""
-        hq, hkv = q.shape[2], k.shape[2]
-        if hkv * self.group == hq:
-            return k, v
-        need = -(-hq // self.group)
-        if hq % need or need > hkv:
-            raise ValueError(f"{hq} query heads of a group of {self.group} do not read "
-                             f"{need} of {hkv} kv heads")
-        return k[:, :, :need].contiguous(), v[:, :, :need].contiguous()
-
-
-def _weights(specs: dict, rules: dict, t_rules: dict, mesh, args: list):
-    """(shards on the meta device, trace shapes by weight name); each shard
-    and its bytes appended to ``args``."""
-    shards, trace_shapes = {}, {}
+def _shards(specs: dict, ctx: AxisCtx, args: list) -> dict[str, torch.Tensor]:
+    """Rank 0's shard of each leaf of ``specs`` on the meta device, each
+    appended to ``args`` with its bytes."""
+    out = {}
     for name, sp in specs.items():
-        shard = local_shape(sp.shape, logical_to_spec(sp.axes, sp.shape, rules, mesh), mesh)
-        trace = local_shape(sp.shape, logical_to_spec(sp.axes, sp.shape, t_rules, mesh), mesh)
-        shards[name] = _meta(shard, sp.dtype)
-        args.append((shards[name], _nbytes(shard, sp.dtype)))
-        trace_shapes[name] = trace[1:] if sp.axes[:1] == ("layers",) else trace
-    return shards, trace_shapes
+        shape = ctx.local_shape(sp)
+        out[name] = _meta(shape, sp.dtype)
+        args.append((out[name], _nbytes(shape, sp.dtype)))
+    return out
 
 
-def _inputs(records: dict, mesh, t_rules: dict, args: list) -> dict:
-    """Meta tensors at the inputs' trace shapes; each tensor and the exact
-    bytes of its per-device shard appended to ``args``."""
+def _inputs(records: dict, mesh, args: list, whole: bool = True) -> dict:
+    """A meta tensor per input (the global shape where ``whole``, as the
+    steps take the batch; else rank 0's shard), each appended to ``args``
+    with the bytes of its per-device shard."""
     tensors = {}
     for name, rec in records.items():
-        trace = local_shape(rec.shape, logical_to_spec(rec.axes, rec.shape, t_rules, mesh), mesh)
-        tensors[name] = _meta(trace, rec.dtype)
+        tensors[name] = _meta(rec.shape if whole else rec.local(mesh), rec.dtype)
         args.append((tensors[name], rec.local_bytes(mesh)))
     return tensors
 
 
+def collectives(before: tuple[dict, dict]) -> dict:
+    """The bytes and calls of each kind of collective since ``before`` (copies
+    of ``distributed.moved`` and ``calls``), under the JAX package's names."""
+    moved, calls = before
+    return {name: {"bytes": D.moved[k] - moved[k], "count": D.calls[k] - calls[k]}
+            for k, name in COLLECTIVE_NAMES.items()}
+
+
 def estimate(cfg: ArchConfig, shape: ShapeCell, mesh, *, rules_override=None,
              microbatch_override: int | None = None, tag: str = "") -> dict:
-    """One device's share of ``cfg``'s step at ``shape`` over ``mesh`` (a
-    ``launch/mesh.py`` shape): the record :func:`run_cell` writes (without
-    arch, shape and mesh names).  Takes objects, so that a caller can pass
-    a depth-cut config and a batch-cut shape."""
+    """Rank 0's share of ``cfg``'s step at ``shape`` over ``mesh`` (a
+    ``launch/mesh.py`` shape), traced through ``MeshCtx``: the record
+    :func:`run_cell` writes (without arch, shape and mesh names).  Takes
+    objects, so that a caller can pass a depth-cut config and a batch-cut
+    shape."""
     rec: dict = {"tag": tag}
     ok, why = cell_applicable(cfg, shape)
     if not ok:
@@ -225,48 +159,42 @@ def estimate(cfg: ArchConfig, shape: ShapeCell, mesh, *, rules_override=None,
     rules = cell_rules(shape)
     if rules_override:
         rules.update(rules_override)
-    t_rules = trace_rules(rules)
     model = build(cfg)
     long_mode = shape.name.startswith("long")
-    specs = model.param_specs()
-    exp = cfg.moe.num_experts if cfg.moe else 0
-    ep = 1
-    if exp and logical_to_spec(("experts",), (exp,), t_rules, mesh):
-        ep = mesh.shape["model"]
-    group = cfg.num_heads // max(cfg.num_kv_heads, 1)
+    # one device runs the one-process program (no collective, no f32 partial sums)
+    ctx = MeshCtx(rules, TraceMesh.of(mesh), cfg) if mesh.size > 1 else AxisCtx(rules)
     n_mb = 1
     args: list = []  # (input tensor, bytes of its per-device shard)
     extra = 0  # bytes of inputs that are Python numbers here (decode's position)
     with torch.device("meta"):
         if shape.kind == "train":
             n_mb = microbatch_override or num_microbatches(cfg, shape, mesh)
-            params, trace_shapes = _weights(specs, rules, t_rules, mesh, args)
+            params = _shards(model.param_specs(), ctx, args)
             state = {"params": params, "step": _meta((), torch.int32)}
             for key in ("m", "v"):
                 state[key] = {k: torch.empty_like(p, dtype=torch.float32)
                               for k, p in params.items()}
                 args += [(t, _nbytes(t.shape, t.dtype)) for t in state[key].values()]
             args.append((state["step"], 4))
-            batch = _inputs(batch_specs(cfg, shape, rules, mesh), mesh, t_rules, args)
-            step = make_train_step(cfg, DeviceShare(rules, trace_shapes, ep, group),
-                                   num_microbatches=n_mb)
+            batch = _inputs(batch_specs(cfg, shape, rules, mesh), mesh, args)
+            step = make_train_step(cfg, ctx, num_microbatches=n_mb)
             run = lambda: step(state, batch)  # noqa: E731
         elif shape.kind == "prefill":
-            params, trace_shapes = _weights(serve_param_specs(model), rules, t_rules, mesh, args)
-            batch = _inputs(batch_specs(cfg, shape, rules, mesh), mesh, t_rules, args)
-            step = make_prefill_step(cfg, DeviceShare(rules, trace_shapes, ep, group))
+            params = _shards(serve_param_specs(model), ctx, args)
+            batch = _inputs(batch_specs(cfg, shape, rules, mesh), mesh, args)
+            step = make_prefill_step(cfg, ctx)
             run = lambda: step(params, batch)  # noqa: E731
         else:
-            params, trace_shapes = _weights(serve_param_specs(model), rules, t_rules, mesh, args)
+            params = _shards(serve_param_specs(model), ctx, args)
             cache_rec, tok_rec, pos_rec = decode_specs(cfg, shape, rules, mesh,
                                                        long_mode=long_mode)
-            cache = _inputs(cache_rec, mesh, t_rules, args)
-            tokens = _inputs({"tokens": tok_rec}, mesh, t_rules, args)["tokens"]
+            cache = _inputs(cache_rec, mesh, args, whole=False)
+            tokens = _inputs({"tokens": tok_rec}, mesh, args)["tokens"]
             extra = pos_rec.local_bytes(mesh)
-            step = make_decode_step(cfg, DeviceShare(rules, trace_shapes, ep, group),
-                                    long_mode=long_mode)
+            step = make_decode_step(cfg, ctx, long_mode=long_mode)
             run = lambda: step(params, cache, tokens, shape.seq_len - 1)  # noqa: E731
         stores = [t.untyped_storage() for t, _ in args]  # held: their ids stay theirs
+        before = dict(D.moved), dict(D.calls)
         with CostAnalysis() as cost:
             out = run()
         del out
@@ -283,8 +211,7 @@ def estimate(cfg: ArchConfig, shape: ShapeCell, mesh, *, rules_override=None,
         "cost": {"flops": cost.flops, "bytes": cost.bytes},
         "kernels": cost.kernels,
         "op_counts": dict(sorted(cost.op_counts.items())),
-        "collectives": None,
-        "collectives_reason": COLLECTIVES_REASON,
+        "collectives": collectives(before),
     })
     return rec
 

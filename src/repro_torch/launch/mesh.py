@@ -1,10 +1,11 @@
-"""Meshes: production mesh shapes without devices, and a mesh over a process group.
+"""Meshes: production mesh shapes without devices, a trace mesh, and a mesh over a process group.
 
-The counterpart of ``repro/launch/mesh.py``.  The dry-run
-(``launch/dryrun.py``) needs only a mesh's axis names and sizes to size one
-device's share of a step, so a :class:`MeshShape` holds just those: an
-ordered ``shape`` mapping of axis name to size, as ``jax.sharding.Mesh.shape``
-gives, and its ``size``.
+The counterpart of ``repro/launch/mesh.py``.  A :class:`MeshShape` holds a
+mesh's axis names and sizes: an ordered ``shape`` mapping of axis name to
+size, as ``jax.sharding.Mesh.shape`` gives, and its ``size``.  The dry-run
+(``launch/dryrun.py``) traces rank 0 of such a mesh on the meta device
+through a :class:`TraceMesh`: the same shape, rank 0's coordinates, and
+axes that hold no process group (``distributed.py``'s meta route).
 
 A :class:`ProcessMesh` is the same mapping over a ``torch.distributed``
 world of one process per mesh position (PyTorch's idiom for the JAX
@@ -73,6 +74,36 @@ def make_local_mesh(data: int = 1, model: int = 1) -> MeshShape:
     return MeshShape(("data", "model"), (data, model))
 
 
+@dataclasses.dataclass(frozen=True)
+class TraceMesh(MeshShape):
+    """Rank 0 of a :class:`MeshShape` as ``sharding.MeshCtx`` reads a
+    :class:`ProcessMesh`, for a trace on the meta device: ``coords`` all 0,
+    ``axis(name)`` and ``world`` with no process group.  A dim split over
+    several mesh axes (``("pod", "data")`` under TRAIN_RULES and SERVE_RULES
+    on the multi-pod mesh) maps to one trace axis whose size is their
+    product; a live :class:`ProcessMesh` has no such axis (ROADMAP Queue 1
+    item 4l)."""
+
+    rank = 0
+    device = torch.device("meta")
+
+    @classmethod
+    def of(cls, mesh: MeshShape) -> "TraceMesh":
+        return cls(tuple(mesh.shape), tuple(mesh.shape.values()))
+
+    @property
+    def coords(self) -> dict[str, int]:
+        return dict.fromkeys(self.axes, 0)
+
+    @property
+    def world(self) -> Axis:
+        return Axis("world", None, self.size, 0)
+
+    def axis(self, name) -> Axis:
+        names = (name,) if isinstance(name, str) else tuple(name)
+        return Axis("/".join(names), None, math.prod(self.shape[n] for n in names), 0)
+
+
 class ProcessMesh:
     """This rank's view of a ``("data", "model")`` mesh over the process group:
     ``shape`` and ``size`` as :class:`MeshShape`'s (so ``sharding.logical_to_spec``
@@ -101,6 +132,9 @@ class ProcessMesh:
         return math.prod(self.sizes)
 
     def axis(self, name: str) -> Axis:
+        if not isinstance(name, str):
+            raise NotImplementedError(f"a dim split over several mesh axes {name}: the live "
+                                      "mesh is (data, model) (ROADMAP Queue 1 item 4l)")
         return self._axes[name]
 
 

@@ -90,7 +90,10 @@ def attn_full(params, x: torch.Tensor, cfg, *, positions=None, mask: MaskSpec | 
 def attn_prefill(params, x: torch.Tensor, cfg, *, mask: MaskSpec | None = None,
                  rope: bool = True, ctx=None):
     """Like :func:`attn_full`, also returning the populated KV cache
-    ``{"k", "v"}`` (B, S, Hkv, hd), k after RoPE, as the JAX package's."""
+    ``{"k", "v"}`` (B, S, Hkv, hd), k after RoPE, as the JAX package's.  Over
+    a mesh: the rank's rows and all S positions, with the kv heads its
+    products computed (its share where they split over ``model``); the
+    prefill cuts them to its shard (``MeshCtx.cache_part``)."""
     mask = mask or MaskSpec(causal=True)
     q, k, v = _qkv(params, x, ctx=ctx)
     positions = _arange(x.shape[1], x.device)

@@ -73,7 +73,9 @@ def _queries(p, x: torch.Tensor, cfg, positions: torch.Tensor, ctx=None):
 
 def apply_mla_full(p, x: torch.Tensor, cfg, positions=None, ctx=None):
     """Training / prefill path (expanded keys and values): x (B, S, D) ->
-    (out (B, S, D), cache ``{"c_kv" (B, S, rank), "k_rope" (B, S, rope)}``)."""
+    (out (B, S, D), cache ``{"c_kv" (B, S, rank), "k_rope" (B, S, rope)}``).
+    Over a mesh the latents are whole on every ``model`` rank (``kv_lora``
+    is whole in every rule table); the prefill keeps the rank's slots."""
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)

@@ -32,7 +32,12 @@ of ``long_window`` positions; the SSM state is carried whole.  Prefill, as
 the JAX package's, returns no SSM state and no cache of the leading dense
 layers (ROADMAP Queue 3 items 6, 7): its cache is ``{"k", "v"}`` for the
 attention families, ``{"c_kv", "k_rope"}`` of the MoE layers for
-``mla_moe`` and empty for ``ssm``.
+``mla_moe`` and empty for ``ssm``.  Each layer's entries are written in
+place into a stacked cache allocated once, so the cache is held once.  Over
+a mesh (``sharding.MeshCtx``, SERVE_RULES) the prefill takes the global
+batch, runs the rank's rows, and returns the last position's logits whole
+and the rank's shard of the cache as ``logical_to_spec`` lays out
+``cache_specs`` (``MeshCtx.cache_part``: its rows, its slots).
 """
 from __future__ import annotations
 
@@ -137,6 +142,17 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig | None = N
 
 def _local_batch(batch: dict, ctx) -> dict:
     return batch if ctx is None else {k: ctx.local_batch(v) for k, v in batch.items()}
+
+
+def _write_cache(cache: dict, i: int, entries: dict, specs: dict, layers: int, ctx) -> None:
+    """Layer ``i``'s ``entries`` (the rank's shard of each, ``ctx.cache_part``)
+    written in place into the stacked ``cache``, each stack allocated at the
+    first layer that writes it: the cache is held once."""
+    for name, t in entries.items():
+        part = t if ctx is None else ctx.cache_part(t, specs[name])
+        if name not in cache:
+            cache[name] = part.new_empty((layers,) + tuple(part.shape))
+        cache[name][i].copy_(part)
 
 
 def _layer(tree: dict, i: int, ctx=None, prefix: str = "") -> dict:
@@ -334,24 +350,24 @@ class DecoderLM(_Model):
         "v"}`` (layers, B, S, Hkv, hd) for the attention families, ``{"c_kv",
         "k_rope"}`` (layers, B, S, *) of the MoE layers for ``mla_moe`` (none
         of the leading dense layers), ``{}`` for ``ssm`` (no SSM state), as
-        the JAX package's prefill."""
+        the JAX package's prefill; over a mesh the rank's shard of it."""
         cfg = self.cfg
-        if getattr(ctx, "mesh", None) is not None:
-            raise NotImplementedError("prefill on a mesh (SERVE_RULES, the cache written "
-                                      "sequence-sharded) is not ported (ROADMAP Queue 1 item 4i)")
+        rows, seq = batch["embeddings" if cfg.input_mode == "embeddings" else "tokens"].shape[:2]
+        specs = self.cache_specs(rows, seq)
+        batch = _local_batch(batch, ctx)
         p = unflatten(params)
         mask = MaskSpec(causal=True)
         h = self._run_dense0(p, self._inputs_to_h(p, batch, ctx), mask, ctx)
-        caches: dict[str, list] = {}
-        for i in range(_layers(p["blocks"])):
+        layers = _layers(p["blocks"])
+        cache: dict[str, torch.Tensor] = {}
+        for i in range(layers):
             lp = _layer(p["blocks"], i, ctx, "blocks.")
             x = apply_norm(lp["ln1"], h, cfg.norm)
             mixed, kv = self._mixer_full(lp, x, mask, cache=True, ctx=ctx)
-            for name, t in kv.items():
-                caches.setdefault(name, []).append(t)
+            _write_cache(cache, i, kv, specs, layers, ctx)
             h, _ = self._second_half(lp, h, x, mixed, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        return _logits(p, h[:, -1:], cfg, ctx), {k: torch.stack(v) for k, v in caches.items()}
+        return _whole_logits(_logits(p, h[:, -1:], cfg, ctx), cfg, ctx), cache
 
     # -- public: decode -------------------------------------------------------------------
     def cache_specs(self, batch: int, cache_len: int, *,
@@ -510,27 +526,25 @@ class EncDecLM(_Model):
     def prefill(self, params: dict[str, torch.Tensor], batch, ctx=None):
         """The encoder over ``batch["frames"]`` and the decoder over one BOS
         token (id 0): (logits (B, 1, padded_vocab), cache ``{"k", "v"}``
-        (layers, B, 1, Hkv, hd) and ``"enc_out"``), as the JAX package's."""
+        (layers, B, 1, Hkv, hd) and ``"enc_out"``), as the JAX package's; over
+        a mesh the rank's shard of the cache (``enc_out``: its rows)."""
         cfg = self.cfg
-        if getattr(ctx, "mesh", None) is not None:
-            raise NotImplementedError("prefill on a mesh (SERVE_RULES, the cache written "
-                                      "sequence-sharded) is not ported (ROADMAP Queue 1 item 4i)")
+        specs = self.cache_specs(batch["frames"].shape[0], 1)
         p = unflatten(params)
-        enc_out = self._encode(p, batch["frames"], ctx)
-        h = cast(_weight(p, "embed", ctx))[torch.zeros((enc_out.shape[0], 1), dtype=torch.int64,
-                                                       device=enc_out.device)]
-        ks, vs = [], []
+        enc_out = self._encode(p, _local_batch(batch, ctx)["frames"], ctx)
+        h = _lookup(p, torch.zeros((enc_out.shape[0], 1), dtype=torch.int64,
+                                   device=enc_out.device), ctx, cast_first=True)
+        cache: dict[str, torch.Tensor] = {}
         for i in range(cfg.num_layers):
             lp = _layer(p["dec_blocks"], i, ctx, "dec_blocks.")
             x = apply_norm(lp["ln1"], h, cfg.norm)
             a_out, kv = attn.attn_prefill(lp["self_attn"], x, cfg, mask=MaskSpec(causal=True),
                                           ctx=ctx)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+            _write_cache(cache, i, kv, specs, cfg.num_layers, ctx)
             h = self._cross(lp, h + a_out, enc_out, ctx)
         h = apply_norm(p["final_norm"], h, cfg.norm)
-        return _logits(p, h[:, -1:], cfg, ctx), {"k": torch.stack(ks), "v": torch.stack(vs),
-                                            "enc_out": enc_out}
+        return _whole_logits(_logits(p, h[:, -1:], cfg, ctx), cfg, ctx), {**cache,
+                                                                          "enc_out": enc_out}
 
     def cache_specs(self, batch: int, cache_len: int, *,
                     long_mode: bool = False) -> dict[str, ParamSpec]:

@@ -13,9 +13,8 @@ expert-parallel ``shard_map`` path (:func:`_moe_ep`): each rank routes its
 data shard of the tokens over all experts and runs its own experts, whose
 weights ``MeshCtx.gather`` all-gathers over ``data`` where they are FSDP
 shards; the ranks' partial outputs are summed over ``model`` and the aux
-loss averaged over every rank.  Its per-rank body without the collectives
-is :func:`moe_rank`, which the dry-run's per-device trace runs
-(``launch/dryrun.py``).
+loss averaged over every rank.  The dry-run (``launch/dryrun.py``) traces
+that path on rank 0 of a trace mesh.
 """
 from __future__ import annotations
 
@@ -105,13 +104,9 @@ def _expert_ffn(buf: torch.Tensor, gate_w, up_w, down_w) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", h, cast(down_w))
 
 
-def _moe_local(x_flat: torch.Tensor, params_l, cfg, lo: int, hi: int, capacity: int,
-               experts=None):
-    """Token dispatch + expert FFN for experts [lo, hi).  ``experts``: the
-    (gate, up, down) weights of exactly those experts; by default sliced from
-    ``params_l``, which then holds all of them."""
-    if experts is None:
-        experts = tuple(params_l[name][lo:hi] for name in ("gate", "up", "down"))
+def _moe_local(x_flat: torch.Tensor, params_l, cfg, lo: int, hi: int, capacity: int):
+    """Token dispatch + expert FFN for experts [lo, hi) of those ``params_l`` holds."""
+    experts = tuple(params_l[name][lo:hi] for name in ("gate", "up", "down"))
     idx, weights, aux = _route(x_flat, params_l["router"], cfg.moe.top_k)
     return _experts(x_flat, idx, weights, cfg, lo, hi, capacity, experts), aux
 
@@ -143,22 +138,6 @@ def capacity_of(tokens: int, cfg) -> int:
     return max(int(math.ceil(tokens * m.top_k / m.num_experts * m.capacity_factor)), m.top_k)
 
 
-def moe_rank(x_flat: torch.Tensor, params_l, cfg, rank: int, ranks: int):
-    """Rank ``rank`` of ``ranks``' share of the JAX package's expert-parallel
-    path (its ``shard_map`` body, ``repro/models/moe.py``), without the
-    collectives: routes the rank's ``t_local`` tokens ``x_flat`` over all E
-    experts and dispatches to its range [lo, lo + E / ranks), whose (gate,
-    up, down) weights ``params_l`` holds, with the capacity of ``t_local``
-    tokens.  Returns (this rank's part of y, aux); the JAX package sums the
-    parts over ``model`` (``psum``)."""
-    m = cfg.moe
-    e_loc = m.num_experts // ranks
-    lo = rank * e_loc
-    experts = tuple(params_l[name] for name in ("gate", "up", "down"))
-    return _moe_local(x_flat, params_l, cfg, lo, lo + e_loc, capacity_of(x_flat.shape[0], cfg),
-                      experts)
-
-
 def _moe_ep(x_flat: torch.Tensor, params_l, cfg, ctx):
     """The expert-parallel path (``repro/models/moe.py``'s ``shard_map``) on
     this rank: its ``t_local`` tokens ``x_flat`` routed over all experts, its
@@ -181,19 +160,14 @@ def apply_moe(params_l, x: torch.Tensor, cfg, ctx=None):
     """x: (B, S, D) -> (out, aux_loss).  params_l: this layer's slice.
 
     Over a mesh with a ``model`` axis (``sharding.MeshCtx``: x is the rank's
-    data shard) the expert-parallel path :func:`_moe_ep`; a context whose
-    ``expert_rank`` is (rank, ranks) (the dry-run's per-device trace sets
-    it) takes :func:`moe_rank` over that rank's experts."""
+    data shard) the expert-parallel path :func:`_moe_ep`."""
     m = cfg.moe
     b, s, d = x.shape
     mesh = getattr(ctx, "mesh", None)
     x_flat = x.reshape(-1, d)
-    share = getattr(ctx, "expert_rank", None)
     if mesh is not None and "model" in mesh.shape:
         require_mesh_ctx(ctx, "the expert-parallel MoE")
         y, aux = _moe_ep(x_flat, params_l, cfg, ctx)
-    elif share is not None:
-        y, aux = moe_rank(x_flat, params_l, cfg, *share)
     else:
         y, aux = _moe_local(x_flat, params_l, cfg, 0, m.num_experts,
                             capacity_of(x_flat.shape[0], cfg))

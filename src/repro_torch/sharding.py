@@ -12,8 +12,8 @@ rules with a divisibility fallback): every parameter or activation dimension
 carries a logical name, a table maps names to mesh axes, and a mapping whose
 mesh-axis product does not divide the dimension is dropped.  A partition is
 a plain tuple with the entries of the JAX package's ``PartitionSpec``.  The
-port has no partitioner: the dry-run (``launch/dryrun.py``) reads these
-rules to size one device's share, and ``AxisCtx.constrain`` is the identity.
+port has no partitioner: ``AxisCtx.constrain`` is the identity, and a
+sharded program is the ranks' own (below).
 
 Over a mesh of processes (``launch/mesh.py``) each rank holds its shard of
 every leaf (:func:`shard_params`; :func:`unshard` is the inverse) and runs
@@ -21,9 +21,11 @@ the model with a :class:`MeshCtx`, whose hooks place the collectives
 (``distributed.py``) that make the shards add up to the whole: the FSDP
 gathers of a weight, "f" and "g" around a product split over ``model``
 (:func:`product_plans`, one table for every rule table), the
-vocab-parallel embedding and logits, the sequence-sharded decode cache, the
-batch over ``data``, the gradient sums and the global norm.  Every hook is
-the identity in :class:`AxisCtx` (and in the dry-run's ``DeviceShare``).
+vocab-parallel embedding and logits, the sequence-sharded decode cache and
+the prefill's cache written into the rank's shard of it, the batch over
+``data``, the gradient sums and the global norm.  Every hook is the
+identity in :class:`AxisCtx`.  The dry-run (``launch/dryrun.py``) runs a
+:class:`MeshCtx` on rank 0 of a ``launch.mesh.TraceMesh``, on meta tensors.
 A leaf whose dim holds several parts side by side (Mamba's ``in_proj``:
 the columns of x, then those of z) splits part-wise (``FUSED``): each rank
 holds its share of every part, and the whole leaf keeps the JAX package's
@@ -241,18 +243,15 @@ class AxisCtx:
     model code.  Off a mesh every hook is the identity: :meth:`constrain`,
     :meth:`gather` and :meth:`kv_heads` (the layer's share of the work),
     :meth:`linear` (a product), :meth:`vocab_shard` and :meth:`seq_shard`
-    (None: the vocab and the cache are whole), the batch and mean hooks, and
-    the gradient and norm sums of the train step; ``expert_rank`` is None
-    (every expert).  The dry-run's per-device trace
-    (``launch/dryrun.py::DeviceShare``) overrides :meth:`gather`,
-    :meth:`kv_heads` and ``expert_rank`` with one device's share;
-    :class:`MeshCtx` overrides them all with a rank's share and its collectives."""
+    (None: the vocab and the cache are whole), :meth:`cache_part` (a
+    prefill's cache entry as computed), the batch and mean hooks, and the
+    gradient and norm sums of the train step.  :class:`MeshCtx` overrides
+    them all with a rank's share and its collectives."""
 
     def __init__(self, rules=None, mesh=None, remat_policy=None):
         self.rules = rules or TRAIN_RULES
         self.mesh = mesh
         self.remat_policy = remat_policy
-        self.expert_rank: tuple[int, int] | None = None  # (rank, ranks): models/moe.py::moe_rank
 
     def constrain(self, x, *axes):
         return x
@@ -280,6 +279,12 @@ class AxisCtx:
         """This rank's slots of a decode cache holding ``slots`` of them here,
         or None: the whole cache."""
         return None
+
+    def cache_part(self, t: torch.Tensor, spec: ParamSpec) -> torch.Tensor:
+        """One layer's entry ``t`` (batch, slots, ...) of the cache ``spec``
+        (stacked on ``layers``) as a prefill computed it -> this rank's shard
+        of it."""
+        return t
 
     def local_batch(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global batch ``x`` (its leading dim)."""
@@ -537,8 +542,8 @@ class MeshCtx(AxisCtx):
                        if getattr(self._split(axis, heads[axis]), "name", None) == "model"}
 
     def _axis(self, entry):
-        if not isinstance(entry, str):
-            raise NotImplementedError(f"a dim split over several mesh axes {entry}")
+        """The axis of a partition entry: a mesh axis, or on a trace mesh one
+        over several (a live mesh raises there)."""
         return self.mesh.axis(entry)
 
     def _split(self, logical: str, n: int):
@@ -615,11 +620,43 @@ class MeshCtx(AxisCtx):
         return Shard(ax.index * n, (ax.index + 1) * n, ax)
 
     def seq_shard(self, slots):
+        """This rank's slots of a decode cache holding ``slots`` of them here:
+        under a split of ``cache_seq`` over model, a shard of ``slots * model``.
+        Where ``slots`` does not divide by model, a whole cache (the fallback
+        of ``logical_to_spec`` for a count model does not divide) holds as
+        many, so decode refuses it rather than guess."""
         entry = self.rules.get("cache_seq") or ()
         if "model" not in entry or "model" not in self.mesh.shape:
             return None
         ax = self.mesh.axis("model")
+        if slots % ax.size:
+            raise ValueError(f"a decode cache of {slots} slots a rank is either whole or a "
+                             f"shard of {slots * ax.size}; give it a multiple of "
+                             f"{ax.size * ax.size} slots")
         return Shard(ax.index * slots, (ax.index + 1) * slots, ax)
+
+    def cache_part(self, t, spec):
+        """The rank's shard, as ``logical_to_spec`` lays out ``spec`` under the
+        rules, of one layer's entry ``t`` that the prefill computed on this
+        rank: its rows of the batch, and along every other dim the whole or
+        (kv heads split as the products split them) the rank's share over
+        ``model``.  A share that the layout holds whole is all-gathered over
+        ``model``; then a whole dim that the layout splits (``cache_seq``) is
+        cut to the rank's part."""
+        axes, whole = spec.axes[1:], spec.shape[1:]
+        part = logical_to_spec(axes, whole, self.rules, self.mesh)
+        want = local_shape(whole, part, self.mesh)
+        for dim, n in enumerate(whole):
+            if t.shape[dim] != n and want[dim] == n:
+                t = D.all_gather(t, self.mesh.axis("model"), dim)
+        for dim, entry in enumerate(part):
+            if entry is not None and t.shape[dim] == whole[dim] != want[dim]:
+                idx, count = _shard_index(entry, self.mesh, self.mesh.coords)
+                t = t.narrow(dim, idx * (whole[dim] // count), whole[dim] // count)
+        if tuple(t.shape) != want:
+            raise ValueError(f"a cache entry of {tuple(t.shape)} is not a shard {want} of "
+                             f"{whole} under {part}")
+        return t
 
     def _batch_axis(self, rows: int):
         ax = self._split("batch", rows)
@@ -636,41 +673,38 @@ class MeshCtx(AxisCtx):
         return x[ax.index * n:(ax.index + 1) * n]
 
     def whole_batch(self, x):
-        ax = self._batch_axis(x.shape[0] * self.mesh.shape.get("data", 1))
+        split = [a for a in (self.rules.get("batch") or ()) if a in self.mesh.shape]
+        ax = self._batch_axis(x.shape[0] * _axis_size(self.mesh, split))
         return x if ax is None else D.gather_out(x, ax, 0)
 
     def pmean(self, x, axes):
-        present = [a for a in axes if a in self.mesh.shape]
+        present = tuple(a for a in axes if a in self.mesh.shape)
         if set(present) == set(self.mesh.shape):
             return D.pmean(x, self.mesh.world)
-        if len(present) > 1:
-            raise NotImplementedError(f"a mean over the mesh axes {present}")
-        return D.pmean(x, self.mesh.axis(present[0])) if present else x
+        if not present:
+            return x
+        return D.pmean(x, self._axis(present[0] if len(present) == 1 else present))
 
     def shard(self, tree, specs):
         return shard_params(tree, specs, self.rules, self.mesh, self.mesh.coords)
 
     def local_shape(self, spec):
-        part = logical_to_spec(spec.axes, spec.shape, self.rules, self.mesh)
-        if "cache_seq" in spec.axes:  # seq_shard reads the rule: the cache must split by it
-            i = spec.axes.index("cache_seq")
-            want = self.seq_shard(1) is not None
-            if want != (len(part) > i and part[i] is not None):
-                raise ValueError(f"a cache of {spec.shape[i]} slots does not split over "
-                                 f"{self.rules.get('cache_seq')}")
-        return local_shape(spec.shape, part, self.mesh)
+        return local_shape(spec.shape, logical_to_spec(spec.axes, spec.shape, self.rules,
+                                                       self.mesh), self.mesh)
 
     def reduce_grads(self, grads):
-        """Each gradient summed over the ``data`` ranks (FSDP leaves were
-        reduce-scattered by their gathers' backward already, a replicated
-        leaf is all-reduced here) and divided by their count: the gradient of
-        the mean loss.  The ``model`` ranks hold theirs whole ("f" and "g")."""
-        if "data" not in self.mesh.shape:
+        """Each gradient summed over the data-parallel ranks (``FSDP_AXES``:
+        FSDP leaves were reduce-scattered by their gathers' backward already,
+        a replicated leaf is all-reduced here) and divided by their count: the
+        gradient of the mean loss.  The ``model`` ranks hold theirs whole ("f"
+        and "g")."""
+        split = tuple(a for a in FSDP_AXES if a in self.mesh.shape)
+        if not split:
             return grads
-        ax = self.mesh.axis("data")
+        ax = self._axis(split[0] if len(split) == 1 else split)
         out = {}
         for name, g in grads.items():
-            if not any(_on(e, "data") for e in self.parts[name]):
+            if not any(_on(e, split[-1]) for e in self.parts[name]):
                 g = D.all_reduce(g, ax)
             out[name] = g / ax.size
         return out

@@ -5,8 +5,9 @@ with microbatched gradient accumulation (one microbatch's activations held
 at a time, f32 gradients summed in order and averaged) and AdamW.
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry points.
 
-Over a mesh (``sharding.MeshCtx``) the state is the rank's shard and the
-batch global.  The backward of every FSDP gather (``distributed.fsdp_gather``)
+Over a mesh (``sharding.MeshCtx``, which every step requires there) the
+state, weights and caches are the rank's shards and the batch global.  The
+backward of every FSDP gather (``distributed.fsdp_gather``)
 reduce-scatters that leaf's gradient onto the rank's shard in each
 microbatch, so the accumulator holds shards only: what the JAX package's
 ``shard_grad_accum`` asks of XLA with a sharding constraint on the
@@ -81,6 +82,10 @@ def make_train_step(cfg: ArchConfig, ctx=None, adamw: opt.AdamWConfig | None = N
 
 
 def make_prefill_step(cfg: ArchConfig, ctx=None):
+    """Over a mesh (a ``MeshCtx``, SERVE_RULES) the batch is global; the step
+    gives the last logits whole and this rank's shard of the cache."""
+    if getattr(ctx, "mesh", None) is not None:
+        require_mesh_ctx(ctx, "make_prefill_step")
     model = build(cfg)
 
     @torch.no_grad()
@@ -91,6 +96,8 @@ def make_prefill_step(cfg: ArchConfig, ctx=None):
 
 
 def make_decode_step(cfg: ArchConfig, ctx=None, *, long_mode: bool = False):
+    if getattr(ctx, "mesh", None) is not None:
+        require_mesh_ctx(ctx, "make_decode_step")
     model = build(cfg)
 
     @torch.no_grad()

@@ -1261,3 +1261,78 @@ def test_mesh_on_one_card_matches_one_process(cuda):
             want = nc[k].float().cpu().numpy()
             assert np.abs(r["cache"][k] - want).max() <= 2**-4 * np.abs(want).max()
         assert abs(float(r["loss"]) - float(met["loss"])) < 0.02
+
+
+def _moved_rank(mesh):
+    """One all_gather and one reduce_scatter on card tensors and on CPU
+    tensors over the same Gloo group: what ``distributed.moved`` and
+    ``calls`` count for each."""
+    from repro_torch import distributed as D
+
+    ax = mesh.axis("model")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = torch.randn((6, 4, 5), generator=torch.Generator().manual_seed(ax.index)).to(dev)
+        before = dict(D.moved), dict(D.calls)
+        D.all_gather(x.bfloat16(), ax, 1)
+        D.reduce_scatter(x.bfloat16(), ax, 0)
+        out[dev] = {k: (D.moved[k] - before[0][k], D.calls[k] - before[1][k]) for k in D.KINDS}
+    return out
+
+
+def test_moved_counts_the_payload_on_both_routes(cuda):
+    """The card's route (a sum of a zero buffer) and the CPU's native ops
+    count the same: an all-gather its own part, a reduce-scatter its f32 input."""
+    from repro_torch.launch.mesh import launch
+
+    for rank in launch(_moved_rank, data=1, model=2, device="cuda", timeout=300):
+        assert rank["cuda"] == rank["cpu"]
+        assert rank["cuda"]["all_gather"] == (6 * 4 * 5 * 2, 1)
+        assert rank["cuda"]["reduce_scatter"] == (6 * 4 * 5 * 4, 1)
+
+
+def _mesh_prefill_rank(mesh, params, tokens):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build
+    from repro_torch.sharding import SERVE_RULES, MeshCtx, unshard
+
+    dev = mesh.device
+    cfg = get_smoke("granite-8b")
+    model = build(cfg)
+    ctx = MeshCtx(SERVE_RULES, mesh, cfg)
+    shards = ctx.shard({k: torch.from_numpy(v).to(dev) for k, v in params.items()},
+                       model.param_specs())
+    fa.reset_launches()
+    with torch.no_grad():
+        lg, cache = model.prefill(shards, {"tokens": torch.from_numpy(tokens).to(dev)}, ctx)
+    tile = fa.flash_attention.variant_launches["tile"]
+    specs = model.cache_specs(*tokens.shape)
+    return {"logits": lg, "cache": unshard(cache, specs, SERVE_RULES, mesh), "tile": tile,
+            "device": lg.device.type}
+
+
+def test_mesh_prefill_on_one_card_matches_the_cpu(cuda):
+    """A 2 x 2 Gloo world on the card: granite-smoke's prefill of 4 x 64
+    tokens under SERVE_RULES ("tile" once per layer in every rank), against
+    the port's prefill in one process on the CPU plain path, both bf16:
+    logits within 0.15 (the card-vs-CPU bound of chip_smoke.py), caches
+    within 2^-4 of their largest entry."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import launch
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+
+    cfg = get_smoke("granite-8b")
+    model = build(cfg)
+    params = init_params(model.param_specs(), torch.Generator().manual_seed(3), device="cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (4, 64))
+    ranks = launch(_mesh_prefill_rank, {k: v.numpy() for k, v in params.items()}, tokens,
+                   data=2, model=2, device="cuda", timeout=600)
+    with torch.no_grad():
+        lg, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)})
+    for r in ranks:
+        assert r["device"] == "cuda" and r["tile"] == cfg.num_layers
+        assert np.abs(r["logits"] - lg.float().numpy()).max() < 0.15
+        for k, want in cache.items():
+            want = want.float().numpy()
+            assert np.abs(r["cache"][k] - want).max() <= 2**-4 * np.abs(want).max(), k

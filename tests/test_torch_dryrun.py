@@ -13,7 +13,8 @@ on the CPU.
 * The cost analysis on a toy of known products, copies, views and frees:
   FLOPs, boundary bytes and peak live bytes exact; the attention kernels'
   declared operations against a brute-force walk of their tiles.
-* One device's share against GSPMD's: a subprocess with 4 fake XLA devices
+* Rank 0's share (``estimate``: ``MeshCtx`` on a 2 x 2 trace mesh) against
+  GSPMD's: a subprocess with 4 fake XLA devices
   lowers and compiles the JAX package's own train, prefill and decode steps
   on a 2 x 2 ``("data", "model")`` mesh at smoke widths, twice, at a
   sequence (or cache) length S and 2S.  The port's per-device
@@ -22,9 +23,10 @@ on the CPU.
   linear in S and attention quadratic in S (train, prefill) or linear in
   the cache length (decode), which the two lengths separate; the port's
   products outside its attention kernels must be within ``PRODUCTS_RTOL``
-  = 2% of XLA's (observed: 0.9986-1.0189; the largest, yi-smoke with one
-  kv head in decode, is the trace's whole K/V projection where GSPMD
-  splits it row-parallel).  Two cells are held apart and named:
+  = 2% of XLA's (observed: 0.9986-1.0051; yi-smoke's decode with one kv
+  head, 1.0189 under the earlier per-device trace, is 1.0000 now that the
+  trace splits the K/V projection row-parallel, as GSPMD does).  Two
+  cells are held apart and named:
   - hymba-smoke long_500k: the batch of 1 leaves the data axis idle and
     GSPMD splits the SSM's in/out projections and attention's over it too,
     so XLA's per-device products are 1/1.2 of the trace's one model-th:
@@ -38,7 +40,7 @@ on the CPU.
   products (S and dP in both of its kernels) where XLA's autodiff of the
   chunked attention performs 5, and bf16 head dims of 8 run padded to 16
   (yi-smoke).  Held within ``WHOLE_STEP`` = [0.97, 1.25] of XLA's
-  (observed 0.9875-1.2294).
+  (observed 1.0000-1.2294).
 """
 import dataclasses
 import json

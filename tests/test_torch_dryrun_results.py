@@ -4,9 +4,11 @@ fits the card and is current: the counterpart of ``tests/test_dryrun_results.py`
 Every (arch x shape x mesh) cell has a record; none failed; the skipped
 cells are the JAX package's (long_500k for every pure full-attention
 architecture); an ``ok`` cell names 256 or 512 devices, fits one H100's
-memory (``launch/dryrun.py::H100_BUDGET_BYTES``) and carries no collective
-counts (no partitioned program yet); and two cells traced again here give
-their committed records exactly, so the matrix cannot go stale.
+memory (``launch/dryrun.py::H100_BUDGET_BYTES``) and carries the
+collectives its trace through ``MeshCtx`` made (bytes and calls of each
+kind, every kind the JAX package names, an all-reduce in every cell); and
+two cells traced again here give their committed records exactly, so the
+matrix cannot go stale.
 """
 import json
 import pathlib
@@ -80,7 +82,12 @@ def test_costs_recorded(records):
         if r["status"] != "ok":
             continue
         assert r["cost"]["flops"] > 0 and r["cost"]["bytes"] > 0, key
-        assert r["collectives"] is None and "Queue 1 item 4g" in r["collectives_reason"]
+        coll = r["collectives"]
+        assert {"all-reduce", "all-gather", "reduce-scatter"} <= set(coll), key
+        assert all(c["bytes"] >= 0 and c["count"] >= 0 and (c["bytes"] > 0) == (c["count"] > 0)
+                   for c in coll.values()), key
+        assert coll["all-reduce"]["count"] > 0, key
+        assert (coll["reduce-scatter"]["count"] > 0) == (r["shape"] == "train_4k"), key
         # attention runs in a kernel but in the SSM family and MLA's absorbed decode
         family = get(r["arch"]).family
         kernel = not (family == "ssm" or (family == "mla_moe" and r["shape"] == "decode_32k"))

@@ -53,7 +53,7 @@ from repro_torch.launch.mesh import launch
 from repro_torch.models import layers as TL
 from repro_torch.models import moe as tmoe
 from repro_torch.models.model import build
-from repro_torch.sharding import (DECODE_RULES, TRAIN_RULES, MeshCtx, init_params,
+from repro_torch.sharding import (DECODE_RULES, SERVE_RULES, TRAIN_RULES, MeshCtx, init_params,
                                   params_from_numpy, unflatten, unshard)
 from repro_torch.train import optimizer as topt
 from repro_torch.train.step import make_train_step
@@ -237,8 +237,14 @@ def _rank(mesh, path: str) -> dict:
     out["shard_unchanged"] = all(torch.equal(nc[k], before[k]) for k in nc)
     # a sequence from an empty cache: from position 8 both model ranks' shards hold keys
     out.update(_decode_sequence(model, dparams, npz, cache_specs, dctx, mesh))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4i"):
-        model.prefill(params, {"tokens": torch.zeros((4, 8), dtype=torch.long)}, dctx)
+    # prefill on the mesh under SERVE_RULES: the last logits whole, the cache the rank's shard
+    sctx = MeshCtx(SERVE_RULES, mesh, gcfg)
+    with torch.no_grad():
+        plg, pcache = model.prefill(sctx.shard(params, model.param_specs()),
+                                    {"tokens": torch.from_numpy(npz["tokens"]).long()}, sctx)
+    out["prefill_logits"] = plg
+    out["prefill_shapes"] = [[list(v.shape), list(sctx.local_shape(cache_specs[k]))]
+                             for k, v in pcache.items()]
     # a train step, with and without shard_grad_accum
     tctx = MeshCtx(TRAIN_RULES, mesh, gcfg)
     batch = {k: torch.from_numpy(npz[k]).long() for k in ("tokens", "labels")}
@@ -299,6 +305,9 @@ def one_process(runs):
         lg, nc = model.decode_step(params, cache, torch.from_numpy(npz["toks"]).long(), 3)
     out = {"logits": lg.float().numpy(), **{f"cache.{k}": v.float().numpy() for k, v in nc.items()}}
     out.update(_decode_sequence(model, params, npz, model.cache_specs(4, 16)))
+    with torch.no_grad():
+        plg, _ = model.prefill(params, {"tokens": torch.from_numpy(npz["tokens"]).long()})
+    out["prefill_logits"] = plg.float().numpy()
     old = TL.COMPUTE_DTYPE
     TL.COMPUTE_DTYPE = torch.float32
     try:
@@ -374,6 +383,17 @@ def test_decode_across_both_cache_shards_matches_one_process(runs, one_process):
             got, want = np.asarray(r[f"seq.{name}"]), np.asarray(one_process[f"seq.{name}"])
             assert _max_diff(got[0], want[0]) == 0.0, name
             assert np.linalg.norm(got - want) <= SEQ_CACHE_REL * np.linalg.norm(want), name
+
+
+def test_prefill_runs_on_the_mesh(runs, one_process):
+    """granite-smoke's prefill of 4 x 16 tokens under SERVE_RULES: every rank
+    gives the last logits whole (within LOGIT_TOL of one process) and holds
+    its shard of the 16-slot cache (``tests/test_torch_mesh_prefill.py``
+    holds every family's cache)."""
+    for r in runs[3]:
+        assert _max_diff(r["prefill_logits"], one_process["prefill_logits"]) < LOGIT_TOL
+        assert all(got == want for got, want in r["prefill_shapes"])
+        assert [got[2] for got, _ in r["prefill_shapes"]] == [8, 8]
 
 
 @pytest.mark.parametrize("sga", [False, True], ids=["accumulate", "shard_grad_accum"])
