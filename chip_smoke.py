@@ -4,6 +4,8 @@
     python3 chip_smoke.py                  # 1 GiB blob at the production layout
     python3 chip_smoke.py --blob-mib 256   # a smaller blob
     python3 chip_smoke.py --das-blobs 1024 # fewer blobs in the DAS phase
+    python3 chip_smoke.py --pod-only       # the kernels' build, then the pod world alone
+    python3 chip_smoke.py --examples-only  # the kernels' build, then the examples alone
 
 Phases, each ended by ``torch.cuda.synchronize()`` so a kernel fault shows in
 the phase that caused it; any failure exits non-zero and prints no result:
@@ -80,13 +82,14 @@ the phase that caused it; any failure exits non-zero and prints no result:
    (detections equal the withheld or crashed coordinates drawn); 64
    squares rebuilt on the card from k rows and from k columns;
 8. a device encode/decode against the CPU plain path on one chunkset;
-9. the put's and a read's steps timed alone (partition, device encode,
-   device-to-host copy, host SHA-256 Merkle commitments, decode);
-10. the device's busy and idle share over a put and a whole read of the same
-   blob on a fresh cluster, from a ``torch.profiler`` trace of the card
+9. the put's and a read's steps timed alone over the blob's first 256 MiB
+   (partition, device encode, device-to-host copy, host SHA-256 Merkle
+   commitments, decode);
+10. the device's busy and idle share over a put and a whole read of those
+   256 MiB on a fresh cluster, from a ``torch.profiler`` trace of the card
    (kernels, copies and memsets, overlaps merged), and the device ms of all
    ``gf_matmul`` launches in each (kernel events by name);
-11. the serving path at yi-9b's published widths, depth cut to 2 layers:
+11. the serving path at yi-9b's published widths, depth cut to 1 layer:
    publish the weights through Shelby, crash an SP, restore them by paid
    k-of-n reads, serve batch 4 x (prompt 8 + 16 generated tokens); the
    served model teacher-forced for two steps on the card and on the CPU
@@ -95,9 +98,9 @@ the phase that caused it; any failure exits non-zero and prints no result:
    (``repro_torch.scenarios.engine``): 500 SPs,
    50 RPC nodes, 192 single-chunkset blobs at Clay (4,2); Zipf storms of
    10k, 100k and 1M requests through ``session.replay(batch)`` on fresh
-   fleets, each under the profiler (wall, requests/s, the cohort split,
-   sim p50/p99, goodput, ``gf_matmul`` launches of the de-opted decodes,
-   device busy share); no fallback; the 10k digest equal to a heap
+   fleets (wall, requests/s, the cohort split, sim p50/p99, goodput,
+   ``gf_matmul`` launches of the de-opted decodes; the 10k rung under the
+   profiler for the device busy share); no fallback; the 10k digest equal to a heap
    task-per-request replay and to the JAX package's, which also times the
    100k rung for the events/s speedup; settlement conserves;
 13. overload control in the ``concurrent`` scenario's world and fleets
@@ -118,7 +121,7 @@ the phase that caused it; any failure exits non-zero and prints no result:
    ``run_sim`` equal to the CPU's; a 3-point sweep of ``tune_admission``'s
    fetch budget whose digests and argmax equal the JAX package's;
 15. training over Shelby (``launch/train.py``'s ``train``) at starcoder2-3b's
-   published widths, depth cut to 2 layers, on ``build_cluster``: a
+   published widths, depth cut to 1 layer, on ``build_cluster``: a
    16,777,216-token corpus blob, batches of 8 x 4096 in two microbatches
    (each batch one paid ``get_many``), a coded checkpoint at step 3, an SP crashed
    at step 4, the k-of-n restore equal to the saved state, the SP wiped and
@@ -192,9 +195,24 @@ the phase that caused it; any failure exits non-zero and prints no result:
    caches and the gradient of every family, which three faults planted in
    the mesh (the combine ignoring lse, the data replicas' gradients not
    summed, hymba's in_proj split contiguously) must fail; the f32 partial
-   products timed against bf16.  Four ranks share one card: nothing here
-   measures multi-GPU speed;
-20. the script's seconds, the card again, one JSON line per kernel, then the
+   products timed against bf16.  Then the pod world (path ``mesh_pod``,
+   ``pod_phase``): a 2 x 2 x 2 ("pod", "data", "model") world of eight
+   processes on the card, granite-8b as above served (batch 4 over ``("pod",
+   "data")``, a row a rank), prefilled (4 x 4096) and trained (8 x 4096 in 2
+   microbatches, FSDP over ``("pod", "data")``), qwen3-moe's MoE layer over 4
+   x 1024 tokens (data over both axes); against one process on the card
+   under the same gates, which a planted fault (the ``("pod", "data")``
+   ranks taken data-major) must fail; rank 0's collectives equal to the
+   dry-run's trace on a 2 x 2 x 2 mesh; each rank's peak and bytes per
+   collective kind printed.  Four or eight ranks share one card: nothing
+   here measures multi-GPU speed;
+20. the port's six examples (path ``examples``, ``examples_phase``):
+   ``examples/torch/*.py`` run in this process on the card at their own
+   sizes (``video_streaming`` at 24 MiB in 1 MiB chunksets), their asserts
+   the gates, then each with ``--device cpu``: every printed line equal but
+   the wall clock; ``gf_matmul`` launches in each, ``serve_llm``'s attention
+   one "split" launch a layer and decode step;
+21. the script's seconds, the card again, one JSON line per kernel, then the
    result line.
 """
 from __future__ import annotations
@@ -237,8 +255,9 @@ ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2**-7, 2**-7)}  # (atol, rtol)
 BWD_TOL = 2**-6
 # the row log-sum-exp of the forward kernel against the plain version's, absolute
 LSE_ATOL = 1e-3
-# phase 15: training over Shelby at starcoder2-3b's published widths, depth cut 30 -> 2
-TRAIN_ARCH, TRAIN_LAYERS = "starcoder2-3b", 2
+# phase 15: training over Shelby at starcoder2-3b's published widths, depth cut 30 -> 1 (2
+# until PR 27: its checkpoint's host-bound save, restore and repair took 146 s of a run)
+TRAIN_ARCH, TRAIN_LAYERS = "starcoder2-3b", 1
 TRAIN_CORPUS_TOKENS = 16 * 2**20  # 64 MiB of seeded int32 tokens, one blob
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 4096, 2  # train_4k's sequence
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 3, 4
@@ -251,7 +270,7 @@ TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 1, 256  # the card-vs-CPU step
 # divides by the head count, ROADMAP Queue 3 item 5): the softmax is one-hot to bf16
 # precision and the q/k gradients are rounding noise in any bf16 computation
 TRAIN_LOSS_ATOL, TRAIN_NOISE_FACTOR, TRAIN_GRAD_FLOOR = 0.02, 3.0, 0.01
-SERVE_ARCH, SERVE_LAYERS = "yi-9b", 2  # published widths; depth cut from 48 (host-bound publish)
+SERVE_ARCH, SERVE_LAYERS = "yi-9b", 1  # published widths; depth cut from 48 (host-bound publish)
 # phase 16: the MoE, SSM, hybrid and embedding-input families
 FAMILY_ARCH, FAMILY_LAYERS = "hymba-1.5b", 2  # published widths; depth cut from 32
 FAMILY_WARM = 3  # warm generations of the served hybrid, the median reported
@@ -319,18 +338,32 @@ MESH_WHISPER_TRAIN = (2, 64)  # whisper-tiny, 64 tokens over 1,500 seeded frames
 MESH_SMOKE_ARCHS = ("falcon-mamba-7b", "deepseek-v2-lite-16b", "phi-3-vision-4.2b")
 MESH_SMOKE_TRAIN = (4, 64)
 MESH_TIMEOUT = 900  # seconds the world may take, or it fails
+# phase 19's pod world: a 2 x 2 x 2 ("pod", "data", "model") world of eight processes on the
+# one card, granite-8b as above; the batches over ("pod", "data")
+POD_WORLD = (2, 2, 2)  # pod, data, model
+POD_TRAIN_BATCH = 8  # 8 x 4096 in MESH_MICROBATCHES microbatches: 2 rows a (pod, data) rank
+POD_GRAD_BATCH = 4  # the gradient's rows, one a (pod, data) rank
+POD_MOE_BATCH, POD_MOE_SEQ = 4, 1024  # qwen3-moe at 1 layer: a row a (pod, data) rank
+# phase 20: the port's examples (examples/torch/), on the card and on the CPU
+EXAMPLES = ("quickstart", "repair_storm", "audit_epoch", "multi_rpc_cdn", "video_streaming",
+            "serve_llm")
+EXAMPLE_WALL = re.compile(r" \[decode wall [0-9.]+s on [^\]]+\]")  # video_streaming's clock
 WARM_GENERATIONS = 9
 CHURN_EPOCHS = 3
 CHURN_READS = 300  # paid Zipf reads replayed beside the churned epochs
-# the largest batch of the JAX package's DAS sweep (benchmarks/gf_kernel.py)
-DAS_BLOBS = 4096
+# half the largest batch of the JAX package's DAS sweep (benchmarks/gf_kernel.py): the puts
+# are host-bound (84 s of a run at 4,096); 1,024 withheld-from trials keep the detection
+# rate's gate at ~3.2 sigma
+DAS_BLOBS = 2048
+BREAKDOWN_MIB = 256  # phases 9 and 10 time and profile a put and a read of the blob's prefix
 DAS_WITHHOLD = 0.05  # of a square's 64 shares: exactly 3 withheld
 DAS_STORM = 20_000  # samples in the replayed storm
 DAS_STORM_GAP_MS = 0.05
 DAS_REBUILT = 64  # squares reconstructed on the card
-DAS_RATE_TOL = 0.05  # detection rate vs 1-(1-q)^s over 2,048 trials: ~4.5 sigma
+DAS_RATE_TOL = 0.05  # detection rate vs 1-(1-q)^s over 1,024 withheld-from squares: ~3.2 sigma
 # the `engine` scenario's ramp (repro_torch/scenarios/engine.py, as the JAX package's)
 ENGINE_HEAP_RUNGS = (10_000, 100_000)  # rungs also replayed task-per-request on the heap
+ENGINE_PROFILED = (10_000,)  # rungs under the profiler (device busy share)
 ENGINE_DIGEST_10K = "5cb923036ace9559"  # a live run of the JAX package on the CPU
 # the `concurrent` scenario (repro_torch/scenarios/serving.py): 400 Poisson Zipf reads
 # through 3 nodes with 10 Gbps NICs, free-running and with a fetch budget of 6
@@ -1233,7 +1266,9 @@ def engine_phase(gk, device: str = "cuda") -> dict:
     to real tasks and decode on the card (one cold-key leader per blob).
     The 10k digest must equal a task-per-request replay on the heap engine
     and the JAX package's; ``ENGINE_HEAP_RUNGS`` also time that baseline
-    for the events/s speedup."""
+    for the events/s speedup.  Only the ``ENGINE_PROFILED`` rungs run under
+    the profiler (its trace of the 1M rung cost more than the rung); the
+    others' device time is not measured."""
     import torch
 
     from repro_torch.configs.shelby import CONFIG
@@ -1259,7 +1294,14 @@ def engine_phase(gk, device: str = "cuda") -> dict:
             held["session"] = session
 
         seen = gk.gf_matmul.launches
-        busy = device_busy(replay)
+        if n in ENGINE_PROFILED:
+            busy = device_busy(replay)
+        else:
+            t = time.perf_counter()
+            replay()
+            torch.cuda.synchronize()
+            busy = dict.fromkeys(("device_busy_s", "idle_share", "gf_matmul_device_ms"))
+            busy["wall_s"] = time.perf_counter() - t
         fast, rb, session = held["fast"], held["rb"], held["session"]
         co = fast.cohort
         row = {"requests": n, "wall_s": busy["wall_s"], "requests_per_s": n / busy["wall_s"],
@@ -2618,8 +2660,8 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     cache = {n: torch.zeros(dctx.local_shape(sp), dtype=sp.dtype, device=dev)
              for n, sp in model.cache_specs(MESH_BATCH, MESH_SLOTS).items()}
     before = moved()
-    make_decode_step(cfg, dctx)(dshards, cache, torch.as_tensor(prompts[:, :1], device=dev).long(),
-                                MESH_SLOTS - 1)
+    make_decode_step(cfg, dctx.for_cache(MESH_SLOTS))(
+        dshards, cache, torch.as_tensor(prompts[:, :1], device=dev).long(), MESH_SLOTS - 1)
     live["decode"] = collectives(before)
     del cache
     # 2b. prefill under SERVE_RULES: the rows over data, the cache written into each rank's
@@ -2707,7 +2749,8 @@ def _mesh_rank(mesh, seed: int, layers: int) -> dict:
     def mesh_decode():
         cache = {n: torch.zeros(dctx.local_shape(sp), dtype=sp.dtype, device=dev)
                  for n, sp in cache_specs.items()}
-        return _mesh_teacher_forced(model, dshards, cache, fed, range(steps), dctx)
+        return _mesh_teacher_forced(model, dshards, cache, fed, range(steps),
+                                    dctx.for_cache(MESH_TF_SLOTS))
 
     mesh_logits, cache = mesh_decode()
     combine, attention.combine_partials = attention.combine_partials, _combine_ignoring_lse
@@ -2946,7 +2989,7 @@ def _mesh_family(mesh, cfg, seed: int, segments: dict, *, train, long_mode: bool
     from repro_torch.models.model import build
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding import (DECODE_RULES, LONG_RULES, TRAIN_RULES, MeshCtx,
-                                      init_params, shards_from_root)
+                                      cache_slots, init_params, shards_from_root)
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import make_train_step
 
@@ -2991,7 +3034,7 @@ def _mesh_family(mesh, cfg, seed: int, segments: dict, *, train, long_mode: bool
         out["generation_s"] = time.perf_counter() - t
         del engine
         if long_mode:
-            lctx = MeshCtx(LONG_RULES, mesh, cfg)
+            lctx = MeshCtx(LONG_RULES, mesh, cfg).for_cache(cache_slots(long_specs))
             t = time.perf_counter()
             lcache = shards_from_root(ring, long_specs, [LONG_RULES], mesh)[0]
             long_logits, lcache = _mesh_teacher_forced(model, dshards, lcache, long_toks,
@@ -3019,13 +3062,14 @@ def _mesh_family(mesh, cfg, seed: int, segments: dict, *, train, long_mode: bool
                     cache["enc_out"].dtype)
         return _mesh_teacher_forced(model, dshards, cache, toks, range(steps), ctx)
 
-    mesh_logits, cache = mesh_decode(dctx)
+    mesh_logits, cache = mesh_decode(dctx.for_cache(MESH_TF_SLOTS))
     fault_logits = fault_cache = None
     if cfg.ssm is not None:  # in_proj's [x | z] cut contiguously: rank 0 all of x, 1 all of z
         fused = dict(S.FUSED)
         S.FUSED.clear()
         try:
-            fault_logits, fault_cache = mesh_decode(MeshCtx(DECODE_RULES, mesh, cfg))
+            fault_logits, fault_cache = mesh_decode(
+                MeshCtx(DECODE_RULES, mesh, cfg).for_cache(MESH_TF_SLOTS))
         finally:
             S.FUSED.update(fused)
     gbatch = batch_of(MESH_GRAD_BATCH, MESH_GRAD_SEQ)
@@ -3441,6 +3485,438 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
     return {"row": row, **read}
 
 
+@contextlib.contextmanager
+def _data_major(mesh):
+    """A planted fault: this rank's index on the ``("pod", "data")`` axis taken
+    data-major (the group's ranks are pod-major), so that each gather over
+    it writes the rank's shard at another rank's place and the rank takes
+    another rank's rows of a batch."""
+    key = ("pod", "data")
+    ax = mesh._axes[key]
+    mesh._axes[key] = dataclasses.replace(
+        ax, index=mesh.coords["data"] * mesh.shape["pod"] + mesh.coords["pod"])
+    try:
+        yield
+    finally:
+        mesh._axes[key] = ax
+
+
+def _pod_rank(mesh, seed: int, layers: int) -> dict:
+    """One rank of the pod world (``pod_phase``): granite-8b at ``layers``
+    layers served, prefilled and trained, and qwen3-moe's MoE layer, each
+    block counted; then, uncounted, the mesh's decode and gradient for the
+    comparisons (the gradient again with the planted fault) and rank 0's
+    one-process references."""
+    import torch
+
+    from repro_torch import distributed as D
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import collectives
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import (DECODE_RULES, SERVE_RULES, TRAIN_RULES, MeshCtx,
+                                      init_params, shards_from_root)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
+
+    dev = mesh.device
+    if dev.type != "cuda":
+        raise SystemExit(f"rank {mesh.rank} is on {dev}, not the card")
+    root = mesh.rank == 0
+    cfg = _mesh_cfg(layers)
+    model = build(cfg)
+    specs = model.param_specs()
+    ax = mesh.axis(("pod", "data"))
+    out: dict = {"rank": mesh.rank, "coords": dict(mesh.coords), "device": str(dev),
+                 "pod_data_axis": [ax.size, ax.index]}
+    segments: dict[str, dict] = {}
+    live = {}
+
+    def moved():
+        return dict(D.moved), dict(D.calls)
+
+    def sync_all():
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+
+    D.reset_moved()
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+    full = None
+    if root:
+        full = _fan_in(init_params(specs, torch.Generator(device=dev).manual_seed(seed),
+                                   device=dev), specs)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_BATCH, MESH_PROMPT)).astype(np.int32)
+    ptoks = torch.randint(0, cfg.vocab, (MESH_BATCH, MESH_PREFILL_SEQ), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed + 4))
+    # 1. rank 0's weights handed out as every rank's shards under the three tables; serving:
+    # a generation, one decode step over MESH_SLOTS slots, the prefill
+    with _counted(segments, "serve"):
+        t = time.perf_counter()
+        dshards, sshards, tshards = shards_from_root(full, specs,
+                                                     [DECODE_RULES, SERVE_RULES, TRAIN_RULES], mesh)
+        out["hand_out_s"] = time.perf_counter() - t
+        dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+        engine = ServeEngine(cfg, dshards, ctx=dctx, max_len=MESH_SLOTS)
+        t = time.perf_counter()
+        tokens = engine.generate(prompts, num_tokens=MESH_GEN)
+        out["generation_s"] = time.perf_counter() - t
+        del engine
+        cache = {n: torch.zeros(dctx.local_shape(sp), dtype=sp.dtype, device=dev)
+                 for n, sp in model.cache_specs(MESH_BATCH, MESH_SLOTS).items()}
+        before = moved()
+        make_decode_step(cfg, dctx.for_cache(MESH_SLOTS))(
+            dshards, cache, torch.as_tensor(prompts[:, :1], device=dev).long(), MESH_SLOTS - 1)
+        live["decode"] = collectives(before)
+        del cache
+        sctx = MeshCtx(SERVE_RULES, mesh, cfg)
+        prefill = make_prefill_step(cfg, sctx)
+        before = moved()
+        t = time.perf_counter()
+        plogits, pcache = prefill(sshards, {"tokens": ptoks})
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t
+        live["prefill"] = collectives(before)
+    out["tokens"] = tokens
+    # the mesh's decode teacher-forced through MESH_TF_SLOTS slots, for the comparison; then
+    # it and the prefill again with the planted fault
+    steps = MESH_PROMPT + MESH_GEN - 1
+    tf_specs = model.cache_specs(MESH_BATCH, MESH_TF_SLOTS)
+    fed = torch.as_tensor(tokens[:, :steps], device=dev).long()
+
+    def mesh_decode():
+        cache = {n: torch.zeros(dctx.local_shape(sp), dtype=sp.dtype, device=dev)
+                 for n, sp in tf_specs.items()}
+        return _mesh_teacher_forced(model, dshards, cache, fed, range(steps),
+                                    dctx.for_cache(MESH_TF_SLOTS))
+
+    mesh_logits, cache = mesh_decode()
+    with _data_major(mesh):
+        fault_logits, fault_cache = mesh_decode()
+        fault_plogits, fault_pcache = prefill(sshards, {"tokens": ptoks})
+    del dshards, sshards
+    torch.cuda.empty_cache()
+    # 2. a train step of POD_TRAIN_BATCH x MESH_TRAIN_SEQ in MESH_MICROBATCHES microbatches
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (POD_TRAIN_BATCH, MESH_TRAIN_SEQ + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with _counted(segments, "train"):
+        tctx = MeshCtx(TRAIN_RULES, mesh, cfg)
+        step = make_train_step(cfg, tctx, num_microbatches=MESH_MICROBATCHES,
+                               shard_grad_accum=True)
+        before = moved()
+        t = time.perf_counter()
+        state, metrics = step(opt.init_state(tshards), batch)
+        out["loss"] = float(metrics["loss"])  # waits for the step
+        out["step_s"] = time.perf_counter() - t
+        live["train"] = collectives(before)
+        del state, metrics
+    # the gradient at POD_GRAD_BATCH x MESH_GRAD_SEQ, and again with the planted fault
+    gtoks = torch.randint(0, cfg.vocab, (POD_GRAD_BATCH, MESH_GRAD_SEQ + 1), generator=gen,
+                          device=dev)
+    gbatch = {"tokens": gtoks[:, :-1], "labels": gtoks[:, 1:]}
+    loss_mesh, g_mesh = _mesh_grads(model, tshards, tctx, gbatch)
+    with _data_major(mesh):
+        _, g_fault = _mesh_grads(model, tshards, tctx, gbatch)
+    del tshards
+    torch.cuda.empty_cache()
+    # 3. the expert-parallel MoE: qwen3-moe's widths, one layer, POD_MOE_BATCH x POD_MOE_SEQ,
+    # a row a (pod, data) rank, 64 experts a model rank
+    mcfg = dataclasses.replace(get(MESH_MOE_ARCH), num_layers=1)
+    mspecs = {f"blocks.moe.{k}": sp for k, sp in moe_mod.moe_specs(mcfg, 1).items()}
+    x = torch.randn((POD_MOE_BATCH, POD_MOE_SEQ, mcfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 3)).bfloat16()
+    with _counted(segments, "moe"):
+        mctx = MeshCtx(TRAIN_RULES, mesh, mcfg)
+        mfull = init_params(mspecs, torch.Generator(device=dev).manual_seed(seed + 2), device=dev)
+        mshards = mctx.shard(mfull, mspecs)  # every rank draws the same weights
+        if not root:
+            del mfull
+        t = time.perf_counter()
+        with torch.no_grad():
+            lp = {k.rsplit(".", 1)[-1]: mctx.gather(k, v[0]) for k, v in mshards.items()}
+            y, aux = moe_mod.apply_moe(lp, mctx.local_batch(x), mcfg, mctx)
+            y = mctx.whole_batch(y)
+        torch.cuda.synchronize()
+        out["moe_s"] = time.perf_counter() - t
+        del lp, mshards
+    sync_all()
+    out["path_s"] = time.perf_counter() - t_path
+    out["moved_bytes"], out["collective_calls"] = dict(D.moved), dict(D.calls)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["live_collectives"] = live
+    out["segments"] = segments
+    out.update(_sum_counts(segments.values()))
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    # 4. rank 0 against one process on the card, the others idle
+    ref_cache = ref_pcache = g_ref = None
+    if root:
+        with torch.no_grad():  # the MoE: each (pod, data) row's tokens through every expert
+            full_lp = {k.rsplit(".", 1)[-1]: v[0] for k, v in mfull.items()}
+            parts = [moe_mod.apply_moe(full_lp, x[i:i + 1], mcfg) for i in range(POD_MOE_BATCH)]
+            want = torch.cat([p[0] for p in parts])
+            out["moe_max_abs_err"] = float((y.float() - want.float()).abs().max())
+            out["moe_aux_err"] = abs(float(aux) - float(sum(p[1] for p in parts) / len(parts)))
+            del full_lp, parts, want, mfull
+        ref_cache = {n: torch.zeros(sp.shape, dtype=sp.dtype, device=dev)
+                     for n, sp in tf_specs.items()}
+        one_logits, ref_cache = _mesh_teacher_forced(model, full, ref_cache, fed, range(steps))
+        for key, lg in (("logit_max_abs_err", mesh_logits), ("fault_logit_max_abs_err",
+                                                             fault_logits)):
+            out[key] = max(float((m - o).abs().max()) for m, o in zip(lg, one_logits))
+        cache32 = {n: torch.zeros(sp.shape, device=dev) for n, sp in tf_specs.items()}
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            _, cache32 = _mesh_teacher_forced(model, full, cache32, fed, range(steps))
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        own = [(float((ref_cache[n].float() - c).square().sum()), float(c.square().sum()))
+               for n, c in cache32.items()]
+        out["cache_bf16_vs_f32_rel"] = (sum(a for a, _ in own) / sum(b for _, b in own)) ** 0.5
+        del cache32, one_logits, mesh_logits, fault_logits
+        state, metrics = make_train_step(cfg, num_microbatches=MESH_MICROBATCHES)(
+            opt.init_state(full), batch)
+        out["loss_ref"] = float(metrics["loss"])
+        del state, metrics
+        torch.cuda.empty_cache()
+        loss_ref, g_ref = _mesh_grads(model, full, None, gbatch)
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            loss_f32, g32 = _mesh_grads(model, {k: v.cpu() for k, v in full.items()}, None,
+                                        {k: v.cpu() for k, v in gbatch.items()})
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        noise = sum(float((g_ref[k].float().cpu() - g32[k]).square().sum()) for k in g_ref)
+        norm = sum(float(g32[k].square().sum()) for k in g32)
+        out.update(grad_loss=[loss_mesh, loss_ref, loss_f32],
+                   grad_rel_err_card_bf16_vs_cpu_f32=(noise / norm) ** 0.5)
+        del g32
+        one_prefill = make_prefill_step(cfg)
+        one_plogits, ref_pcache = one_prefill(full, {"tokens": ptoks})
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            _, pcache32 = one_prefill(full, {"tokens": ptoks})
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        for key, lg in (("prefill_logit_max_abs_err", plogits),
+                        ("fault_prefill_logit_max_abs_err", fault_plogits)):
+            out[key] = float((lg.float() - one_plogits.float())[..., :cfg.vocab].abs().max())
+        own = [(float((ref_pcache[n].float() - c).square().sum()), float(c.square().sum()))
+               for n, c in pcache32.items()]
+        out["prefill_cache_bf16_vs_f32_rel"] = (sum(a for a, _ in own)
+                                                / sum(b for _, b in own)) ** 0.5
+        del one_plogits, pcache32
+    del x, y
+    for key, mine in (("cache", cache), ("fault_cache", fault_cache)):
+        dist, size, _ = _shard_err(ref_cache, mine, tf_specs, DECODE_RULES, mesh)
+        out[f"{key}_rel_dist"] = (dist / size) ** 0.5
+    pspecs = model.cache_specs(MESH_BATCH, MESH_PREFILL_SEQ)
+    for key, mine in (("prefill_cache", pcache), ("fault_prefill_cache", fault_pcache)):
+        dist, size, _ = _shard_err(ref_pcache, mine, pspecs, SERVE_RULES, mesh)
+        out[f"{key}_rel_dist"] = (dist / size) ** 0.5
+    for key, mine in (("grad", g_mesh), ("fault_grad", g_fault)):
+        dist, _, _ = _shard_err(g_ref, mine, specs, TRAIN_RULES, mesh)
+        if root:
+            out[f"{key}_rel_dist_mesh_vs_one"] = (dist / norm) ** 0.5
+    del full, g_ref, g_mesh, g_fault, cache, pcache, plogits, ref_cache, ref_pcache
+    del fault_cache, fault_pcache, fault_plogits
+    torch.cuda.empty_cache()
+    sync_all()
+    return out
+
+
+def _pod_traced_collectives(layers: int) -> dict:
+    """The collectives of the pod world's prefill, decode step and train step
+    as ``launch/dryrun.py::estimate`` traces them on a 2 x 2 x 2 trace mesh."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import estimate
+    from repro_torch.launch.mesh import make_local_mesh
+
+    pod, data, model = POD_WORLD
+    cells = {"prefill": (ShapeCell("prefill_32k", MESH_PREFILL_SEQ, MESH_BATCH, "prefill"), None),
+             "decode": (ShapeCell("decode_32k", MESH_SLOTS, MESH_BATCH, "decode"), None),
+             "train": (ShapeCell("train_4k", MESH_TRAIN_SEQ, POD_TRAIN_BATCH, "train"),
+                       MESH_MICROBATCHES)}
+    mesh = make_local_mesh(data, model, pod=pod)
+    return {kind: estimate(_mesh_cfg(layers), cell, mesh, microbatch_override=mb)["collectives"]
+            for kind, (cell, mb) in cells.items()}
+
+
+def pod_phase(seed: int, card: str, layers: int = MESH_LAYERS) -> dict:
+    """The pod world (path ``mesh_pod``): a 2 x 2 x 2 ("pod", "data", "model")
+    world of eight processes on the one card over Gloo, granite-8b at its
+    published widths, depth ``layers``, fan-in scaled weights (``_fan_in``)
+    that rank 0 makes and hands out.  Counted: ``ServeEngine`` with a
+    ``MeshCtx`` under DECODE_RULES (batch MESH_BATCH over ``("pod", "data")``,
+    a row a rank; MESH_SLOTS slots over model) and one more decode step; a
+    prefill of MESH_BATCH x MESH_PREFILL_SEQ under SERVE_RULES; a train step
+    of POD_TRAIN_BATCH x MESH_TRAIN_SEQ in MESH_MICROBATCHES microbatches with
+    ``shard_grad_accum`` under TRAIN_RULES (FSDP over ``("pod", "data")``);
+    qwen3-moe's widths at one layer, the expert-parallel MoE over
+    POD_MOE_BATCH x POD_MOE_SEQ tokens, 64 experts a model rank and data over
+    both axes.  Then, against one process on the card (rank 0): the MoE's
+    y and aux, the loss, and ``_mesh_failures``'s gates on the decode's
+    logits and caches (teacher-forced through MESH_TF_SLOTS slots), the
+    prefill's logits and cache and the gradient at POD_GRAD_BATCH x
+    MESH_GRAD_SEQ; the same run with a planted fault (each rank's index on
+    ``("pod", "data")`` taken data-major, ``_data_major``) must fail one of
+    them.  (It moves each FSDP shard to another rank's place in the gathered
+    weights, and each rank's rows of the batch, both consistently: the model
+    is symmetric under that permutation of its hidden units at init, and
+    the gradient moves by 0.013 relative where its gate is ~0.046; the
+    caches, laid out by the ranks' coordinates, show it.)  Rank 0's collectives of the decode step, prefill and train step
+    must equal ``estimate``'s trace on a 2 x 2 x 2 ``TraceMesh``.  Each
+    rank's peak memory and bytes per kind of collective printed, beside
+    ``card``; eight ranks share one card: no number here says anything of
+    multi-GPU speed."""
+    import torch
+
+    from repro_torch.launch.mesh import launch
+
+    pod, data, model = POD_WORLD
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = launch(_pod_rank, seed, layers, pod=pod, data=data, model=model, device="cuda",
+                   backend="gloo", timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t
+    root = ranks[0]
+    for r in ranks:
+        print(json.dumps({"mesh_pod_rank": {k: v for k, v in r.items() if k != "tokens"}},
+                         default=float), flush=True)
+    steps = MESH_PROMPT + MESH_GEN - 1
+    want = {"serve": {"tile": layers, "split": (steps + 1) * layers, "general": 0},
+            "train": {"tile": 2 * MESH_MICROBATCHES * layers, "split": 0, "general": 0}}
+    for r in ranks:
+        if r["device"].split(":")[0] != "cuda":
+            raise SystemExit(f"pod rank {r['rank']} ran on {r['device']}")
+        c = r["coords"]
+        if r["pod_data_axis"] != [pod * data, c["pod"] * data + c["data"]]:
+            raise SystemExit(f"pod rank {r['rank']}: its (pod, data) axis is {r['pod_data_axis']}")
+        seg = r["segments"]
+        if (any(seg[k]["variants"] != v for k, v in want.items())
+                or seg["train"]["designs"].get("wgmma") != MESH_MICROBATCHES * layers):
+            raise SystemExit(f"pod rank {r['rank']} launched {seg}; want {want}")
+        if not np.array_equal(r["tokens"], root["tokens"]) or r["loss"] != root["loss"]:
+            raise SystemExit(f"pod rank {r['rank']}'s tokens or loss differ from rank 0's")
+    read = _sum_counts([{part: r[part] for part in ("launches", "variants", "designs")}
+                        for r in ranks])
+    failed, planted = _mesh_failures(root), _mesh_failures(root, "fault_")
+    trace = _pod_traced_collectives(layers)
+    row = {
+        "world": f"{pod} x {data} x {model} gloo, one card", "card": card, "layers": layers,
+        "wall_s": wall, "path_s": root["path_s"], "generation_s": root["generation_s"],
+        "decode_tok/s": MESH_BATCH * steps / root["generation_s"],
+        "prefill_s": [r["prefill_s"] for r in ranks], "step_s": root["step_s"],
+        "tokens/s": POD_TRAIN_BATCH * MESH_TRAIN_SEQ / root["step_s"], "moe_s": root["moe_s"],
+        "loss": root["loss"], "loss_one_process": root["loss_ref"],
+        "max_memory_allocated_by_rank": [r["max_memory_allocated"] for r in ranks],
+        "moved_bytes_by_rank": [r["moved_bytes"] for r in ranks],
+        "collective_calls_by_rank": [r["collective_calls"] for r in ranks],
+        "trace_collectives": trace, "live_collectives_rank0": root["live_collectives"],
+        "gates": {"logit_atol": SERVE_LOGIT_ATOL,
+                  "cache_rel": MESH_CACHE_NOISE_FACTOR * root["cache_bf16_vs_f32_rel"],
+                  "grad_rel": TRAIN_NOISE_FACTOR * root["grad_rel_err_card_bf16_vs_cpu_f32"]
+                  + TRAIN_GRAD_FLOOR},
+        "failed": failed, "data_major_rejected_by": planted,
+        **{k: root[k] for k in (
+            "logit_max_abs_err", "cache_rel_dist", "cache_bf16_vs_f32_rel",
+            "prefill_logit_max_abs_err", "prefill_cache_rel_dist",
+            "prefill_cache_bf16_vs_f32_rel", "grad_rel_dist_mesh_vs_one",
+            "grad_rel_err_card_bf16_vs_cpu_f32", "grad_loss", "moe_max_abs_err", "moe_aux_err",
+            "hand_out_s", "fault_logit_max_abs_err", "fault_cache_rel_dist",
+            "fault_prefill_logit_max_abs_err", "fault_prefill_cache_rel_dist",
+            "fault_grad_rel_dist_mesh_vs_one")},
+        "launches_by_block": root["segments"], "launches": read}
+    print(json.dumps({"mesh_pod": row}, default=float), flush=True)
+    if (failed or root["moe_max_abs_err"] > MESH_MOE_ATOL
+            or root["moe_aux_err"] > MESH_AUX_ATOL
+            or abs(root["loss"] - root["loss_ref"]) > TRAIN_LOSS_ATOL
+            or abs(root["grad_loss"][0] - root["grad_loss"][1]) > TRAIN_LOSS_ATOL):
+        raise SystemExit(f"the pod world disagrees with one process on the card ({failed}): "
+                         f"{row}")
+    if not planted:
+        raise SystemExit(f"the pod world's gates passed the data-major fault: {row}")
+    if trace != root["live_collectives"]:
+        raise SystemExit(f"the dry-run's trace counts other collectives than pod rank 0 made: "
+                         f"traced {trace}, live {root['live_collectives']}")
+    return {"row": row, **read}
+
+
+def _run_example(path: pathlib.Path, device: str) -> tuple[list[str], float]:
+    """``path`` run in this process as ``python path --device device``: its
+    printed lines and wall seconds (the card synchronized)."""
+    import io
+    import runpy
+
+    import torch
+
+    argv, sys.argv = sys.argv, [str(path), "--device", device]
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = argv
+    return buf.getvalue().splitlines(), time.perf_counter() - t
+
+
+def examples_phase(card: str, zero_counts, read_counts) -> dict:
+    """The port's six examples (path ``examples``): each run in this process
+    (``runpy``, its own argv) on the card at its own size
+    (``video_streaming`` at full size: 24 MiB in 1 MiB chunksets), its
+    ``assert``s the gates; the launches counted over the six, and
+    ``serve_llm``'s attention by variant (one launch a layer and decode
+    step).  Then each again with ``--device cpu``: every printed line equal
+    to the card's but the wall-clock figure."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gf_matmul as gk
+
+    root = pathlib.Path(__file__).resolve().parent / "examples" / "torch"
+    os.environ["VIDEO_SMOKE"] = "0"
+    torch.cuda.empty_cache()
+    zero_counts()
+    runs = {}
+    serve_variants = {}
+    for name in EXAMPLES:
+        gf0, fa0 = gk.gf_matmul.launches, dict(fa.flash_attention.variant_launches)
+        lines, wall = _run_example(root / f"{name}.py", "cuda")
+        runs[name] = {"card_s": wall, "lines": lines,
+                      "gf_matmul_launches": gk.gf_matmul.launches - gf0}
+        if name == "serve_llm":
+            serve_variants = {v: n - fa0[v] for v, n in fa.flash_attention.variant_launches.items()}
+    counts = read_counts("examples")
+    cfg = get_smoke("granite-8b")
+    want_attention = (8 + 16 - 1) * cfg.num_layers  # serve_llm: 23 decode steps a generation
+    if (any(r["gf_matmul_launches"] == 0 for r in runs.values())
+            or sum(serve_variants.values()) != want_attention
+            or counts["flash_attention"] != want_attention):
+        raise SystemExit(f"the examples' launches are off: {counts}, serve_llm attention "
+                         f"{serve_variants} (want {want_attention})")
+    for name in EXAMPLES:
+        lines, wall = _run_example(root / f"{name}.py", "cpu")
+        r = runs[name]
+        r["cpu_s"] = wall
+        r["equal"] = [EXAMPLE_WALL.sub("", x) for x in r["lines"]] == [
+            EXAMPLE_WALL.sub("", x) for x in lines]
+        print(json.dumps({"example": name, "card": card, **{k: v for k, v in r.items()
+                                                            if k != "lines"},
+                          "printed": r["lines"]}), flush=True)
+        if not r["equal"]:
+            raise SystemExit(f"example {name} printed other lines on the card than on the CPU: "
+                             f"{r['lines']} against {lines}")
+    return {"runs": runs, "serve_llm_attention": serve_variants, "counts": counts}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blob-mib", type=int, default=1024, help="blob size in MiB (default 1024)")
@@ -3451,6 +3927,10 @@ def main(argv=None) -> int:
                     help=f"granite-8b's depth in the mesh phase (default {MESH_LAYERS})")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build the kernels and run the mesh phase alone (no result line)")
+    ap.add_argument("--pod-only", action="store_true",
+                    help="build the kernels and run the pod world alone (no result line)")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="build the kernels and run the examples alone (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3507,6 +3987,14 @@ def main(argv=None) -> int:
     if args.mesh_only:
         _phase(f"mesh alone: {MESH_ARCH} at {args.mesh_layers} layers")
         mesh_phase(args.seed, layers=args.mesh_layers)
+        return 0
+    if args.pod_only:
+        _phase(f"pod world alone: {MESH_ARCH} at {args.mesh_layers} layers")
+        pod_phase(args.seed, card, layers=args.mesh_layers)
+        return 0
+    if args.examples_only:
+        _phase("examples alone")
+        examples_phase(card, zero_counts, read_counts)
         return 0
     from repro_torch.kernels import _build
 
@@ -3777,7 +4265,7 @@ def main(argv=None) -> int:
     print("card == CPU plain path: ok", flush=True)
 
     # -- 9. where the put's and a read's time goes: each step timed alone ------------
-    _phase("breakdown: steps of the put and of a read, timed alone")
+    _phase(f"breakdown: steps of the put and of a read of {BREAKDOWN_MIB} MiB, timed alone")
 
     def timed_step(fn):
         t = time.perf_counter()
@@ -3786,7 +4274,8 @@ def main(argv=None) -> int:
         return out, time.perf_counter() - t
 
     blob_lay = client.layout
-    parts, t_part = timed_step(lambda: blob_lay.partition(data))
+    prefix = data[:BREAKDOWN_MIB * 2**20]
+    parts, t_part = timed_step(lambda: blob_lay.partition(prefix))
     coded_dev, t_enc = timed_step(lambda: blob_lay.code.encode_batch(parts))
     coded_host, t_d2h = timed_step(lambda: coded_dev.cpu().numpy())
     del parts, coded_dev
@@ -3794,25 +4283,27 @@ def main(argv=None) -> int:
     first_k = [{i: cw[i] for i in range(k)} for cw in coded_host]
     _, t_dec = timed_step(lambda: blob_lay.code.reconstruct_data_batch(first_k))
     print(json.dumps({"breakdown_s": {
-        "partition_h2d": t_part, "encode_device": t_enc, "coded_d2h": t_d2h,
+        "bytes": len(prefix), "partition_h2d": t_part, "encode_device": t_enc, "coded_d2h": t_d2h,
         "sha256_merkle_all_chunks": t_hash, "chunks": int(coded_host.shape[0] * (k + m)),
         "h2d_decode_first_k": t_dec,
     }}), flush=True)
     del coded_host, first_k
 
     # -- 10. how much of a put and a read the card is busy ----------------------------
-    _phase("device busy share: put and whole read on a fresh cluster, profiled")
+    _phase(f"device busy share: put and whole read of {BREAKDOWN_MIB} MiB on a fresh cluster, "
+           "profiled")
     _, _, _, client2 = build_cluster(
         num_sps=CONFIG.num_sps, layout=CONFIG.layout, device="cuda",
         num_dcs=CONFIG.num_dcs, racks_per_dc=CONFIG.racks_per_dc,
     )
     held = {}
-    busy = {"put": device_busy(lambda: held.update(meta=client2.put(data)))}
+    busy = {"put": device_busy(lambda: held.update(meta=client2.put(prefix)))}
     busy["read_whole"] = device_busy(lambda: held.update(got=client2.get(held["meta"].blob_id)))
-    assert held["got"] == data, "profiled read differs from the blob"
+    assert held["got"] == prefix, "profiled read differs from the blob"
+    busy["bytes"] = len(prefix)
     client2.settle()
     print(json.dumps({"device_busy": busy}), flush=True)
-    del client2, held
+    del client2, held, prefix
 
     # -- 11. the serving path at yi-9b width ---------------------------------------------
     _phase(f"serve: {SERVE_ARCH} at published widths, {SERVE_LAYERS} layers, through Shelby")
@@ -3922,8 +4413,22 @@ def main(argv=None) -> int:
     print(json.dumps({"path": "mesh", "launches": mesh["launches"],
                       "flash_attention_variants": mesh["variants"],
                       "flash_attention_bwd_designs": mesh["designs"]}), flush=True)
+    _phase(f"mesh_pod: {' x '.join(map(str, POD_WORLD))} (pod, data, model) ranks on the card "
+           f"over Gloo; {MESH_ARCH} at published widths, {args.mesh_layers} layers: serve, "
+           f"prefill and train; {MESH_MOE_ARCH}'s MoE over both data axes")
+    zero_counts()  # the ranks count their own launches; the parent makes none here
+    pod = pod_phase(args.seed, card, layers=args.mesh_layers)
+    path_launches["mesh_pod"] = pod["launches"]
+    variant_launches["mesh_pod"], design_launches["mesh_pod"] = pod["variants"], pod["designs"]
+    print(json.dumps({"path": "mesh_pod", "launches": pod["launches"],
+                      "flash_attention_variants": pod["variants"],
+                      "flash_attention_bwd_designs": pod["designs"]}), flush=True)
 
-    # -- 20. the kernels line and the result ----------------------------------------------
+    # -- 20. the port's six examples, on the card and on the CPU ------------------------------
+    _phase(f"examples: {', '.join(EXAMPLES)} (examples/torch/) on the card, then on the CPU")
+    examples_phase(card, zero_counts, read_counts)
+
+    # -- 21. the kernels line and the result ----------------------------------------------
     timed = {
         "gf_matmul": next(r for r in checks if (r["m"], r["k"], r["n"]) == enc_blob),
         "sample_hash": next(r for r in sh_checks if "ms" in r),

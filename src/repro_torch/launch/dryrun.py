@@ -77,7 +77,7 @@ from repro_torch.launch.mesh import TraceMesh, make_production_mesh
 from repro_torch.launch.shapes import batch_specs, decode_specs, num_microbatches, serve_param_specs
 from repro_torch.models.model import build
 from repro_torch.sharding import (DECODE_RULES, LONG_RULES, SERVE_RULES, TRAIN_RULES, AxisCtx,
-                                  MeshCtx)
+                                  MeshCtx, cache_slots)
 from repro_torch.train.step import make_decode_step, make_prefill_step, make_train_step
 
 DEFAULT_OUT = "results/dryrun_h100"
@@ -191,6 +191,8 @@ def estimate(cfg: ArchConfig, shape: ShapeCell, mesh, *, rules_override=None,
             cache = _inputs(cache_rec, mesh, args, whole=False)
             tokens = _inputs({"tokens": tok_rec}, mesh, args)["tokens"]
             extra = pos_rec.local_bytes(mesh)
+            ctx = ctx.for_cache(cache_slots(model.cache_specs(shape.global_batch, shape.seq_len,
+                                                              long_mode=long_mode)))
             step = make_decode_step(cfg, ctx, long_mode=long_mode)
             run = lambda: step(params, cache, tokens, shape.seq_len - 1)  # noqa: E731
         stores = [t.untyped_storage() for t, _ in args]  # held: their ids stay theirs

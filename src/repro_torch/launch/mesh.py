@@ -11,12 +11,15 @@ A :class:`ProcessMesh` is the same mapping over a ``torch.distributed``
 world of one process per mesh position (PyTorch's idiom for the JAX
 package's one controller over many devices): a
 ``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names``
-``("data", "model")``, the rank's coordinates, and an
-``distributed.Axis`` (group, size, index) per axis and for the whole world.
+``("data", "model")``, or ``("pod", "data", "model")`` when ``pod > 1``,
+the rank's coordinates, and a ``distributed.Axis`` (group, size, index)
+per axis, for ``("pod", "data")`` (the ranks that share the ``model``
+coordinate, pod-major) and for the whole world.
 :func:`launch` starts such a world, one process per rank, and returns what
 each rank's function returned:
 
     results = launch(fn, *args, data=2, model=2, device="cuda", backend="gloo")
+    results = launch(fn, *args, pod=2, data=2, model=2, device="cpu")
 
 The ranks meet through a ``FileStore`` in a temporary directory (no TCP
 port, so concurrent worlds do not collide).  Each rank's tensors live on
@@ -42,6 +45,7 @@ import torch
 from repro_torch.distributed import Axis
 
 MESH_AXES = ("data", "model")
+POD_MESH_AXES = ("pod", "data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +73,13 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
-def make_local_mesh(data: int = 1, model: int = 1) -> MeshShape:
-    """A ``("data", "model")`` mesh of ``data`` x ``model`` devices."""
-    return MeshShape(("data", "model"), (data, model))
+def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1) -> MeshShape:
+    """A ``("data", "model")`` mesh of ``data`` x ``model`` devices, or with
+    ``pod > 1`` a ``("pod", "data", "model")`` one of ``pod`` x ``data`` x
+    ``model``."""
+    if pod > 1:
+        return MeshShape(POD_MESH_AXES, (pod, data, model))
+    return MeshShape(MESH_AXES, (data, model))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,10 +87,9 @@ class TraceMesh(MeshShape):
     """Rank 0 of a :class:`MeshShape` as ``sharding.MeshCtx`` reads a
     :class:`ProcessMesh`, for a trace on the meta device: ``coords`` all 0,
     ``axis(name)`` and ``world`` with no process group.  A dim split over
-    several mesh axes (``("pod", "data")`` under TRAIN_RULES and SERVE_RULES
-    on the multi-pod mesh) maps to one trace axis whose size is their
-    product; a live :class:`ProcessMesh` has no such axis (ROADMAP Queue 1
-    item 4l)."""
+    several mesh axes (``("pod", "data")`` under every rule table on the
+    multi-pod mesh) maps to one trace axis whose size is their product, as
+    a live :class:`ProcessMesh` gives it with its group."""
 
     rank = 0
     device = torch.device("meta")
@@ -105,10 +112,20 @@ class TraceMesh(MeshShape):
 
 
 class ProcessMesh:
-    """This rank's view of a ``("data", "model")`` mesh over the process group:
-    ``shape`` and ``size`` as :class:`MeshShape`'s (so ``sharding.logical_to_spec``
-    and ``local_shape`` take it), ``coords`` (axis name -> this rank's index),
-    ``axis(name)`` and ``world`` (``distributed.Axis``), ``device``."""
+    """This rank's view of a ``("data", "model")`` or ``("pod", "data",
+    "model")`` mesh over the process group: ``shape`` and ``size`` as
+    :class:`MeshShape`'s (so ``sharding.logical_to_spec`` and ``local_shape``
+    take it), ``coords`` (axis name -> this rank's index), ``axis(name)``
+    and ``world`` (``distributed.Axis``), ``device``.
+
+    ``axis`` also takes ``("pod", "data")`` on a ``("pod", "data", "model")``
+    mesh (a dim split over both, as the rule tables split the batch and FSDP
+    shards): an ``Axis`` over the ranks that share this rank's ``model``
+    coordinate, its index this rank's place among them pod-major
+    (``sharding._shard_index``'s order, and the order of the ranks in the
+    group: the world ranks are the mesh positions row-major, and a group
+    orders its ranks ascending).  Each such group is made here, by every
+    rank, in the same order: a collective never makes one."""
 
     def __init__(self, device_mesh, device: torch.device):
         import torch.distributed as dist
@@ -122,6 +139,16 @@ class ProcessMesh:
                       for name, size in zip(names, self.sizes)}
         self.rank = dist.get_rank()
         self.world = Axis("world", dist.group.WORLD, dist.get_world_size(), self.rank)
+        if len(names) > 2:  # the axes but the last: one group per coordinate of the last
+            lead = self.axes[:-1]
+            ranks = device_mesh.mesh.reshape(-1, self.sizes[-1])
+            groups = [dist.new_group(sorted(int(r) for r in ranks[:, c]))
+                      for c in range(self.sizes[-1])]
+            index = 0
+            for name in lead:
+                index = index * self.shape[name] + self.coords[name]
+            self._axes[lead] = Axis("/".join(lead), groups[self.coords[self.axes[-1]]],
+                                    math.prod(self.sizes[:-1]), index)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -131,21 +158,23 @@ class ProcessMesh:
     def size(self) -> int:
         return math.prod(self.sizes)
 
-    def axis(self, name: str) -> Axis:
-        if not isinstance(name, str):
-            raise NotImplementedError(f"a dim split over several mesh axes {name}: the live "
-                                      "mesh is (data, model) (ROADMAP Queue 1 item 4l)")
-        return self._axes[name]
+    def axis(self, name) -> Axis:
+        key = name if isinstance(name, str) else tuple(name)
+        if key not in self._axes:
+            raise ValueError(f"the mesh {self.axes} has no axis {name!r}")
+        return self._axes[key]
 
 
-def process_mesh(data: int, model: int, device: torch.device) -> ProcessMesh:
-    """A ``data`` x ``model`` :class:`ProcessMesh` over the world this process
-    belongs to: every rank calls it, in the same order.  A world may hold
-    several (a 2 x 2 mesh and a 4 x 1 one over the same four ranks: how a
-    checkpoint written by one restores into the other)."""
+def process_mesh(data: int, model: int, device: torch.device, pod: int = 1) -> ProcessMesh:
+    """A ``data`` x ``model`` :class:`ProcessMesh`, or with ``pod > 1`` a
+    ``pod`` x ``data`` x ``model`` one, over the world this process belongs
+    to: every rank calls it, in the same order.  A world may hold several (a
+    2 x 2 mesh and a 4 x 1 one over the same four ranks: how a checkpoint
+    written by one restores into the other)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    return ProcessMesh(init_device_mesh(device.type, (data, model), mesh_dim_names=MESH_AXES),
+    shape = make_local_mesh(data, model, pod)
+    return ProcessMesh(init_device_mesh(device.type, shape.sizes, mesh_dim_names=shape.axes),
                        device)
 
 
@@ -162,7 +191,7 @@ def _host(tree):
     return tree
 
 
-def _rank_main(rank: int, world: int, store: str, shape: tuple[int, int], device: str,
+def _rank_main(rank: int, world: int, store: str, shape: tuple[int, int, int], device: str,
                backend: str, timeout: float, fn, args, results) -> None:
     import torch.distributed as dist
 
@@ -176,7 +205,7 @@ def _rank_main(rank: int, world: int, store: str, shape: tuple[int, int], device
         dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
                                 world_size=world,
                                 timeout=datetime.timedelta(seconds=timeout))
-        out = fn(process_mesh(*shape, dev), *args)
+        out = fn(process_mesh(shape[0], shape[1], dev, pod=shape[2]), *args)
         results.put((rank, "ok", _host(out)))
     except BaseException:  # noqa: BLE001 -- the rank's traceback is the parent's error
         results.put((rank, "error", traceback.format_exc()))
@@ -185,25 +214,26 @@ def _rank_main(rank: int, world: int, store: str, shape: tuple[int, int], device
             dist.destroy_process_group()
 
 
-def launch(fn, *args, data: int = 2, model: int = 2, device: str = "cuda",
+def launch(fn, *args, data: int = 2, model: int = 2, pod: int = 1, device: str = "cuda",
            backend: str = "gloo", timeout: float = 600.0) -> list:
-    """Run ``fn(mesh, *args)`` on each rank of a ``data`` x ``model`` world, one
-    process each (``fn`` and ``args`` picklable), and return the ranks'
-    results in rank order, their tensors as numpy arrays.  Raises with the
-    first failing rank's traceback, or when ``timeout`` seconds pass."""
+    """Run ``fn(mesh, *args)`` on each rank of a ``data`` x ``model`` world (``pod``
+    x ``data`` x ``model`` with ``pod > 1``), one process each (``fn`` and
+    ``args`` picklable), and return the ranks' results in rank order, their
+    tensors as numpy arrays.  Raises with the first failing rank's
+    traceback, or when ``timeout`` seconds pass."""
     import torch.multiprocessing as mp
 
     if device not in ("cuda", "cpu"):
         raise ValueError(f"launch: device must be 'cuda' or 'cpu', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("launch: no CUDA device is available; pass device='cpu'")
-    world = data * model
+    world = pod * data * model
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     store = os.path.join(tmp, "store")
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(rank, world, store, (data, model), device, backend, timeout, fn,
+                         args=(rank, world, store, (data, model, pod), device, backend, timeout, fn,
                                args, results))
              for rank in range(world)]
     for p in procs:
@@ -221,7 +251,7 @@ def launch(fn, *args, data: int = 2, model: int = 2, device: str = "cuda",
                     raise RuntimeError(f"rank {dead[0]} of {world} died with exit code "
                                        f"{procs[dead[0]].exitcode} and no traceback")
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"the {data} x {model} world did not finish in "
+                    raise TimeoutError(f"the {world}-rank world did not finish in "
                                        f"{timeout:.0f} s (ranks done: {sorted(got)})")
                 continue
             if status == "error":

@@ -7,8 +7,9 @@ step by step from position 0 (the JAX package's prefill-free flow of
 into the cache.  Every step's attention runs the hand-written kernel on the
 card.  Given a ``sharding.MeshCtx``, each rank holds its shard of the
 weights and builds its shard of the cache (``ctx.local_shape``; an
-encoder-decoder encodes its rows of the frames into it); prompts and
-frames go in and tokens come out whole on every rank.
+encoder-decoder encodes its rows of the frames into it) and decodes with
+the context told the cache's whole slot count (``ctx.for_cache``);
+prompts and frames go in and tokens come out whole on every rank.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import build
-from repro_torch.sharding import AxisCtx
+from repro_torch.sharding import AxisCtx, cache_slots
 
 
 @dataclasses.dataclass
@@ -41,10 +42,12 @@ class ServeEngine:
         self.device = next(iter(params.values())).device
         self.stats = ServeStats()
 
+    def _cache_specs(self, batch: int):
+        return self.model.cache_specs(batch, self.max_len, long_mode=self.long_mode)
+
     def _empty_cache(self, batch: int) -> dict[str, torch.Tensor]:
-        specs = self.model.cache_specs(batch, self.max_len, long_mode=self.long_mode)
         return {name: torch.zeros(self.ctx.local_shape(s), dtype=s.dtype, device=self.device)
-                for name, s in specs.items()}
+                for name, s in self._cache_specs(batch).items()}
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, num_tokens: int, *, frames=None) -> np.ndarray:
@@ -54,6 +57,7 @@ class ServeEngine:
         (bf16), as the JAX package's engine does."""
         b, p = prompts.shape
         cache = self._empty_cache(b)
+        ctx = self.ctx.for_cache(cache_slots(self._cache_specs(b)))  # the whole slot count
         if self.cfg.is_encdec:
             if frames is None:
                 raise ValueError(f"{self.cfg.name} is an encoder-decoder: generate needs frames")
@@ -64,7 +68,7 @@ class ServeEngine:
         out = [given[:, i] for i in range(p)]
         tok = given[:, :1]
         for pos in range(p + num_tokens - 1):
-            logits, cache = self.model.decode_step(self.params, cache, tok, pos, self.ctx,
+            logits, cache = self.model.decode_step(self.params, cache, tok, pos, ctx,
                                                    long_mode=self.long_mode)
             if pos + 1 < p:
                 tok = given[:, pos + 1 : pos + 2]

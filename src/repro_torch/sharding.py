@@ -23,7 +23,10 @@ gathers of a weight, "f" and "g" around a product split over ``model``
 (:func:`product_plans`, one table for every rule table), the
 vocab-parallel embedding and logits, the sequence-sharded decode cache and
 the prefill's cache written into the rank's shard of it, the batch over
-``data``, the gradient sums and the global norm.  Every hook is the
+``("pod", "data")``, the gradient sums and the global norm.  A dim split
+over several mesh axes (``("pod", "data")`` on a ``("pod", "data",
+"model")`` mesh) is split over their product axis, the mesh's group of the
+ranks that share the other coordinates, pod-major.  Every hook is the
 identity in :class:`AxisCtx`.  The dry-run (``launch/dryrun.py``) runs a
 :class:`MeshCtx` on rank 0 of a ``launch.mesh.TraceMesh``, on meta tensors.
 A leaf whose dim holds several parts side by side (Mamba's ``in_proj``:
@@ -35,6 +38,7 @@ checkpoint of a sharded train state is restored and saved.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, NamedTuple
@@ -162,6 +166,15 @@ def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple[int, ...]:
     return tuple(out)
 
 
+def cache_slots(specs: dict[str, ParamSpec]) -> int | None:
+    """The slots of a decode cache in all: the size of the ``cache_seq`` dim
+    of its ``specs`` (None: a cache without one, the SSM's)."""
+    sizes = {n for sp in specs.values() for n, a in zip(sp.shape, sp.axes) if a == "cache_seq"}
+    if len(sizes) > 1:
+        raise ValueError(f"a decode cache with several slot counts {sorted(sizes)}")
+    return sizes.pop() if sizes else None
+
+
 def flatten(tree, prefix: str = "") -> dict[str, Any]:
     """Leaves of nested dicts, lists and tuples keyed by dotted path, in the
     order of ``jax.tree_util.tree_leaves`` (dict keys sorted; ``None`` holds
@@ -279,6 +292,12 @@ class AxisCtx:
         """This rank's slots of a decode cache holding ``slots`` of them here,
         or None: the whole cache."""
         return None
+
+    def for_cache(self, slots: int) -> "AxisCtx":
+        """This context for decoding over a cache of ``slots`` slots in all
+        (the ``cache_seq`` dim of its spec, whole): the count a rank's local
+        cache cannot tell (:meth:`MeshCtx.seq_shard`)."""
+        return self
 
     def cache_part(self, t: torch.Tensor, spec: ParamSpec) -> torch.Tensor:
         """One layer's entry ``t`` (batch, slots, ...) of the cache ``spec``
@@ -463,8 +482,6 @@ def unshard(shards: dict[str, torch.Tensor], specs: dict[str, ParamSpec], rules,
         for dim, entry in enumerate(logical_to_spec(sp.axes, sp.shape, rules, mesh)):
             if entry is None:
                 continue
-            if not isinstance(entry, str):
-                raise NotImplementedError(f"{name}: a dim split over several axes {entry}")
             t = _by_part(t, dim, _parts(name, sp, dim),
                          lambda x, d: D.all_gather(x, mesh.axis(entry), d))
         out[name] = t
@@ -533,6 +550,7 @@ class MeshCtx(AxisCtx):
 
         super().__init__(dict(rules), mesh)
         self.cfg = cfg
+        self.slots = None  # a decode cache's slots in all (for_cache)
         self.specs = build(cfg).param_specs()
         self.parts = tree_pspecs(self.specs, self.rules, mesh)
         self.plans = product_plans(self.specs, self.rules, mesh)
@@ -542,8 +560,8 @@ class MeshCtx(AxisCtx):
                        if getattr(self._split(axis, heads[axis]), "name", None) == "model"}
 
     def _axis(self, entry):
-        """The axis of a partition entry: a mesh axis, or on a trace mesh one
-        over several (a live mesh raises there)."""
+        """The axis of a partition entry: a mesh axis, or the product axis of
+        several (a tuple entry, in mesh order)."""
         return self.mesh.axis(entry)
 
     def _split(self, logical: str, n: int):
@@ -619,21 +637,33 @@ class MeshCtx(AxisCtx):
         n = self.specs[name].shape[0] // ax.size
         return Shard(ax.index * n, (ax.index + 1) * n, ax)
 
+    def for_cache(self, slots):
+        out = copy.copy(self)
+        out.slots = slots
+        return out
+
     def seq_shard(self, slots):
-        """This rank's slots of a decode cache holding ``slots`` of them here:
-        under a split of ``cache_seq`` over model, a shard of ``slots * model``.
-        Where ``slots`` does not divide by model, a whole cache (the fallback
-        of ``logical_to_spec`` for a count model does not divide) holds as
-        many, so decode refuses it rather than guess."""
-        entry = self.rules.get("cache_seq") or ()
-        if "model" not in entry or "model" not in self.mesh.shape:
+        """This rank's slots of a decode cache holding ``slots`` of them here,
+        laid out as ``logical_to_spec`` lays out ``cache_seq`` over the whole
+        count (``self.slots``, :meth:`for_cache`): the rank's part of a split,
+        or None where the count falls back to whole.  The local count alone
+        cannot tell them apart (a whole cache of S slots, a shard of S * model)."""
+        if self.slots is None:
+            if any(a in self.mesh.shape for a in (self.rules.get("cache_seq") or ())):
+                raise ValueError("decode over a cache whose slots the rules split needs its "
+                                 "whole count: ctx.for_cache(slots)")
             return None
-        ax = self.mesh.axis("model")
-        if slots % ax.size:
-            raise ValueError(f"a decode cache of {slots} slots a rank is either whole or a "
-                             f"shard of {slots * ax.size}; give it a multiple of "
-                             f"{ax.size * ax.size} slots")
-        return Shard(ax.index * slots, (ax.index + 1) * slots, ax)
+        entry = logical_to_spec(("cache_seq",), (self.slots,), self.rules, self.mesh)
+        if not entry:
+            if slots != self.slots:
+                raise ValueError(f"a whole cache of {self.slots} slots holds {slots} here")
+            return None
+        idx, count = _shard_index(entry[0], self.mesh, self.mesh.coords)
+        n = self.slots // count
+        if slots != n:
+            raise ValueError(f"a rank's shard of a {self.slots}-slot cache holds {n} slots, "
+                             f"not {slots}")
+        return Shard(idx * n, (idx + 1) * n, self._axis(entry[0]))
 
     def cache_part(self, t, spec):
         """The rank's shard, as ``logical_to_spec`` lays out ``spec`` under the
@@ -678,7 +708,7 @@ class MeshCtx(AxisCtx):
         return x if ax is None else D.gather_out(x, ax, 0)
 
     def pmean(self, x, axes):
-        present = tuple(a for a in axes if a in self.mesh.shape)
+        present = tuple(a for a in self.mesh.shape if a in axes)  # in mesh order
         if set(present) == set(self.mesh.shape):
             return D.pmean(x, self.mesh.world)
         if not present:

@@ -1213,7 +1213,7 @@ def _mesh_card_rank(mesh, params, cache, toks, batch):
     to = lambda tree: {k: torch.from_numpy(v).to(dev) for k, v in tree.items()}  # noqa: E731
     params = to(params)
     cache_specs = model.cache_specs(4, 16)
-    dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+    dctx = MeshCtx(DECODE_RULES, mesh, cfg).for_cache(16)
     c = dctx.shard({k: v.bfloat16() for k, v in to(cache).items()}, cache_specs)
     fa.reset_launches()
     with torch.no_grad():
@@ -1227,10 +1227,10 @@ def _mesh_card_rank(mesh, params, cache, toks, batch):
             "loss": met["loss"], "device": lg.device.type}
 
 
-def test_mesh_on_one_card_matches_one_process(cuda):
-    """A 2 x 2 Gloo world of four processes on the one card: granite-smoke's
-    decode over a cache split over model ("split" with lse in every rank)
-    and a train step with shard_grad_accum, against one process on the card."""
+def _mesh_on_one_card(cuda, world: dict, train_rows: int):
+    """``_mesh_card_rank`` on a ``world`` of ranks on the one card (granite-smoke,
+    decode batch 4, a train batch of ``train_rows`` x 16 in 2 microbatches)
+    held against one process on the card."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch.mesh import launch
     from repro_torch.models.model import build
@@ -1245,9 +1245,9 @@ def test_mesh_on_one_card_matches_one_process(cuda):
     cache = {k: rng.normal(size=s.shape).astype(np.float32)
              for k, s in model.cache_specs(4, 16).items()}
     toks = rng.integers(0, cfg.vocab, (4, 1))
-    batch = {k: rng.integers(0, cfg.vocab, (4, 16)) for k in ("tokens", "labels")}
+    batch = {k: rng.integers(0, cfg.vocab, (train_rows, 16)) for k in ("tokens", "labels")}
     ranks = launch(_mesh_card_rank, {k: v.numpy() for k, v in params.items()}, cache, toks, batch,
-                   data=2, model=2, device="cuda", timeout=600)
+                   device="cuda", timeout=600, **world)
     p = {k: v.to(cuda) for k, v in params.items()}
     c = {k: torch.from_numpy(v).to(cuda).bfloat16() for k, v in cache.items()}
     with torch.no_grad():
@@ -1261,6 +1261,42 @@ def test_mesh_on_one_card_matches_one_process(cuda):
             want = nc[k].float().cpu().numpy()
             assert np.abs(r["cache"][k] - want).max() <= 2**-4 * np.abs(want).max()
         assert abs(float(r["loss"]) - float(met["loss"])) < 0.02
+    return ranks
+
+
+def test_mesh_on_one_card_matches_one_process(cuda):
+    """A 2 x 2 Gloo world of four processes on the one card: granite-smoke's
+    decode over a cache split over model ("split" with lse in every rank)
+    and a train step with shard_grad_accum, against one process on the card."""
+    _mesh_on_one_card(cuda, {"data": 2, "model": 2}, train_rows=4)
+
+
+def test_pod_world_on_one_card_matches_one_process(cuda):
+    """The same on a 2 x 2 x 2 ("pod", "data", "model") world of eight
+    processes on the one card: the decode's batch a row a ``(pod, data)``
+    rank, the train step's 8 rows and FSDP over ``("pod", "data")``, whose
+    collectives take the card route (a Gloo sum of each rank's slot)."""
+    _mesh_on_one_card(cuda, {"pod": 2, "data": 2, "model": 2}, train_rows=8)
+
+
+def test_quickstart_example_on_the_card_prints_what_the_cpu_prints(cuda):
+    """``examples/torch/quickstart.py`` on the card (its default) and with
+    ``--device cpu``: every printed line equal (receipts, payments, repair
+    bytes), and the card run through ``gf_matmul``'s kernel."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    script = str(root / "examples" / "torch" / "quickstart.py")
+    runs = [subprocess.run([sys.executable, script, *extra], capture_output=True, text=True,
+                           env=env, timeout=300) for extra in ([], ["--device", "cpu"])]
+    for r in runs:
+        assert r.returncode == 0, r.stderr[-3000:]
+    assert runs[0].stdout.splitlines() == runs[1].stdout.splitlines()
+    assert runs[0].stdout.startswith("stored blob 0: 1000000 bytes")
 
 
 def _moved_rank(mesh):

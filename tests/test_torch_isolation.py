@@ -11,7 +11,9 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples" / "torch").glob("*.py"))
+              + sorted((ROOT / "scripts").glob("*_torch.py")))
 
 
 def _imports(path: pathlib.Path) -> list[str]:
@@ -65,6 +67,8 @@ def test_round_trip_with_jax_and_reference_blocked():
         sys.modules["jax"] = None
         sys.modules["repro"] = None
         import numpy as np
+        import torch
+        torch.set_num_threads(1)  # one thread, as launch/mesh.py's ranks: the host is shared
         import repro_torch
         from repro_torch.launch.cluster import build_cluster
         contract, sps, rpc, client = build_cluster(device="cpu")
@@ -161,7 +165,8 @@ def test_round_trip_with_jax_and_reference_blocked():
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
     """)
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
+           "MKL_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr

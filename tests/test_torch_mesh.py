@@ -224,7 +224,7 @@ def _rank(mesh, path: str) -> dict:
     gcfg = get_smoke("granite-8b")
     model = build(gcfg)
     params = params_from_numpy(unflatten(_group(npz, "p.")), device="cpu")
-    dctx = MeshCtx(DECODE_RULES, mesh, gcfg)
+    dctx = MeshCtx(DECODE_RULES, mesh, gcfg).for_cache(16)
     cache_specs = model.cache_specs(4, 16)
     cache = dctx.shard({k: torch.from_numpy(v).bfloat16()
                         for k, v in _group(npz, "cache.").items()}, cache_specs)

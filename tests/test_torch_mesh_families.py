@@ -75,7 +75,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models.model import build
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.sharding import (DECODE_RULES, LONG_RULES, TRAIN_RULES, MeshCtx, params_from_numpy,
-                                  unflatten, unshard)
+                                  cache_slots, unflatten, unshard)
 from repro_torch.train import optimizer as topt
 from repro_torch.train.step import make_train_step
 
@@ -288,7 +288,7 @@ def _rank(mesh, path: str) -> dict:
         specs = model.param_specs()
         params = params_from_numpy(unflatten(_group(npz, f"{key}.p.")), device="cpu")
         # decode under DECODE_RULES from the seeded cache
-        dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+        dctx = MeshCtx(DECODE_RULES, mesh, cfg).for_cache(SLOTS)
         cache_specs = model.cache_specs(BATCH, SLOTS)
         dparams = dctx.shard(params, specs)
         cache = dctx.shard(_cache(npz, f"{key}.cache.", cache_specs), cache_specs)
@@ -308,9 +308,9 @@ def _rank(mesh, path: str) -> dict:
         out.update({f"{key}.params.{k}": v
                     for k, v in unshard(new["params"], specs, tctx.rules, mesh).items()})
         if key == "hymba":  # long mode: the ring split over model
-            lctx = MeshCtx(LONG_RULES, mesh, cfg)
-            lparams = lctx.shard(params, specs)
             long_specs = model.cache_specs(1, LONG_SLOTS, long_mode=True)
+            lctx = MeshCtx(LONG_RULES, mesh, cfg).for_cache(cache_slots(long_specs))
+            lparams = lctx.shard(params, specs)
             toks = torch.from_numpy(npz["long.toks"]).long()
             for pos in LONG_POSITIONS:
                 cache = lctx.shard(_cache(npz, "long.cache.", long_specs), long_specs)
@@ -362,7 +362,7 @@ def _planted(mesh, npz) -> dict:
         S.FUSED.update(fused)
     S.FUSED.clear()
     try:
-        dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+        dctx = MeshCtx(DECODE_RULES, mesh, cfg).for_cache(SLOTS)
         cache_specs = model.cache_specs(BATCH, SLOTS)
         cache = dctx.shard(_cache(npz, "mamba.cache.", cache_specs), cache_specs)
         lg, _ = _decode(model, dctx.shard(params, specs), cache, npz, "mamba", dctx)

@@ -37,9 +37,11 @@ Also held: the mesh form of ``tests/test_models.py::test_decode_matches_prefill`
 (greedy decode from an empty cache under DECODE_RULES against the mesh
 prefill at every prefix of 6 tokens, the reference's bounds 0.25 and top-1
 agreement of at least half; the prefixes of odd length keep their slots
-whole, ``logical_to_spec``'s fallback; the decode cache holds 8 slots, 4 a
-rank, since a decode cache with a count of slots a rank that model does
-not divide would be either whole or a shard); the dry-run's meta trace
+whole, ``logical_to_spec``'s fallback), over the reference's own cache of
+7 slots, which model does not divide, so that every rank holds it whole
+(``MeshCtx(...).for_cache(7)``): that decode's logits also within 0.05 of the
+port's one process and 0.15 of the JAX package's decode on its 2 x 2 mesh
+(plus its own bf16 error, as the prefill's); the dry-run's meta trace
 (``launch/dryrun.py::estimate`` on a 2 x 2 ``TraceMesh``) making exactly
 the collectives, by kind, bytes and calls, that a live rank makes for
 granite's prefill, decode and train step; and, on the meta device, a
@@ -76,7 +78,7 @@ ARCHS = {"granite": ("granite-8b", {}), "yi": ("yi-9b", {"num_kv_heads": 1}),
          "phi3": ("phi-3-vision-4.2b", {}), "whisper": ("whisper-tiny", {})}
 DECODE_KEYS = ("granite", "yi", "moe", "mla", "mamba", "hymba")  # token inputs, decoder-only
 BATCH, SEQ = 4, 16
-PREFIXES, DECODE_SLOTS = 6, 8
+PREFIXES, DECODE_SLOTS = 6, 7  # the reference test's cache: t + 1 slots
 JAX_LOGIT_TOL, LOGIT_TOL, CACHE_TOL, CACHE_BF16_REL = 0.15, 0.05, 1e-6, 2**-4
 DECODE_TOL, TOP1 = 0.25, 0.5  # tests/test_models.py::test_decode_matches_prefill
 TRACE_SHAPES = {"prefill": ShapeCell("prefill_32k", SEQ, BATCH, "prefill"),
@@ -149,8 +151,11 @@ def jax_run(path: str, mesh: bool, f32: bool = False) -> dict:
 
     from repro.models import layers as JL
     from repro.models.model import build as jbuild
+    from repro.sharding import DECODE_RULES as JD
     from repro.sharding import SERVE_RULES as JS
     from repro.sharding import AxisCtx
+
+    from repro_torch.sharding import flatten
 
     if f32:
         JL.COMPUTE_DTYPE = jnp.float32
@@ -168,6 +173,16 @@ def jax_run(path: str, mesh: bool, f32: bool = False) -> dict:
         lg, cache = _jit0(lambda p, b, m=model: m.prefill(p, b, ctx), params, batch)
         out[f"{key}.logits"] = np.asarray(lg, np.float32)
         out.update({f"{key}.cache.{k}": np.asarray(v, np.float32) for k, v in cache.items()})
+        if mesh and not f32 and key in DECODE_KEYS:  # decode from an empty DECODE_SLOTS cache
+            dctx = AxisCtx(dict(JD), jmesh)
+            cache = {k: jnp.zeros(s.shape, s.dtype)
+                     for k, s in flatten(model.cache_specs(BATCH, DECODE_SLOTS)).items()}
+            step = jax.jit(lambda p, c, t, pos, m=model: m.decode_step(p, c, t, pos, dctx))
+            lgs = []
+            for pos in range(PREFIXES):
+                lg, cache = step(params, cache, batch["tokens"][:, pos:pos + 1], jnp.int32(pos))
+                lgs.append(np.asarray(lg, np.float32)[:, 0])
+            out[f"{key}.decode"] = np.stack(lgs)
     return out
 
 
@@ -202,7 +217,7 @@ def _decode_vs_prefill(model, cfg, params, toks, sctx, mesh) -> dict:
     """Greedy decode from an empty DECODE_SLOTS-slot cache under DECODE_RULES,
     teacher-forced over ``toks``, and the mesh prefill of every prefix: the
     last position's logits of each."""
-    dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+    dctx = MeshCtx(DECODE_RULES, mesh, cfg).for_cache(DECODE_SLOTS)
     dparams = dctx.shard(params, model.param_specs())
     sparams = sctx.shard(params, model.param_specs())
     cache = {k: torch.zeros(dctx.local_shape(s), dtype=s.dtype)
@@ -230,7 +245,7 @@ def _trace_steps(mesh, npz) -> dict:
     before = dict(dryrun.D.moved), dict(dryrun.D.calls)
     make_prefill_step(cfg, sctx)(sparams, {"tokens": toks})
     out["prefill"] = dryrun.collectives(before)
-    dctx = MeshCtx(DECODE_RULES, mesh, cfg)
+    dctx = MeshCtx(DECODE_RULES, mesh, cfg).for_cache(SEQ)
     cache = {k: torch.zeros(dctx.local_shape(s), dtype=s.dtype)
              for k, s in model.cache_specs(BATCH, SEQ).items()}
     dparams = dctx.shard(params, model.param_specs())
@@ -293,7 +308,8 @@ def runs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def one_process(runs):
-    """The port's prefill in one process, every family."""
+    """The port's prefill in one process, every family, and the decode of
+    DECODE_KEYS from an empty DECODE_SLOTS-slot cache."""
     npz = runs[0]
     out = {}
     old = torch.get_num_threads()
@@ -305,6 +321,18 @@ def one_process(runs):
                 lg, cache = build(cfg).prefill(_params(npz, key), _port_batch(npz, key, cfg))
             out[f"{key}.logits"] = lg.float().numpy()
             out.update({f"{key}.cache.{k}": v.float().numpy() for k, v in cache.items()})
+            if key in DECODE_KEYS:
+                model = build(cfg)
+                params = _params(npz, key)
+                toks = torch.from_numpy(npz[f"{key}.tokens"]).long()
+                cache = {k: torch.zeros(s.shape, dtype=s.dtype)
+                         for k, s in model.cache_specs(BATCH, DECODE_SLOTS).items()}
+                lgs = []
+                with torch.no_grad():
+                    for pos in range(PREFIXES):
+                        lg, cache = model.decode_step(params, cache, toks[:, pos:pos + 1], pos)
+                        lgs.append(lg[:, 0].float())
+                out[f"{key}.decode"] = torch.stack(lgs).numpy()
     finally:
         torch.set_num_threads(old)
     return out
@@ -370,12 +398,17 @@ def test_cache_is_the_ranks_shard(runs, key):
 
 
 @pytest.mark.parametrize("key", DECODE_KEYS)
-def test_decode_matches_mesh_prefill_at_every_prefix(runs, key):
-    for r in runs[3]:
+def test_decode_matches_mesh_prefill_at_every_prefix(runs, one_process, key):
+    """Over the reference's 7-slot cache, whole on every rank."""
+    _, local, jmesh, ranks, local32 = runs
+    own = _max_diff(local[f"{key}.logits"], local32[f"{key}.logits"])
+    for r in ranks:
         d, p = r[f"{key}.dvp.decode"], r[f"{key}.dvp.prefill"]
         for pos in range(PREFIXES):
             top = (d[pos].argmax(-1) == p[pos].argmax(-1)).mean()
             assert _max_diff(d[pos], p[pos]) < DECODE_TOL and top >= TOP1, (key, pos)
+        assert _max_diff(d, one_process[f"{key}.decode"]) < LOGIT_TOL
+        assert _max_diff(d, jmesh[f"{key}.decode"]) < JAX_LOGIT_TOL + own
 
 
 @pytest.mark.parametrize("kind", TRACE_SHAPES)
