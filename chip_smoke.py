@@ -33,23 +33,28 @@ the phase that caused it; any failure exits non-zero and prints no result:
    over a wrapped and an unfilled 2,048-slot ring; qwen3-moe's prefill) and
    at phase 17's (whisper-tiny non-causal over 1,500 frames: its encoder,
    its cross-attention in training and in decode; deepseek's MLA at hd 192 /
-   hd_v 128 through ``models/layers.py``, V zero-padded, beside SDPA at
-   Ev 128), and "split" with its row log-sum-exp at phase 19's decode (a
-   rank's 2 rows over its 2,048 of 4,096 slots, granite-8b's widths; the
-   second model rank's shard, which sees no key, too; hymba's long mode: a
+   hd_v 128 through ``models/layers.py``, V at its own width on "tile"'s
+   (192, 128) instance, beside SDPA at Ev 128), and "split" with its row
+   log-sum-exp at phase 19's decode (a rank's 2 rows over its 2,048 of
+   4,096 slots, granite-8b's widths; the second model rank's shard, which
+   sees no key, too; hymba's long mode: a
    rank's 1,024 slots of the 2,048-slot ring under the window, after the ring
    wrapped, and the second rank's half before it was written) against
    ``flash_attention_lse_ref``, timed beside SDPA; ``flash_attention_bwd``
    against its plain version within
    ``BWD_TOL`` at phase 15's shape (B 4, S 4096, H 24, Hkv 2, hd 128), at
    phase 16's (B 1, S 4096, H 25, Hkv 5, hd 64), at phase 17's (B 1, S
-   4096, H 16, hd 192: the "mma" design, whose ptxas registers and spills
-   phase 1 prints) and at edge cases (window, explicit positions with Sq != Sk and
-   ragged tiles, hd 256, g = 1, rows that see no key), the forward with its
-   row log-sum-exp equal to the forward without it, timed beside its bound
-   and SDPA's backward; each case's design ("wgmma" for hd <= 128, "mma"
-   above, from the launch counts), tiles and stages, and every backward
-   kernel's spill bytes from ptxas (a "wgmma" kernel that spills fails);
+   4096, H 16, hd 192, hd_v 128: the "wgmma" design's (192, 128) instance)
+   and at edge cases (window, explicit positions with Sq != Sk and ragged
+   tiles, hd 256, g = 1, rows that see no key; at (192, 128) a window with
+   GQA and ragged tiles with rows that see no key), each twice and equal bit
+   for bit, the forward with its row log-sum-exp equal to the forward
+   without it, timed beside its bound and SDPA's backward (at MLA's shape at
+   Ev 192 on a zero-padded V and at Ev 128, its backend named); each case's
+   design ("wgmma" up to hd 192 with hd_v up to 128, "mma" above, from the
+   launch counts), tiles, stages and instance; phase 1 prints every backward
+   kernel's registers and spill bytes from ptxas and fails if a "wgmma"
+   kernel spills;
 3. the storage path at production size: a (10,6) Clay / 10 MiB-chunkset
    cluster of 24 SPs in 5 DCs, put a seeded blob, read it whole and at 3
    ranges across chunksets, crash 2 SPs and read again, mark one SP
@@ -154,7 +159,7 @@ the phase that caused it; any failure exits non-zero and prints no result:
    and one MLA + MoE layer, 1,085,287,424 parameters made on the card): a 1
    x 4096 prefill ("tile" at hd 192; each expert's load, the drops), the
    absorbed decode of batch 4 x (8 + 16) (no attention kernel), two training
-   steps at 1 x 4096 ("mma" backward); then the card against the CPU plain
+   steps at 1 x 4096 ("wgmma" backward, (192, 128)); then the card against the CPU plain
    path: whisper's decode (over zero frames; over the seeded ones, and
    deepseek's 1 x 256 prefill logits, within 0.15 plus three times the
    CPU's own bf16 error: attention one-hot at init, ROADMAP Queue 3 item 5)
@@ -750,16 +755,15 @@ def check_flash_attention(cases, gen) -> list[dict]:
     return rows
 
 
-def check_padded_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int, gen) -> dict:
+def check_mla_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int, gen) -> dict:
     """MLA's attention at q/k head dim ``hd`` and v head dim ``hd_v``, causal,
-    MHA, bf16, through ``models/layers.py::flash_attention`` (V zero-padded to
-    hd, the "tile" kernel, the output sliced back): against the plain version
-    on the same inputs (``flash_attention_ref`` on the padded V, sliced)
-    within ``ATTN_TOL``.  Device ms of the whole call (``ms``: the pad and the
-    kernel) and of the kernel alone on an already padded V (``kernel_ms``),
-    beside SDPA at Ev = hd_v with no padding (``library_ms``), the plain
-    version and the bound of the unpadded work (2 (hd + hd_v) operations per
-    visible pair and head; q, k, v and o moved once)."""
+    MHA, bf16, through ``models/layers.py::flash_attention`` (V at its own
+    width, the "tile" kernel's (192, 128) instance, nothing padded): against
+    the plain version on the same inputs (``flash_attention_ref`` at hd_v)
+    within ``ATTN_TOL``.  Device ms of the layer's call (``ms``) and of the
+    kernel's wrapper alone (``kernel_ms``), beside SDPA at Ev = hd_v
+    (``library_ms``), the plain version and the bound (2 (hd + hd_v)
+    operations per visible pair and head; q, k, v and o moved once)."""
     import torch
     import torch.nn.functional as F
 
@@ -769,12 +773,11 @@ def check_padded_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int
     q = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
     k = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
     v = torch.randn((b, s, h, hd_v), generator=gen, device="cuda").bfloat16()
-    vp = F.pad(v, (0, hd - hd_v))
     mask, scale = layers.MaskSpec(causal=True), hd ** -0.5
     before = dict(fa.flash_attention.variant_launches)
     out = layers.flash_attention(q, k, v, mask=mask, scale=scale)
     ran = [n for n, c in fa.flash_attention.variant_launches.items() if c > before[n]]
-    ref = fa.flash_attention_ref(q, k, vp, scale=scale)[..., :hd_v]
+    ref = fa.flash_attention_ref(q, k, v, scale=scale)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
     atol, rtol = ATTN_TOL["bfloat16"]
@@ -785,7 +788,7 @@ def check_padded_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int
         return layers.flash_attention(q, k, v, mask=mask, scale=scale)
 
     def kern():
-        return fa.flash_attention(q, k, vp, scale=scale)
+        return fa.flash_attention(q, k, v, scale=scale)
 
     def lib():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
@@ -807,32 +810,34 @@ def check_padded_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int
            "ms": dev["call"], "kernel_ms": dev["kernel"], "host_ms": min(host["call"]),
            "previous_ms": None, "library_ms": dev["library"],
            "library_host_ms": min(host["library"]),
-           "plain_ms": _time_ms(lambda: fa.flash_attention_ref(
-               q, k, F.pad(v, (0, hd - hd_v)), scale=scale)[..., :hd_v], 2),
+           "plain_ms": _time_ms(lambda: fa.flash_attention_ref(q, k, v, scale=scale), 2),
            "bound_ms": bound, "bound_by": by}
     print(json.dumps({"flash_attention_check": row}), flush=True)
-    if bad or ran != ["tile"]:
+    if bad or ran != ["tile"] or out.shape[-1] != hd_v:
         raise SystemExit(f"flash_attention at hd {hd} / hd_v {hd_v}: {bad} violations, ran {ran}")
-    del q, k, v, vp, out, ref
+    del q, k, v, out, ref
     torch.cuda.synchronize()
     return row
 
 
-def attention_bwd_bound_ms(q, k, vis) -> tuple[float, str]:
+def attention_bwd_bound_ms(q, k, v, vis) -> tuple[float, str]:
     """Least time for attention's gradient with the (Sq, Sk) visibility
-    ``vis``: five products of 2 * hd operations per visible (query, key) pair
-    and query head (S and dP again, dV, dK, dQ) at the bf16 peak, or q, k, v,
-    o, dO, lse read once and dq, dk, dv written once."""
+    ``vis``: five products per visible (query, key) pair and query head at
+    the bf16 peak, each at its own width (S again, dK, dQ: 2 * hd; dP again,
+    dV: 2 * hd_v), or q, k, v, o, dO, lse read once and dq, dk, dv written
+    once (o, dO, v and dv at hd_v)."""
     b, sq, h, hd = q.shape
-    ops_ms = 5 * 2.0 * hd * int(vis.sum()) * b * h / H100_BF16_FLOPS * 1e3
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * b * h * sq
+    hd_v = v.shape[3]
+    ops_ms = 2.0 * (3 * hd + 2 * hd_v) * int(vis.sum()) * b * h / H100_BF16_FLOPS * 1e3
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * b * sq * h * hd_v) \
+        * q.element_size() + 4 * b * h * sq
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def backward_cases() -> list[tuple]:
     """Phase 2's cases of ``flash_attention_bwd``, on the card: (name, b, sq,
-    sk, h, hkv, hd, causal, window, q_positions, k_positions)."""
+    sk, h, hkv, hd, hd_v, causal, window, q_positions, k_positions)."""
     import torch
 
     def ar(n, start=0):
@@ -840,31 +845,44 @@ def backward_cases() -> list[tuple]:
 
     return [
         ("train_microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, 24, 2, 128,
-         True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
+         128, True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
         # phase 16's hymba step: a GQA group of 5, hd 64
-        ("hymba_train", 1, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_SEQ, 25, 5, 64, True, 0,
+        ("hymba_train", 1, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_SEQ, 25, 5, 64, 64, True, 0,
          ar(FAMILY_TRAIN_SEQ), ar(FAMILY_TRAIN_SEQ)),
-        # phase 17's deepseek step: MLA's q/k head dim 192 (V zero-padded to it), MHA
-        ("mla_train", 1, MLA_SEQ, MLA_SEQ, 16, 16, 192, True, 0, ar(MLA_SEQ), ar(MLA_SEQ)),
-        ("window", 2, 300, 300, 24, 2, 128, True, 64, ar(300), ar(300)),
+        # phase 17's deepseek step: MLA's q/k head dim 192, V at 128, MHA: "wgmma" (192, 128)
+        ("mla_train", 1, MLA_SEQ, MLA_SEQ, 16, 16, 192, 128, True, 0, ar(MLA_SEQ), ar(MLA_SEQ)),
+        # the same instance under a window with GQA, and at Sq != Sk with ragged tiles and
+        # rows that see no key (queries -5..94 over 333 keys)
+        ("mla_window_gqa", 2, 300, 300, 8, 2, 192, 128, True, 64, ar(300), ar(300)),
+        ("mla_ragged_blind_rows", 1, 100, 333, 4, 2, 192, 128, True, 0, ar(100, -5), ar(333)),
+        ("window", 2, 300, 300, 24, 2, 128, 128, True, 64, ar(300), ar(300)),
         # a block of queries at the end of a longer cache; Sq != Sk, ragged last tiles
-        ("explicit_positions_ragged", 2, 100, 333, 8, 2, 64, True, 0, ar(100, 233), ar(333)),
-        ("noncausal_hd256_sq_ne_sk", 1, 130, 200, 4, 2, 256, False, 0, ar(130), ar(200)),
-        ("g1_mha", 2, 257, 257, 8, 8, 128, True, 0, ar(257), ar(257)),
+        ("explicit_positions_ragged", 2, 100, 333, 8, 2, 64, 64, True, 0, ar(100, 233), ar(333)),
+        ("noncausal_hd256_sq_ne_sk", 1, 130, 200, 4, 2, 256, 256, False, 0, ar(130), ar(200)),
+        ("g1_mha", 2, 257, 257, 8, 8, 128, 128, True, 0, ar(257), ar(257)),
         # queries -5..10: the first five see no key (weights 1/Sk, no score gradient)
-        ("rows_see_no_key", 1, 16, 24, 4, 2, 16, True, 0, ar(16, -5), ar(24)),
+        ("rows_see_no_key", 1, 16, 24, 4, 2, 16, 16, True, 0, ar(16, -5), ar(24)),
     ]
+
+
+def _ptxas_kernel(line: str) -> str | None:
+    """The backward kernel a ptxas "Compiling entry" line names, with its
+    template arguments (``attn_bwd_dkdv_wgmma_kernel<192,128>``)."""
+    m = re.search(r"(attn_bwd_\w+?_kernel)(?:I((?:Li\d+E)+)E)?", line)
+    if not m:
+        return None
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
 
 
 def ptxas_spills(lines: list[str]) -> dict[str, int]:
     """Spill bytes (stores and loads) per kernel from ``_build.ptxas_report``
-    lines, keyed by the kernel's name and its first template argument
-    (``attn_bwd_dkdv_wgmma_kernel<128>``)."""
+    lines, keyed by the kernel's name and its template arguments
+    (``attn_bwd_dkdv_wgmma_kernel<192,128>``)."""
     spills, name = {}, None
     for ln in lines:
         if "Compiling entry" in ln:
-            m = re.search(r"(attn_bwd_\w+?_kernel)(?:ILi(\d+)E)?", ln)
-            name = f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else m and m.group(1)
+            name = _ptxas_kernel(ln)
         elif name and "spill" in ln:
             spills[name] = sum(int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
     return spills
@@ -876,28 +894,48 @@ def ptxas_registers(lines: list[str]) -> dict[str, int]:
     regs, name = {}, None
     for ln in lines:
         if "Compiling entry" in ln:
-            m = re.search(r"(attn_bwd_\w+?_kernel)(?:ILi(\d+)E)?", ln)
-            name = f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else m and m.group(1)
+            name = _ptxas_kernel(ln)
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
             regs[name] = int(m.group(1))
     return regs
 
 
+def sdpa_backward(q, k, v, do):
+    """SDPA's backward (a yardstick the port never calls) on (B, H, S, E)
+    views of the (B, S, H, E) bf16 inputs, causal, by PyTorch's own choice of
+    backend: a function that runs it once, and the backward node that names
+    the backend (``ScaledDotProductFlashAttentionBackward0``, ...; flash may
+    refuse Ev != E and leave it to another).  Its forward is not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=q.shape[2] != k.shape[2])
+    dot = do.transpose(1, 2)
+    return (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)), \
+        ot.grad_fn.name()
+
+
 def check_flash_attention_bwd(cases, gen, timed: tuple[str, ...]) -> list[dict]:
-    """cases: (name, b, sq, sk, h, hkv, hd, causal, window, q_positions, k_positions), bf16.
+    """cases: (name, b, sq, sk, h, hkv, hd, hd_v, causal, window, q_positions,
+    k_positions), bf16; v and dO at hd_v.
 
     Each case: the forward with its row log-sum-exp ("tile") equal to the
     forward without it and its lse within ``LSE_ATOL`` of the plain
     version's; ``flash_attention_bwd`` against ``flash_attention_bwd_ref``
     (one batch element at a time) within ``BWD_TOL`` of each gradient's
-    largest entry; the design that ran (``design_launches``: "wgmma" for hd
-    <= 128, "mma" above) with its tiles and stages.  The cases named in
-    ``timed`` are also timed: the kernel in turns with SDPA's backward
-    (``library``, a yardstick the port never calls; its forward is not
-    timed) by CUDA events (``*host_ms``) and by device time from a profiler
-    trace (``ms``, ``library_ms``), the plain version (per batch element,
-    summed) by CUDA events; its row carries each backward kernel's spill
-    bytes from ptxas.  Fails if a "wgmma" kernel spills."""
+    largest entry, and a second call equal to the first bit for bit; the
+    design that ran (``design_launches``: "wgmma" up to hd 192 with hd_v up
+    to 128, "mma" above) with its tiles, stages and instance.  The cases
+    named in ``timed`` are also timed: the kernel in turns with SDPA's
+    backward (``library``; at hd_v != hd, SDPA at Ev = hd on V and dO
+    zero-padded, ``library_ms``, and at Ev = hd_v, ``library_native_ms``,
+    each with the backend PyTorch chose) by CUDA events (``*host_ms``) and by device
+    time from a profiler trace (``ms``, ``library_ms``), the plain version
+    (per batch element, summed) by CUDA events; its row carries each
+    backward kernel's spill bytes from ptxas.  Fails if a "wgmma" kernel
+    spills."""
     import torch
     import torch.nn.functional as F
 
@@ -909,18 +947,21 @@ def check_flash_attention_bwd(cases, gen, timed: tuple[str, ...]) -> list[dict]:
     if not spills or any(n for k, n in spills.items() if "wgmma" in k):
         raise SystemExit(f"flash_attention_bwd: a wgmma kernel spills (or no ptxas report): {spills}")
     rows = []
-    for name, b, sq, sk, h, hkv, hd, causal, window, qpos, kpos in cases:
+    for name, b, sq, sk, h, hkv, hd, hd_v, causal, window, qpos, kpos in cases:
         q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").bfloat16()
         k = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
-        v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
-        do = torch.randn((b, sq, h, hd), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((b, sk, hkv, hd_v), generator=gen, device="cuda").bfloat16()
+        do = torch.randn((b, sq, h, hd_v), generator=gen, device="cuda").bfloat16()
         kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
         o, lse = fa.flash_attention_lse(q, k, v, **kw)
         same_o = torch.equal(o, fa.flash_attention_variant("tile", q, k, v, **kw))
         before = dict(fab.flash_attention_bwd.design_launches)
         grads = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        again = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
         torch.cuda.synchronize()
         ran = [d for d, c in fab.flash_attention_bwd.design_launches.items() if c > before[d]]
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        del again
         lse_err = err = rel = 0.0
         for i in range(b):  # the plain version one batch element at a time (its f32 scores)
             sl = slice(i, i + 1)
@@ -931,22 +972,18 @@ def check_flash_attention_bwd(cases, gen, timed: tuple[str, ...]) -> list[dict]:
                 e = float((g[sl].float() - r.float()).abs().max())
                 err, rel = max(err, e), max(rel, e / float(r.float().abs().max()))
             del ref, lse_ref
-        row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "causal": causal,
+        row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "hd_v": hd_v, "causal": causal,
                "window": window, "forward_with_lse_equal": same_o, "lse_max_abs_err": lse_err,
-               "max_abs_err": err, "max_rel_err": rel, "tol": BWD_TOL,
-               "config": fab.kernel_config(hd)}
+               "max_abs_err": err, "max_rel_err": rel, "tol": BWD_TOL, "deterministic": same,
+               "config": fab.kernel_config(hd, hd_v)}
         if name in timed:
             vis = fa.visible(qpos, kpos, causal, window)
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
             assert causal and not window and sq == sk  # SDPA's own causal mask is the same here
-            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            dot = do.transpose(1, 2)
+            pad = (0, hd - hd_v)
+            lib, backend = sdpa_backward(q, k, F.pad(v, pad), F.pad(do, pad))
 
             def kern():
                 return fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-
-            def lib():
-                return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
 
             def plain():
                 for i in range(b):
@@ -957,16 +994,24 @@ def check_flash_attention_bwd(cases, gen, timed: tuple[str, ...]) -> list[dict]:
             host["library"].append(_time_ms(lib, 10))
             host["kernel"].append(_time_ms(kern, 10))
             dev = {what: _device_ms(fn, 10)[0] for what, fn in (("kernel", kern), ("library", lib))}
-            bound, by = attention_bwd_bound_ms(q, k, vis)
+            bound, by = attention_bwd_bound_ms(q, k, v, vis)
             row.update(ms=dev["kernel"], host_ms=min(host["kernel"]), library_ms=dev["library"],
-                       library_host_ms=min(host["library"]), plain_ms=_time_ms(plain, 1),
-                       bound_ms=bound, bound_by=by, spill_bytes=spills)
-            del ot, qt, kt, vt
+                       library_backend=backend, library_host_ms=min(host["library"]),
+                       plain_ms=_time_ms(plain, 1), bound_ms=bound, bound_by=by,
+                       spill_bytes=spills)
+            del lib
+            if hd_v != hd:  # SDPA at V's own width, where a backend takes it
+                native, backend = sdpa_backward(q, k, v, do)
+                row.update(library_native_ms=_device_ms(native, 10)[0],
+                           library_native_backend=backend)
+                del native
         print(json.dumps({"flash_attention_bwd_check": row}), flush=True)
-        if not same_o or lse_err > LSE_ATOL or rel > BWD_TOL:
+        if not same_o or lse_err > LSE_ATOL or rel > BWD_TOL or not same:
             raise SystemExit(f"flash_attention_bwd disagrees with its plain version in case {name}")
-        if ran != [fab.design(hd)] or row["config"]["design"] != fab.design(hd):
-            raise SystemExit(f"flash_attention_bwd ran {ran} at hd {hd}, not {fab.design(hd)!r}")
+        want = fab.design(hd, hd_v)
+        if ran != [want] or row["config"]["design"] != want:
+            raise SystemExit(f"flash_attention_bwd ran {ran} at hd {hd} / hd_v {hd_v}, "
+                             f"not {want!r}")
         rows.append(row)
         del q, k, v, do, o, lse, grads
     torch.cuda.synchronize()
@@ -2231,7 +2276,7 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
     del engine
     state = opt.init_state(dparams)
     del dparams
-    row["mla_train"], state = train_steps(dcfg, state, model_batch(dcfg, dtoks, "cuda"), "mma",
+    row["mla_train"], state = train_steps(dcfg, state, model_batch(dcfg, dtoks, "cuda"), "wgmma",
                                           MLA_LAYERS)
     del state
 
@@ -2240,7 +2285,7 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
     row["launches"] = counts
     attn = variant_launches["mla_encdec"]
     if (counts["gf_matmul"] == 0 or attn["tile"] == 0 or attn["split"] == 0
-            or designs["mma"] == 0 or designs["wgmma"] == 0):
+            or designs["mma"] != 0 or designs["wgmma"] == 0):
         raise SystemExit(f"the mla_encdec path's launches are off: {counts}, attention {attn}, "
                          f"backward {designs}")
 
@@ -4013,11 +4058,14 @@ def main(argv=None) -> int:
         "spill_bytes": sum(int(x) for ln in ptxas["flash_attention_bwd"]
                            for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))}}),
           flush=True)
-    # the "mma" design at hd > 128, which MLA's hd 192 takes (phase 17)
+    # every backward instance's registers and spills ("wgmma" (192, 128) is MLA's, phase 17)
     regs, spills = (f(ptxas["flash_attention_bwd"]) for f in (ptxas_registers, ptxas_spills))
-    print(json.dumps({"flash_attention_bwd_mma_ptxas": {
-        name: {"registers": regs.get(name), "spill_bytes": spills.get(name)}
-        for name in ("attn_bwd_dkdv_kernel<256>", "attn_bwd_dq_kernel<256>")}}), flush=True)
+    print(json.dumps({"flash_attention_bwd_kernels_ptxas": {
+        name: {"registers": regs.get(name), "spill_bytes": spills.get(name)} for name in regs}}),
+          flush=True)
+    if not spills or any(n for name, n in spills.items() if "wgmma" in name):
+        raise SystemExit(f"flash_attention_bwd: a wgmma kernel spills (or no ptxas report): "
+                         f"{spills}")
 
     # -- 2. kernels against their plain versions --------------------------------------
     _phase("gf_matmul vs plain")
@@ -4089,8 +4137,8 @@ def main(argv=None) -> int:
          ar(MESH_PREFILL_SEQ)),
     ]
     attn_checks = check_flash_attention(attn_cases, gen)
-    # phase 17's deepseek: MLA at hd 192 / hd_v 128 (V padded), H 16 = Hkv, 1 x 4096
-    attn_checks.append(check_padded_attention("mla_train", 1, MLA_SEQ, 16, 192, 128, gen))
+    # phase 17's deepseek: MLA at hd 192 / hd_v 128 (V at its own width), H 16 = Hkv, 1 x 4096
+    attn_checks.append(check_mla_attention("mla_train", 1, MLA_SEQ, 16, 192, 128, gen))
     # phase 19's decode: a rank's rows (2 of 4) over its 2,048 of 4,096 slots at granite-8b's
     # widths, "split" writing lse; the second model rank's shard sees no key at position 23
     shard = MESH_SLOTS // MESH_MODEL

@@ -12,15 +12,19 @@ Each ``label=path`` is a source with the launcher of
 commit's source, unpacked with ``git archive <commit> src | tar -x -C
 build/parent``) with ``tree`` (the checkout's).  Every source is built with
 ``nvcc`` and the flags of ``kernels/_build.py`` into ``build/attn_bwd_ab/``,
-all at once; ptxas's register and spill lines are printed.  Each build is
-checked against ``flash_attention_bwd_ref`` on ``chip_smoke.py``'s six
-backward cases (each gradient within ``BWD_TOL`` of its largest entry; two
-calls equal bit for bit), then timed at ``train_microbatch`` (B 4, S 4096,
-H 24, Hkv 2, hd 128, causal): CUDA events around 10 calls in turns (first
-to last, then last to first; ``host_ms`` the lower), and the kernels' time
-in a ``torch.profiler`` trace (``ms``), beside SDPA's backward (a yardstick
-the port never calls) and the five- and seven-product bounds.  Prints one
-JSON line per case and per build, then the card's name and power limit.
+all at once; ptxas's register and spill lines are printed.  A source whose
+launcher takes no hd_v (an earlier one's) gets V, O and dO zero-padded to hd,
+as its layer padded them, and its dv is sliced back.  Each build is checked
+against ``flash_attention_bwd_ref`` on ``chip_smoke.py``'s backward cases
+(each gradient within ``BWD_TOL`` of its largest entry; two calls equal bit
+for bit), then timed at ``train_microbatch`` (B 4, S 4096, H 24, Hkv 2, hd
+128) and ``mla_train`` (B 1, S 4096, H 16, hd 192, hd_v 128), causal: CUDA
+events around 10 calls in turns (first to last, then last to first;
+``host_ms`` the lower), and the kernels' time in a ``torch.profiler`` trace
+(``ms``), beside SDPA's backward (a yardstick the port never calls; at MLA's
+shape at Ev 192 on a zero-padded V and at Ev 128) and the five- and
+seven-product bounds.  Prints one JSON line per case and per build, then the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -53,21 +57,23 @@ def build(label: str, src: pathlib.Path) -> tuple[str, pathlib.Path | None, list
     return label, (out if proc.returncode == 0 else None), ptxas, proc.stdout
 
 
-def bind(path: pathlib.Path) -> ctypes.CDLL:
+def bind(path: pathlib.Path, takes_hd_v: bool) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
+    lib.takes_hd_v = takes_hd_v
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_bwd_launch.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, i, i, p]
+    n = 7 if takes_hd_v else 6  # b sq sk h hkv hd [hd_v]
+    lib.flash_attention_bwd_launch.argtypes = [p] * 12 + [i] * n + [ctypes.c_float, i, i, p]
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [i]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "flash_attention_bwd_scratch_bytes"):
-        lib.flash_attention_bwd_scratch_bytes.argtypes = [i] * 5
+        lib.flash_attention_bwd_scratch_bytes.argtypes = [i] * (n - 1)
         lib.flash_attention_bwd_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def kernel_ms(fn, iters: int) -> dict[str, float]:
-    """Device ms per call of ``fn`` by kernel (``attn_bwd_dkdv_wgmma_kernel<128>``),
+    """Device ms per call of ``fn`` by kernel (``attn_bwd_dkdv_wgmma_kernel<192, 128>``),
     from one ``torch.profiler`` trace of ``iters`` calls."""
     import torch
     from chip_smoke import _traced
@@ -77,7 +83,7 @@ def kernel_ms(fn, iters: int) -> dict[str, float]:
     out: dict[str, float] = {}
     for e in _traced(lambda: [fn() for _ in range(iters)])[1]:
         if e["cat"] == "kernel":
-            m = re.search(r"attn_bwd_\w+_kernel(<\d+>)?", e["name"])
+            m = re.search(r"attn_bwd_\w+_kernel(<[\d, ]+>)?", e["name"])
             name = m.group(0) if m else e["name"][:60]
             out[name] = out.get(name, 0.0) + e["dur"] / iters / 1e3
     return out
@@ -97,7 +103,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import BWD_TOL, _device_ms, _time_ms, attention_bwd_bound_ms, backward_cases
+    from chip_smoke import (BWD_TOL, _device_ms, _time_ms, attention_bwd_bound_ms,
+                            backward_cases, sdpa_backward)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
 
@@ -115,32 +122,38 @@ def main(argv=None) -> int:
         if path is None:
             print(f"build of {label} failed:\n{log}", flush=True)
             return 1
-        libs[label] = bind(path)
+        source = pathlib.Path(dict(pairs)[label]).read_text()
+        takes_hd_v = re.search(r"flash_attention_bwd_launch\([^)]*\bhd_v\b", source)
+        libs[label] = bind(path, takes_hd_v is not None)
 
     def launch(lib, q, k, v, o, do, lse, kw):
         b, sq, h, hd = q.shape
-        sk, hkv = k.shape[1], k.shape[2]
+        sk, hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
+        widths = (hd, hd_v)
+        if not lib.takes_hd_v:  # an earlier launcher: V, O and dO zero-padded to hd
+            v, o, do = (F.pad(t, (0, hd - hd_v)) for t in (v, o, do))
+            widths = (hd,)
         qp = fa._positions(kw["q_positions"], sq, q.device)
         kp = fa._positions(kw["k_positions"], sk, q.device)
-        n = (lib.flash_attention_bwd_scratch_bytes(b, sq, sk, h, hd)
+        n = (lib.flash_attention_bwd_scratch_bytes(b, sq, sk, h, *widths)
              if hasattr(lib, "flash_attention_bwd_scratch_bytes") else 4 * b * h * sq)
         scratch = torch.empty(n, dtype=torch.uint8, device=q.device)
         grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), qp.data_ptr(), kp.data_ptr(), *(g.data_ptr() for g in grads),
-            scratch.data_ptr(), b, sq, sk, h, hkv, hd, hd ** -0.5, int(kw["causal"]),
+            scratch.data_ptr(), b, sq, sk, h, hkv, *widths, hd ** -0.5, int(kw["causal"]),
             int(kw["window"]), torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(f"launch failed: {lib.flash_attention_bwd_error_string(err).decode()}")
-        return grads
+        return grads[0], grads[1], grads[2][..., :hd_v]
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     ok = True
-    for name, b, sq, sk, h, hkv, hd, causal, window, qpos, kpos in backward_cases():
+    for name, b, sq, sk, h, hkv, hd, hd_v, causal, window, qpos, kpos in backward_cases():
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
-                       for shape in ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hd),
-                                     (b, sq, h, hd)))
+                       for shape in ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hd_v),
+                                     (b, sq, h, hd_v)))
         kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
         o, lse = fa.flash_attention_lse(q, k, v, **kw)
         got = {label: launch(lib, q, k, v, o, do, lse, kw) for label, lib in libs.items()}
@@ -157,32 +170,34 @@ def main(argv=None) -> int:
             del ref
         same = {label: all(torch.equal(x, y) for x, y in zip(got[label], again[label]))
                 for label in libs}
-        row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "causal": causal,
+        row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "hd_v": hd_v, "causal": causal,
                "window": window, "max_rel_err": rel, "deterministic": same, "tol": BWD_TOL}
         print(json.dumps(row), flush=True)
         ok &= all(r <= BWD_TOL for r in rel.values()) and all(same.values())
-        if name == "train_microbatch" and not args.check_only:
+        if name in ("train_microbatch", "mla_train") and not args.check_only:
             vis = fa.visible(qpos, kpos, causal, window)
-            bound, by = attention_bwd_bound_ms(q, k, vis)
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            dot = do.transpose(1, 2)
+            bound, by = attention_bwd_bound_ms(q, k, v, vis)
             fns = {label: (lambda lib=lib: launch(lib, q, k, v, o, do, lse, kw))
                    for label, lib in libs.items()}
-            fns["sdpa_backward"] = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                                               retain_graph=True)
+            pad = (0, hd - hd_v)
+            fns["sdpa_backward"], backend = sdpa_backward(q, k, F.pad(v, pad), F.pad(do, pad))
+            backends = {"sdpa_backward": backend}
+            if hd_v != hd:
+                fns["sdpa_backward_native"], backends["sdpa_backward_native"] = \
+                    sdpa_backward(q, k, v, do)
             times = {label: [] for label in fns}
             for label in list(fns) + list(fns)[::-1]:
                 times[label].append(_time_ms(fns[label], 10))
             device = {label: _device_ms(fn, 10)[0] for label, fn in fns.items()}
             by_kernel = {label: kernel_ms(fn, 10) for label, fn in fns.items() if label in libs}
             print(json.dumps({
-                "timed": name, "ms": device, "host_ms": {k_: min(t) for k_, t in times.items()},
+                "timed": name, "sdpa_backends": backends, "ms": device,
+                "host_ms": {k_: min(t) for k_, t in times.items()},
                 "runs_host_ms": times, "bound_ms_5_products": bound, "bound_by": by,
                 "bound_ms_7_products": bound * 7 / 5 if by == "operations" else bound,
                 "x_bound_5": {k_: ms / bound for k_, ms in device.items()},
                 "kernel_ms": by_kernel}), flush=True)
-            del ot, qt, kt, vt
+            del fns
         del q, k, v, do, o, lse, got, again
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

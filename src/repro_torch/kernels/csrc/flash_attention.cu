@@ -3,6 +3,8 @@
 //
 //   o[b, i, h] = sum_j softmax_j(s[i, j]) v[b, j, h / g],
 //   s[i, j] = scale * q[b, i, h] . k[b, j, h / g]   if visible(i, j), else -1e30,
+//
+// q and k have head dim hd, v and o head dim hd_v <= hd (MLA: 192 and 128).
 //   visible(i, j) = (!causal || qpos[i] >= kpos[j]) && (window == 0 || qpos[i] - kpos[j] < window)
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
@@ -16,8 +18,8 @@
 //
 // Rows are (query, head-in-group) pairs of one kv head, row = qi * g + gi,
 // so the g query heads that share a kv head share every K/V tile staged.
-// The work is 4 * hd operations per visible (query, key) pair and head; the
-// bytes are Q, O, and K/V of the slots some query sees.  Three kernels, chosen
+// The work is 2 * (hd + hd_v) operations per visible (query, key) pair and
+// head; the bytes are Q, O, and K/V of the slots some query sees.  Three kernels, chosen
 // by the wrapper (kernels/flash_attention.py::choose_variant) from dtype and
 // shape, plus the split's combine:
 //
@@ -29,9 +31,13 @@
 //    the A operand.  The online softmax stays in f32 registers (base 2, scale
 //    folded in).  K/V tiles of 64 keys stay bf16 and go in by 16-byte
 //    cp.async into XOR-swizzled rows (conflict-free ldmatrix), two stages:
-//    the next live tile loads while this one is computed.  Head dims are
-//    padded to 64/128/256 in shared memory with zeros (cp.async zero-fill).
-//    The heaviest row tiles (latest queries) are scheduled first.
+//    the next live tile loads while this one is computed.  Templated on the
+//    (q/k, v) head dims of shared memory, (64, 64), (128, 128), (192, 128)
+//    and (256, 256): Q K^T runs over the first, P V over the second, and
+//    the runtime hd and hd_v are zero-padded to them (cp.async zero-fill).
+//    MLA's (192, 128) does 640 operations per pair, where V padded to 192
+//    on the (256, 256) instance did 1,024.  The heaviest row tiles (latest
+//    queries) are scheduled first.
 //  * attn_split_kernel ("split": bf16, hd % 16 == 0, Sq * g < 64: decode).
 //    Bound by the bytes of the cache (about 8 flop per K/V byte at g = 8).
 //    Flash-decoding: grid (kv head, split, batch x 16-row group); each block
@@ -43,11 +49,14 @@
 //    once.  The warps' partials merge in shared memory.  With one split the
 //    block writes O; otherwise it writes (m, l, acc) in f32 to scratch and
 //    attn_combine_kernel merges the splits by the log-sum-exp rule in a fixed
-//    order, so the result is the same from run to run.
+//    order, so the result is the same from run to run.  V is staged at
+//    hd_v in tiles of the q/k instance's width (zeros past hd_v), O and the
+//    per-split accumulators are written at hd_v.
 //  * flash_attention_kernel ("general": f32, or hd not a multiple of 16).
 //    The first version of this kernel, kept for what the tensor-core tiles
 //    do not take: its dot products run on the CUDA cores in f32 (TF32 tensor
 //    cores would break the 1e-4 tolerance against the JAX package in f32).
+//    hd_v is a runtime width beside hd.
 //
 // Tile skipping (tile and split): a K/V tile is skipped when every pair in
 // it is hidden -- causal and min kpos > max qpos of the block, or a window
@@ -72,12 +81,14 @@
 // kernel toward the bf16 peak; mma.sync and cp.async are the first step.
 //
 // ptxas (-Xptxas -v, sm_90a; chip_smoke.py prints these at build) on an H100:
-//   attn_tile_kernel<64/128/256>   176 / 215 / 255 registers, no spills
+//   attn_tile_kernel<64,64 / 128,128 / 192,128 / 256,256>  174 / 213 / 218 / 255 registers,
+//                                   no spills
 //   attn_split_kernel<64/128/256>   96 / 126 / 200 registers, no spills, 128 B static shared
 //   attn_combine_kernel             48 registers, 1 KiB static shared memory
-//   flash_attention_kernel<f32/bf16> 124 registers, no spills
-// Dynamic shared memory: tile 640 * HD bytes (80 KiB at hd 128: two blocks
-// per SM), split 544 * HD bytes (68 KiB at hd 128: three blocks per SM).
+//   flash_attention_kernel<f32/bf16> 126 registers, no spills
+// Dynamic shared memory: tile 2 (64 HD + 128 (HD + HDV)) bytes (80 KiB at
+// (128, 128), 104 KiB at (192, 128): two blocks per SM), split 544 * HD
+// bytes (68 KiB at hd 128: three blocks per SM).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,8 +124,8 @@ constexpr int kRows = kWarps * kRowsPerWarp;  // (query, head) rows per block
 constexpr int kTile = 64;                     // keys per shared-memory tile
 constexpr int kDPerLane = kMaxHeadDim / 32;
 
-size_t general_smem_bytes(int hd) {
-  return sizeof(float) * (static_cast<size_t>(kRows) * hd + kTile * (hd + 1) + kTile * hd +
+size_t general_smem_bytes(int hd, int hd_v) {
+  return sizeof(float) * (static_cast<size_t>(kRows) * hd + kTile * (hd + 1) + kTile * hd_v +
                           kRows * kTile) +
          sizeof(int) * kTile;
 }
@@ -129,12 +140,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ q_pos,
                        const int* __restrict__ k_pos, T* __restrict__ o,
                        float* __restrict__ lse, int sq, int sk, int h, int hkv, int hd,
-                       float scale, int causal, int window) {
+                       int hd_v, float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* qs = smem;                   // [kRows][hd], scaled
   float* ks = qs + kRows * hd;        // [kTile][hd + 1]
-  float* vs = ks + kTile * (hd + 1);  // [kTile][hd]
-  float* ps = vs + kTile * hd;        // [kRows][kTile]
+  float* vs = ks + kTile * (hd + 1);  // [kTile][hd_v]
+  float* ps = vs + kTile * hd_v;      // [kRows][kTile]
   int* kps = reinterpret_cast<int*>(ps + kRows * kTile);  // [kTile]
 
   const int g = h / hkv;
@@ -171,9 +182,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile is consumed (and qs is written)
     for (int e = threadIdx.x; e < n * hd; e += kThreads) {
       const int j = e / hd, d = e - j * hd;
-      const long long src = ((b * sk + t0 + j) * hkv + kvh) * hd + d;
-      ks[j * (hd + 1) + d] = to_f32(k[src]);
-      vs[j * hd + d] = to_f32(v[src]);
+      const long long row = (b * sk + t0 + j) * hkv + kvh;
+      ks[j * (hd + 1) + d] = to_f32(k[row * hd + d]);
+      if (d < hd_v) vs[j * hd_v + d] = to_f32(v[row * hd_v + d]);
     }
     for (int j = threadIdx.x; j < n; j += kThreads) kps[j] = k_pos[t0 + j];
     __syncthreads();
@@ -221,12 +232,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
 
     for (int j = 0; j < n; ++j) {
-      const float* vrow = vs + j * hd;
+      const float* vrow = vs + j * hd_v;
       float vv[kDPerLane];
 #pragma unroll
       for (int dd = 0; dd < kDPerLane; ++dd) {
         const int d = lane + 32 * dd;
-        vv[dd] = d < hd ? vrow[d] : 0.f;
+        vv[dd] = d < hd_v ? vrow[d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -245,11 +256,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
     if (lse != nullptr && lane == 0)  // m and l are the same in every lane
       lse[(b * h + head) * sq + qi] = m[i] == kMasked ? kMasked : m[i] + logf(l[i]);
-    T* orow = o + ((b * sq + qi) * h + head) * hd;
+    T* orow = o + ((b * sq + qi) * h + head) * hd_v;
 #pragma unroll
     for (int dd = 0; dd < kDPerLane; ++dd) {
       const int d = lane + 32 * dd;
-      if (d < hd) orow[d] = from_f32<T>(acc[i][dd] / denom);
+      if (d < hd_v) orow[d] = from_f32<T>(acc[i][dd] / denom);
     }
   }
 }
@@ -257,9 +268,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int general_launch(const void* q, const void* k, const void* v, const void* q_pos,
                    const void* k_pos, void* o, void* lse, int b, int sq, int sk, int h, int hkv,
-                   int hd, float scale, int causal, int window, cudaStream_t stream) {
+                   int hd, int hd_v, float scale, int causal, int window, cudaStream_t stream) {
   static int smem_set = 0;
-  const size_t smem = general_smem_bytes(hd);
+  const size_t smem = general_smem_bytes(hd, hd_v);
   cudaError_t err = allow_smem(flash_attention_kernel<T>, smem, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(sq) * (h / hkv);
@@ -267,7 +278,7 @@ int general_launch(const void* q, const void* k, const void* v, const void* q_po
   flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<T*>(o),
-      static_cast<float*>(lse), sq, sk, h, hkv, hd, scale, causal, window);
+      static_cast<float*>(lse), sq, sk, h, hkv, hd, hd_v, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,14 +429,14 @@ struct RowState {
   }
 };
 
-// The mean of V over all sk keys of (b, kvh), feature by feature, into
-// meanv[hd] (f32, shared): the output of a row that sees no key.
-__device__ void mean_v(const bf16* __restrict__ v, long long b, int sk, int hkv, int kvh, int hd,
+// The mean of V (head dim hd_v) over all sk keys of (b, kvh), feature by
+// feature, into meanv[hd_v] (f32, shared): the output of a row that sees no key.
+__device__ void mean_v(const bf16* __restrict__ v, long long b, int sk, int hkv, int kvh, int hd_v,
                        float* meanv) {
   constexpr int kLanes = 8;  // independent sums: eight loads in flight, added in a fixed order
-  const long long stride = static_cast<long long>(hkv) * hd;
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    const bf16* p = v + (b * sk * hkv + kvh) * hd + d;
+  const long long stride = static_cast<long long>(hkv) * hd_v;
+  for (int d = threadIdx.x; d < hd_v; d += blockDim.x) {
+    const bf16* p = v + (b * sk * hkv + kvh) * hd_v + d;
     float sum[kLanes] = {};
     int j = 0;
     for (; j + kLanes <= sk; j += kLanes) {
@@ -440,11 +451,11 @@ __device__ void mean_v(const bf16* __restrict__ v, long long b, int sk, int hkv,
   }
 }
 
-// Output row `row` = (query, head-in-group) of kv head kvh
+// Output row `row` = (query, head-in-group) of kv head kvh in a (b, sq, h, hd_v) tensor
 __device__ __forceinline__ bf16* out_row(bf16* o, long long b, int row, int kvh, int sq, int h,
-                                         int hd, int g) {
+                                         int hd_v, int g) {
   const int qi = row / g, head = kvh * g + (row - qi * g);
-  return o + ((b * sq + qi) * h + head) * hd;
+  return o + ((b * sq + qi) * h + head) * hd_v;
 }
 
 // ---------------------------------------------------------------------------
@@ -453,22 +464,25 @@ __device__ __forceinline__ bf16* out_row(bf16* o, long long b, int row, int kvh,
 
 constexpr int kTileRows = 16 * kTcWarps;  // rows of a "tile" block
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t tile_smem_bytes() {
-  return 2 * HD * (kTileRows + 2 * 2 * kKeys);  // Q, then K and V in two stages
+  return 2 * (HD * kTileRows + 2 * kKeys * (HD + HDV));  // Q, then K and V in two stages
 }
 
-template <int HD>
+// HD: the q/k head dim of the shared-memory tiles, HDV: v's; hd <= HD and
+// hd_v <= HDV at run time, zeros past them.
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kTcThreads, 2)
 attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ q_pos,
                  const int* __restrict__ k_pos, bf16* __restrict__ o, float* __restrict__ lse,
-                 int sq, int sk, int h, int hkv, int hd, float scale_log2, int causal,
+                 int sq, int sk, int h, int hkv, int hd, int hd_v, float scale_log2, int causal,
                  int window) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t qs = smem_u32(smem_raw);
   const uint32_t kv0 = qs + 2 * HD * kTileRows;
-  constexpr uint32_t kStage = 2 * HD * kKeys;  // bytes of one K (or V) tile
+  constexpr uint32_t kStageK = 2 * HD * kKeys;             // bytes of one K tile
+  constexpr uint32_t kStage = kStageK + 2 * HDV * kKeys;  // a stage: K, then V
 
   const int g = h / hkv;
   const int rows = sq * g;
@@ -489,17 +503,17 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto stage_kv = [&](int t, int st) {
     const int t0 = t * kKeys;
-    auto src = [&](const bf16* base) {
+    auto src = [&](const bf16* base, int width) {
       return [=](int r) -> const bf16* {
         const int j = t0 + r;
-        return j < sk ? base + ((b * sk + j) * hkv + kvh) * hd : nullptr;
+        return j < sk ? base + ((b * sk + j) * hkv + kvh) * width : nullptr;
       };
     };
-    stage_rows<HD, kKeys>(kv0 + (2 * st) * kStage, hd, k, src(k));
-    stage_rows<HD, kKeys>(kv0 + (2 * st + 1) * kStage, hd, v, src(v));
+    stage_rows<HD, kKeys>(kv0 + st * kStage, hd, k, src(k, hd));
+    stage_rows<HDV, kKeys>(kv0 + st * kStage + kStageK, hd_v, v, src(v, hd_v));
   };
 
-  RowState<HD> rs;
+  RowState<HDV> rs;
   rs.init();
   const int ra = row0 + warp * 16 + grp, rb = ra + 8;
   rs.qp[0] = ra < rows ? __ldg(q_pos + ra / g) : 0;
@@ -520,9 +534,9 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     float s[kKeys / 8][4];
-    qk<HD, kKeys / 8>(s, qs, warp * 16, kv0 + (2 * st) * kStage, 0);
+    qk<HD, kKeys / 8>(s, qs, warp * 16, kv0 + st * kStage, 0);
     rs.softmax(s, t * kKeys, state, sk, k_pos, scale_log2, causal, window);
-    pv<HD, kKeys / 8>(rs.acc, s, kv0 + (2 * st + 1) * kStage, 0);
+    pv<HDV, kKeys / 8>(rs.acc, s, kv0 + st * kStage + kStageK, 0);
     __syncthreads();  // this stage is free for the load after next
     t = tn;
     state = state_next;
@@ -534,7 +548,7 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool blind[2] = {rs.m[0] == kMasked, rs.m[1] == kMasked};  // rows that see no key
   float* meanv = reinterpret_cast<float*>(smem_raw);  // Q's room, no longer read
   if (__syncthreads_or((ra < rows && blind[0]) || (rb < rows && blind[1]))) {
-    mean_v(v, b, sk, hkv, kvh, hd, meanv);
+    mean_v(v, b, sk, hkv, kvh, hd_v, meanv);
     __syncthreads();
   }
   const int tig = lane & 3;
@@ -547,11 +561,11 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int qi = row / g, head = kvh * g + (row - qi * g);
       lse[(b * h + head) * sq + qi] = blind[i] ? kMasked : (rs.m[i] + log2f(rs.l[i])) * kLn2;
     }
-    bf16* orow = out_row(o, b, row, kvh, sq, h, hd, g);
+    bf16* orow = out_row(o, b, row, kvh, sq, h, hd_v, g);
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
+    for (int n = 0; n < HDV / 8; ++n) {
       const int d = n * 8 + tig * 2;
-      if (d < hd) {
+      if (d < hd_v) {
         const float x0 = blind[i] ? meanv[d] : rs.acc[n][2 * i] * inv;
         const float x1 = blind[i] ? meanv[d + 1] : rs.acc[n][2 * i + 1] * inv;
         *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(x0, x1);
@@ -560,20 +574,20 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int tile_launch(const void* q, const void* k, const void* v, const void* q_pos, const void* k_pos,
-                void* o, void* lse, int b, int sq, int sk, int h, int hkv, int hd, float scale,
-                int causal, int window, cudaStream_t stream) {
+                void* o, void* lse, int b, int sq, int sk, int h, int hkv, int hd, int hd_v,
+                float scale, int causal, int window, cudaStream_t stream) {
   static int smem_set = 0;
-  constexpr size_t smem = tile_smem_bytes<HD>();
-  cudaError_t err = allow_smem(attn_tile_kernel<HD>, smem, &smem_set);
+  constexpr size_t smem = tile_smem_bytes<HD, HDV>();
+  cudaError_t err = allow_smem(attn_tile_kernel<HD, HDV>, smem, &smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(sq) * (h / hkv);
   const dim3 grid(static_cast<unsigned>((rows + kTileRows - 1) / kTileRows), hkv, b);
-  attn_tile_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
+  attn_tile_kernel<HD, HDV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<bf16*>(o),
-      static_cast<float*>(lse), sq, sk, h, hkv, hd, scale * kLog2e, causal, window);
+      static_cast<float*>(lse), sq, sk, h, hkv, hd, hd_v, scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -595,7 +609,7 @@ attn_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ q_pos,
                   const int* __restrict__ k_pos, bf16* __restrict__ o, float* __restrict__ part_m,
                   float* __restrict__ part_l, float* __restrict__ part_acc,
-                  float* __restrict__ lse, int sq, int sk, int h, int hkv, int hd,
+                  float* __restrict__ lse, int sq, int sk, int h, int hkv, int hd, int hd_v,
                   float scale_log2, int causal, int window, int tiles_per_split) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t qs = smem_u32(smem_raw);
@@ -649,14 +663,14 @@ attn_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto stage_kv = [&](int t, int st) {
     const int t0 = t * kKeys;
-    auto src = [&](const bf16* base) {
+    auto src = [&](const bf16* base, int width) {
       return [=](int r) -> const bf16* {
         const int j = t0 + r;
-        return j < sk ? base + ((b * sk + j) * hkv + kvh) * hd : nullptr;
+        return j < sk ? base + ((b * sk + j) * hkv + kvh) * width : nullptr;
       };
     };
-    stage_rows<HD, kKeys>(kv0 + (2 * st) * kStage, hd, k, src(k));
-    stage_rows<HD, kKeys>(kv0 + (2 * st + 1) * kStage, hd, v, src(v));
+    stage_rows<HD, kKeys>(kv0 + (2 * st) * kStage, hd, k, src(k, hd));
+    stage_rows<HD, kKeys>(kv0 + (2 * st + 1) * kStage, hd_v, v, src(v, hd_v));  // 0 past hd_v
   };
 
   RowState<HD> rs;
@@ -742,20 +756,20 @@ attn_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bool empty = false;  // the same in every thread
   for (int r = 0; r < kSplitRows; ++r) empty |= row0 + r < rows && bm[r] == kMasked;
   if (single && empty) {  // a row that sees no key: the mean of V
-    mean_v(v, b, sk, hkv, kvh, hd, meanv);
+    mean_v(v, b, sk, hkv, kvh, hd_v, meanv);
     __syncthreads();
   }
-  for (int e = threadIdx.x; e < kSplitRows * hd; e += kTcThreads) {
-    const int r = e / hd, d = e - r * hd, row = row0 + r;
+  for (int e = threadIdx.x; e < kSplitRows * hd_v; e += kTcThreads) {
+    const int r = e / hd_v, d = e - r * hd_v, row = row0 + r;
     if (row >= rows) continue;
     float a = 0.f;
     for (int w = 0; w < kTcWarps; ++w)
       a += ww[w * kSplitRows + r] * wacc[(w * kSplitRows + r) * HD + d];
     if (single) {
       const float x = bm[r] == kMasked ? meanv[d] : a / bl[r];
-      out_row(o, b, row, kvh, sq, h, hd, g)[d] = __float2bfloat16(x);
+      out_row(o, b, row, kvh, sq, h, hd_v, g)[d] = __float2bfloat16(x);
     } else {
-      part_acc[(pbase + row) * hd + d] = a;
+      part_acc[(pbase + row) * hd_v + d] = a;
     }
   }
   if (!single && threadIdx.x < kSplitRows && row0 + threadIdx.x < rows) {
@@ -776,7 +790,7 @@ __global__ void __launch_bounds__(kTcThreads)
 attn_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                     const float* __restrict__ part_acc, const bf16* __restrict__ v,
                     bf16* __restrict__ o, float* __restrict__ lse, int sq, int sk, int h,
-                    int hkv, int hd, int nsplit) {
+                    int hkv, int hd_v, int nsplit) {
   __shared__ float meanv[kMaxHeadDim];
   const int g = h / hkv, rows = sq * g;
   const int row = blockIdx.x, kvh = blockIdx.y;
@@ -784,13 +798,13 @@ attn_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ 
   const long long base = (b * hkv + kvh) * nsplit;
   float mx = kMasked;
   for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[(base + s) * rows + row]);
-  bf16* orow = out_row(o, b, row, kvh, sq, h, hd, g);
+  bf16* orow = out_row(o, b, row, kvh, sq, h, hd_v, g);
   const int qi = row / g;
   float* lse_row = lse == nullptr ? nullptr : lse + (b * h + kvh * g + (row - qi * g)) * sq + qi;
   if (mx == kMasked) {
     if (lse_row != nullptr && threadIdx.x == 0) *lse_row = kMasked;
-    mean_v(v, b, sk, hkv, kvh, hd, meanv);
-    for (int d = threadIdx.x; d < hd; d += blockDim.x) orow[d] = __float2bfloat16(meanv[d]);
+    mean_v(v, b, sk, hkv, kvh, hd_v, meanv);
+    for (int d = threadIdx.x; d < hd_v; d += blockDim.x) orow[d] = __float2bfloat16(meanv[d]);
     return;
   }
   // a split whose m is -1e30 saw no key of this row (its weight is 0) or was
@@ -801,11 +815,11 @@ attn_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ 
     if (part_m[i] != kMasked) sum += exp2f(part_m[i] - mx) * part_l[i];
   }
   if (lse_row != nullptr && threadIdx.x == 0) *lse_row = (mx + log2f(sum)) * kLn2;
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+  for (int d = threadIdx.x; d < hd_v; d += blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < nsplit; ++s) {
       const long long i = (base + s) * rows + row;
-      if (part_m[i] != kMasked) a += exp2f(part_m[i] - mx) * part_acc[i * hd + d];
+      if (part_m[i] != kMasked) a += exp2f(part_m[i] - mx) * part_acc[i * hd_v + d];
     }
     orow[d] = __float2bfloat16(a / sum);
   }
@@ -821,7 +835,7 @@ static_assert(split_merge_bytes<64>() <= split_smem_bytes<64>() - 2 * 64 * kSpli
 template <int HD>
 int split_launch(const void* q, const void* k, const void* v, const void* q_pos,
                  const void* k_pos, void* o, void* part_m, void* part_l, void* part_acc,
-                 void* lse, int b, int sq, int sk, int h, int hkv, int hd, float scale,
+                 void* lse, int b, int sq, int sk, int h, int hkv, int hd, int hd_v, float scale,
                  int causal, int window, int nsplit, int tiles_per_split, cudaStream_t stream) {
   static int smem_set = 0;
   constexpr size_t smem = split_smem_bytes<HD>();
@@ -833,75 +847,83 @@ int split_launch(const void* q, const void* k, const void* v, const void* q_pos,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<bf16*>(o),
       static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc),
-      static_cast<float*>(lse), sq, sk, h, hkv, hd, scale * kLog2e, causal, window,
+      static_cast<float*>(lse), sq, sk, h, hkv, hd, hd_v, scale * kLog2e, causal, window,
       tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
   attn_combine_kernel<<<dim3(rows, hkv, b), kTcThreads, 0, stream>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const float*>(part_acc), static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), sq, sk, h, hkv, hd, nsplit);
+      static_cast<float*>(lse), sq, sk, h, hkv, hd_v, nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool shape_ok(int b, int sq, int sk, int h, int hkv, int hd) {
+bool shape_ok(int b, int sq, int sk, int h, int hkv, int hd, int hd_v) {
   return b >= 1 && b <= 65535 && sq >= 1 && sk >= 1 && hkv >= 1 && hkv <= 65535 && h >= hkv &&
-         h % hkv == 0 && hd >= 1 && hd <= kMaxHeadDim &&
+         h % hkv == 0 && hd >= 1 && hd <= kMaxHeadDim && hd_v >= 1 && hd_v <= hd &&
          static_cast<long long>(sq) * (h / hkv) <= (1LL << 31) - 64;
 }
 
 }  // namespace
 
-// All launchers: q, o: (b, sq, h, hd); k, v: (b, sk, hkv, hd), contiguous, on
-// the current device; q_pos (sq,) and k_pos (sk,) int32; lse, where taken, a
-// (b, h, sq) f32 output or null.  Each launches on `stream` and returns the
+// All launchers: q: (b, sq, h, hd); k: (b, sk, hkv, hd); v: (b, sk, hkv, hd_v);
+// o: (b, sq, h, hd_v), hd_v <= hd; contiguous, on the current device; q_pos
+// (sq,) and k_pos (sk,) int32; lse, where taken, a (b, h, sq) f32 output or null.  Each launches on `stream` and returns the
 // cudaError_t of its launches (0 on success).
 
-// "general": bf16 when `bf16` is nonzero, f32 otherwise; any hd <= 256.
+// "general": bf16 when `bf16` is nonzero, f32 otherwise; any hd_v <= hd <= 256.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* q_pos, const void* k_pos, void* o, void* lse,
-                                      int b, int sq, int sk, int h, int hkv, int hd, float scale,
-                                      int causal, int window, int bf16, void* stream) {
-  if (!shape_ok(b, sq, sk, h, hkv, hd)) return static_cast<int>(cudaErrorInvalidValue);
+                                      int b, int sq, int sk, int h, int hkv, int hd, int hd_v,
+                                      float scale, int causal, int window, int bf16,
+                                      void* stream) {
+  if (!shape_ok(b, sq, sk, h, hkv, hd, hd_v)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return general_launch<__nv_bfloat16>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd,
-                                         scale, causal, window, s);
+                                         hd_v, scale, causal, window, s);
   }
-  return general_launch<float>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, scale,
+  return general_launch<float>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, hd_v, scale,
                                causal, window, s);
 }
 
-// "tile": bf16, hd a multiple of 8 (padded to 64, 128 or 256), 16-byte aligned rows.
+// "tile": bf16, hd and hd_v multiples of 8, 16-byte aligned rows; the instance
+// (64, 64), (128, 128), (192, 128) or (256, 256) that holds (hd, hd_v).
 extern "C" int flash_attention_tile_launch(const void* q, const void* k, const void* v,
                                            const void* q_pos, const void* k_pos, void* o,
                                            void* lse, int b, int sq, int sk, int h, int hkv,
-                                           int hd, float scale, int causal, int window,
+                                           int hd, int hd_v, float scale, int causal, int window,
                                            void* stream) {
-  if (!shape_ok(b, sq, sk, h, hkv, hd) || hd % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(b, sq, sk, h, hkv, hd, hd_v) || hd % 8 || hd_v % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
-    return tile_launch<64>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, scale, causal,
-                           window, s);
+    return tile_launch<64, 64>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, hd_v, scale,
+                               causal, window, s);
   if (hd <= 128)
-    return tile_launch<128>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, scale, causal,
-                            window, s);
-  return tile_launch<256>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, scale, causal,
-                          window, s);
+    return tile_launch<128, 128>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, hd_v,
+                                 scale, causal, window, s);
+  if (hd <= 192 && hd_v <= 128)
+    return tile_launch<192, 128>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, hd_v,
+                                 scale, causal, window, s);
+  return tile_launch<256, 256>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, hd_v, scale,
+                               causal, window, s);
 }
 
-// "split": as "tile", over `nsplit` ranges of `tiles_per_split` (at most 4)
-// 64-key tiles that cover sk exactly (the last may be short).  With nsplit > 1, part_m and
-// part_l are (b, hkv, nsplit, sq * h / hkv) f32 and part_acc the same by hd.
+// "split": bf16, hd and hd_v multiples of 8 (tiles of width 64, 128 or 256 by
+// hd), over `nsplit` ranges of `tiles_per_split` (at most 4) 64-key tiles that
+// cover sk exactly (the last may be short).  With nsplit > 1, part_m and
+// part_l are (b, hkv, nsplit, sq * h / hkv) f32 and part_acc the same by hd_v.
 extern "C" int flash_attention_split_launch(const void* q, const void* k, const void* v,
                                             const void* q_pos, const void* k_pos, void* o,
                                             void* part_m, void* part_l, void* part_acc,
                                             void* lse, int b, int sq, int sk, int h, int hkv,
-                                            int hd, float scale, int causal, int window,
+                                            int hd, int hd_v, float scale, int causal, int window,
                                             int nsplit, int tiles_per_split, void* stream) {
   const long long ntiles = (sk + kKeys - 1) / kKeys;
   const long long groups = (static_cast<long long>(sq) * (h / hkv) + kSplitRows - 1) / kSplitRows;
-  if (!shape_ok(b, sq, sk, h, hkv, hd) || hd % 8 || nsplit < 1 || nsplit > 65535 ||
+  if (!shape_ok(b, sq, sk, h, hkv, hd, hd_v) || hd % 8 || hd_v % 8 || nsplit < 1 ||
+      nsplit > 65535 ||
       hkv > 65535 || tiles_per_split < 1 || tiles_per_split > kTcWarps ||
       static_cast<long long>(nsplit) * tiles_per_split < ntiles ||
       static_cast<long long>(nsplit - 1) * tiles_per_split >= ntiles || b * groups > 65535 ||
@@ -911,12 +933,12 @@ extern "C" int flash_attention_split_launch(const void* q, const void* k, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
     return split_launch<64>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, lse, b, sq, sk, h,
-                            hkv, hd, scale, causal, window, nsplit, tiles_per_split, s);
+                            hkv, hd, hd_v, scale, causal, window, nsplit, tiles_per_split, s);
   if (hd <= 128)
     return split_launch<128>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, lse, b, sq, sk,
-                             h, hkv, hd, scale, causal, window, nsplit, tiles_per_split, s);
+                             h, hkv, hd, hd_v, scale, causal, window, nsplit, tiles_per_split, s);
   return split_launch<256>(q, k, v, q_pos, k_pos, o, part_m, part_l, part_acc, lse, b, sq, sk, h,
-                           hkv, hd, scale, causal, window, nsplit, tiles_per_split, s);
+                           hkv, hd, hd_v, scale, causal, window, nsplit, tiles_per_split, s);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -1,7 +1,9 @@
 // The gradient of fused attention on Hopper: dQ, dK, dV from q, k, v, the
 // forward's output o, the output gradient dO and the forward's row
 // log-sum-exp lse, with the forward's visibility rule (explicit positions,
-// causal, sliding window, scale; a hidden score is -1e30) and GQA:
+// causal, sliding window, scale; a hidden score is -1e30) and GQA.  q, k, dq
+// and dk have head dim hd; v, o, dO and dv head dim hd_v <= hd (MLA: 192 and
+// 128), each read and written at its own width:
 //
 //   P[i, j]  = exp(s[i, j] - lse[i])  if visible(i, j), else 0
 //   dP       = dO V^T,   D[i] = sum_d dO[i, d] O[i, d]
@@ -18,19 +20,23 @@
 // is the hand-written "tile" kernel of flash_attention.cu, so its gradient is
 // hand-written too: kernels/ops.py's autograd function calls it.
 //
-// Bound by operations.  A fused kernel needs five products of 2 * hd flops
-// per visible (query, key) pair and query head (S and dP again, dV, dK, dQ);
-// this design does seven (the dQ kernel computes S and dP once more), the
-// price of writing dQ once, by its owner, with no atomics: the result is the
-// same bits on every run, as the reference's.  At the training shape (B 4,
-// Sq = Sk 4096, H 24, Hkv 2, hd 128, causal) the seven-product bound is
-// 1.46 ms at the bf16 tensor-core peak (five products: 1.04 ms).
+// Bound by operations.  A fused kernel needs five products per visible
+// (query, key) pair and query head, S, dK and dQ of 2 * hd flops, dP and dV
+// of 2 * hd_v (S and dP again, dV, dK, dQ); this design does seven (the dQ
+// kernel computes S and dP once more), the price of writing dQ once, by its
+// owner, with no atomics: the result is the same bits on every run, as the
+// reference's.  At the training shape (B 4, Sq = Sk 4096, H 24, Hkv 2, hd
+// 128, causal) the seven-product bound is 1.46 ms at the bf16 tensor-core
+// peak (five products: 1.04 ms); at MLA's (B 1, 4096, H 16, hd 192, hd_v
+// 128) the five-product bound is 0.26 ms.
 //
-// Head dims up to kWgmmaMaxHeadDim (128; every configuration of the repo)
-// take the "wgmma" design, three kernels:
+// Head dims up to kWgmmaMaxHeadDim (192) with hd_v up to kWgmmaMaxHeadDimV
+// (128) -- every configuration of the repo -- take the "wgmma" design,
+// instances (HD, HDV) of (64, 64), (128, 128) and (192, 128) that take any
+// runtime (hd, hd_v) up to them (zeros past the widths), three kernels:
 //
 //  * attn_bwd_prep_kernel: one block per (batch, head, 64-query tile): D by
-//    16-byte loads (8 bf16 a lane, hd / 8 lanes a row, several rows a warp),
+//    16-byte loads (8 bf16 a lane, hd_v / 8 lanes a row, several rows a warp),
 //    and the tile's statistics block {lse in base 2 (-inf: a row that sees
 //    no key, +inf: past Sq), D, positions} of 768 contiguous bytes, its
 //    positions' range and whether a row of it sees no key; extra blocks give
@@ -41,8 +47,9 @@
 //    (one coalesced load of their ranges, a ballot), keeps the live ones --
 //    some pair visible, or a row that sees no key -- and loads each pair's Q
 //    and dO tiles (TMA boxes of 64 rows x 64 columns on the natural (b, s, h,
-//    hd) layout, hd 128 as two boxes, 128-byte swizzle, zeros past Sq and hd)
-//    and its statistics (a bulk copy) into a ring of kDkdvStages stages with
+//    width) layout, each tensor at its own width: q and k at 192 as three
+//    boxes, v and dO at 128 as two; 128-byte swizzle, zeros past Sq and the
+//    width) and its statistics (a bulk copy) into a ring of kDkdvStages stages with
 //    full and empty mbarriers.  Each consumer warpgroup owns 64 keys (the M
 //    of wgmma): S^T = K Q^T and dP^T = V dO^T with both operands in shared
 //    memory, P and dS formed in registers and rounded to bf16, then used as
@@ -54,21 +61,32 @@
 //    memory.
 //  * attn_bwd_dq_wgmma_kernel: the mirror image, one block per (128-query
 //    tile, head, batch): Q and dO stay, the producer streams the live 64-key
-//    tiles of K and V (and their positions) through kDqStages stages, each
+//    tiles of K and V (and their positions) through dq_stages<HD, HDV>()
+//    stages (kDqStages, 3 at (192, 128) where 4 would not fit), each
 //    warpgroup owns 64 rows: S = Q K^T, dP = dO V^T, dQ += dS K.
 //
 // The tensor maps are encoded on each call from the tensors' pointers and
 // shapes by cuTensorMapEncodeTiled, looked up at run time through the CUDA
 // runtime (no -lcuda), and passed as __grid_constant__ parameters.
 //
-// Tiles, stages and registers: the dK/dV accumulators (64 keys x hd, f32,
-// twice) take hd registers a thread, S^T and dP^T 64 more; at hd 128 that is
-// 192 of the 240 that setmaxnreg hands each consumer thread (the producer
-// warpgroup drops to 24; 384 threads x 168 at launch), so a 128-key block
-// runs two consumer warpgroups and no more.  Shared memory at hd 128: K and
-// V 64 KB, 3 stages of Q and dO (32 KB each) and statistics: 163 KB, one
-// block per SM; the dQ block keeps Q and dO (64 KB) and 4 stages of K and V
-// (32 KB each): 194 KB.  Neither may spill (chip_smoke.py checks ptxas).
+// Tiles, stages and registers: the dK/dV accumulators (64 keys x HD and 64 x
+// HDV, f32) take (HD + HDV) / 2 registers a thread, S^T and dP^T 32 each; at
+// (128, 128) that is 192 of the 240 that setmaxnreg hands each consumer
+// thread (the producer warpgroup drops to 24; 384 threads x 168 at launch),
+// so a 128-key block runs two consumer warpgroups and no more.  At (192, 128)
+// it would be 224: there the pair's schedule never holds S^T and dP^T at once
+// (kSerialPairs): S^T, P rounded to bf16 (16 registers), dV += P^T dO issued,
+// then by halves of 32 queries dP^T = V dO^T (16 registers), dS from the bf16
+// P, dK += dS^T Q -- a peak of 96 + 64 + 16 + 16 + 8 = 200, the same five
+// products a pair.  ptxas (sm_90a, CUDA 12 on the H100 machine): a dP^T of
+// 64 x 64 at once (208) spilled 16 bytes, the halves with P, the first dS
+// half, 1/Sk and the two key indices held past their use 8; as written, 0.  Shared memory
+// at (128, 128): K and V 64 KB, 3 stages of Q and dO (32 KB each) and
+// statistics: 163 KB, one block per SM; the dQ block keeps Q and dO (64 KB)
+// and 4 stages of K and V (32 KB each): 194 KB.  At (192, 128): K 48 + V 32
+// KB + 3 x (Q 24 + dO 16 KB) and statistics: 203 KB; dQ: Q 48 + dO 32 KB + 3
+// x (K 24 + V 16 KB): 201 KB.  No "wgmma" kernel may spill (chip_smoke.py
+// checks ptxas).
 //
 // Waves at the training shape on 132 SMs: dK/dV 256 blocks (32 key tiles x
 // 2 kv heads x 4), one per SM, 1.94 waves; under the causal mask key tile t
@@ -77,13 +95,15 @@
 // dQ 3,072 blocks (32 row tiles x 24 heads x 4), 23.3 waves, the latest
 // queries (most keys) first.
 //
-// Head dims above 128 (only test shapes) take the first, "mma" design:
+// What no "wgmma" instance holds -- hd above 192, or hd_v above 128 (hd 256,
+// or hd_v = hd above 128: test shapes only) -- takes the first, "mma" design:
 // mma.sync.m16n8k16 fed by ldmatrix from tiles staged by cp.async in one
-// stage, 64 (query, head) rows per tile.  The launcher picks the design by hd
+// stage, 64 (query, head) rows per tile, V and dO at hd_v zero-filled to the
+// <256> tiles.  The launcher picks the design by (hd, hd_v)
 // (flash_attention_bwd_design); the delta pass is attn_bwd_prep_kernel's.
 //
-// Takes bf16 with hd a multiple of 16, at most 256, 16-byte aligned tensors;
-// the wrapper raises on anything else.
+// Takes bf16 with hd and hd_v multiples of 16, 16 <= hd_v <= hd <= 256,
+// 16-byte aligned tensors; the wrapper raises on anything else.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,19 +116,21 @@
 
 namespace {
 
-constexpr int kWgmmaMaxHeadDim = 128;  // up to here the "wgmma" design, above it "mma"
+constexpr int kWgmmaMaxHeadDim = 192;   // up to here (and hd_v up to the next) "wgmma", else "mma"
+constexpr int kWgmmaMaxHeadDimV = 128;
 constexpr int kRowTile = 64;           // queries per tile of the statistics and wgmma kernels
 constexpr int kKeyTile = 64;           // keys per wgmma warpgroup and per dQ stage
 constexpr int kDkdvKeys = 128;         // keys per dK/dV block: two consumer warpgroups
 constexpr int kDqRows = 128;           // queries per dQ block: two consumer warpgroups
 constexpr int kDkdvStages = 3;         // ring of Q / dO tiles
-constexpr int kDqStages = 4;           // ring of K / V tiles
+constexpr int kDqStages = 4;           // ring of K / V tiles, where it fits (dq_stages)
 constexpr int kWgThreads = 128;        // a warpgroup
 constexpr int kWgmmaThreads = 3 * kWgThreads;  // two consumer warpgroups, one producer
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kStatWords = 3 * kRowTile;  // a query tile's lse in base 2, D, positions
 constexpr uint32_t kHalfRowBytes = 128;    // a row of a 64-column box, bf16
+constexpr uint32_t kMaxSmemBytes = 232448;  // dynamic shared memory a block may use on an H100
 
 // 2^x by the MUFU unit (flushes results below 2^-126 to zero)
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -128,7 +150,8 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal, int window) 
 constexpr int kPrepThreads = 256;
 
 // Blocks [0, b*h*nqt): one (batch, head, 64-query tile) each.  D of each row
-// by 16-byte loads: lanes_per_row (a power of two >= hd / 8) lanes a row, one
+// by 16-byte loads of O and dO (b, sq, h, hd_v): lanes_per_row (a power of two
+// >= hd_v / 8) lanes a row, one
 // 16-byte chunk each, 256 / lanes_per_row rows at a time.  "mma" design
 // (stats == nullptr): D into delta (b, h, sq).  "wgmma" design: the lse in
 // base 2, D and the positions into the tile's statistics block (b, h, nqt,
@@ -141,7 +164,7 @@ attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                      const int* __restrict__ k_pos, float* __restrict__ delta,
                      float* __restrict__ stats, int4* __restrict__ tinfo,
                      int2* __restrict__ kinfo, int* __restrict__ kpos, int sq, int sk, int h,
-                     int hd, int nqt, long long row_blocks, int lanes_per_row) {
+                     int hd_v, int nqt, long long row_blocks, int lanes_per_row) {
   __shared__ int red[2][3];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (static_cast<long long>(blockIdx.x) >= row_blocks) {  // a key tile's position range
@@ -166,14 +189,14 @@ attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const long long bh = blockIdx.x / nqt;  // b * h + head
   const int head = static_cast<int>(bh % h);
   const long long b = bh / h;
-  const int chunks = hd / 8;
+  const int chunks = hd_v / 8;
   const int c = threadIdx.x & (lanes_per_row - 1);
   float* st = stats ? stats + (bh * nqt + qt) * kStatWords : nullptr;
   for (int r = threadIdx.x / lanes_per_row; r < kRowTile; r += kPrepThreads / lanes_per_row) {
     const int qi = qt * kRowTile + r;
     float s = 0.f;
     if (qi < sq && c < chunks) {
-      const long long off = ((b * sq + qi) * h + head) * hd + c * 8;
+      const long long off = ((b * sq + qi) * h + head) * hd_v + c * 8;
       const uint4 x = *reinterpret_cast<const uint4*>(o + off);
       const uint4 y = *reinterpret_cast<const uint4*>(dout + off);
       const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
@@ -222,60 +245,82 @@ attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 // "wgmma" design: shared memory layouts
 // ---------------------------------------------------------------------------
 
-// A TMA'd tile of `rows` rows x HD columns: HD / 64 halves of rows x 128
-// bytes, each 1024-byte aligned; row r of half hf at hf * rows * 128 + r * 128.
-template <int HD>
+// A TMA'd tile of `rows` rows x W columns: W / 64 blocks of rows x 128
+// bytes ("halves" at W 128), each 1024-byte aligned; row r of block hf at
+// hf * rows * 128 + r * 128.
+template <int W>
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) {
-  return static_cast<uint32_t>(rows) * HD * 2;
+  return static_cast<uint32_t>(rows) * W * 2;
 }
 
-template <int HD>
+// HD: the width of Q, K (and dQ, dK) tiles; HDV: of V and dO (and dV)
+template <int HD, int HDV>
 struct DkdvSmem {
   static constexpr uint32_t k = 0;
   static constexpr uint32_t v = k + tile_bytes<HD>(kDkdvKeys);
-  static constexpr uint32_t stage = v + tile_bytes<HD>(kDkdvKeys);  // Q then dO, per stage
-  static constexpr uint32_t stage_bytes = 2 * tile_bytes<HD>(kRowTile);
+  static constexpr uint32_t stage = v + tile_bytes<HDV>(kDkdvKeys);  // Q then dO, per stage
+  static constexpr uint32_t stage_bytes = tile_bytes<HD>(kRowTile) + tile_bytes<HDV>(kRowTile);
   static constexpr uint32_t stats = stage + kDkdvStages * stage_bytes;
   static constexpr uint32_t full = stats + kDkdvStages * kStatWords * 4;
   static constexpr uint32_t empty = full + 8 * kDkdvStages;
   static constexpr uint32_t kv_bar = empty + 8 * kDkdvStages;
   static constexpr uint32_t info = kv_bar + 8;  // int[8] per stage: qt, qmin, qmax, blind
   static constexpr uint32_t bytes = info + 32 * kDkdvStages + 1024;  // + alignment slack
+  static_assert(bytes <= kMaxSmemBytes, "the dK/dV block does not fit");
 };
 
-template <int HD>
+// Bytes of the dQ block's shared memory with a ring of `stages` K / V stages
+template <int HD, int HDV>
+constexpr uint32_t dq_smem_bytes(int stages) {
+  return tile_bytes<HD>(kDqRows) + tile_bytes<HDV>(kDqRows) +
+         stages * (tile_bytes<HD>(kKeyTile) + tile_bytes<HDV>(kKeyTile) + kKeyTile * 4 + 16 + 32) +
+         8 + 1024;
+}
+// The dQ ring's stages: kDqStages where they fit, fewer where not (3 at (192, 128))
+template <int HD, int HDV>
+constexpr int dq_stages() {
+  int s = kDqStages;
+  while (s > 1 && dq_smem_bytes<HD, HDV>(s) > kMaxSmemBytes) --s;
+  return s;
+}
+
+template <int HD, int HDV>
 struct DqSmem {
+  static constexpr int stages = dq_stages<HD, HDV>();
   static constexpr uint32_t q = 0;
   static constexpr uint32_t dout = q + tile_bytes<HD>(kDqRows);
-  static constexpr uint32_t stage = dout + tile_bytes<HD>(kDqRows);  // K then V, per stage
-  static constexpr uint32_t stage_bytes = 2 * tile_bytes<HD>(kKeyTile);
-  static constexpr uint32_t kpos = stage + kDqStages * stage_bytes;  // 64 key positions a stage
-  static constexpr uint32_t full = kpos + kDqStages * kKeyTile * 4;
-  static constexpr uint32_t empty = full + 8 * kDqStages;
-  static constexpr uint32_t qd_bar = empty + 8 * kDqStages;
+  static constexpr uint32_t stage = dout + tile_bytes<HDV>(kDqRows);  // K then V, per stage
+  static constexpr uint32_t stage_bytes = tile_bytes<HD>(kKeyTile) + tile_bytes<HDV>(kKeyTile);
+  static constexpr uint32_t kpos = stage + stages * stage_bytes;  // 64 key positions a stage
+  static constexpr uint32_t full = kpos + stages * kKeyTile * 4;
+  static constexpr uint32_t empty = full + 8 * stages;
+  static constexpr uint32_t qd_bar = empty + 8 * stages;
   static constexpr uint32_t info = qd_bar + 8;  // int[8] per stage: kt, kmin, kmax
-  static constexpr uint32_t bytes = info + 32 * kDqStages + 1024;
+  static constexpr uint32_t bytes = info + 32 * stages + 1024;
+  static_assert(bytes == dq_smem_bytes<HD, HDV>(stages) && bytes <= kMaxSmemBytes, "dQ block");
 };
 
 __device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023u) & ~1023u; }
 
-// Load rows [row0, row0 + 64 * n) of one head of a (b, s, heads, hd) tensor
-// into a tile of `rows` rows at dst, row offset dst_row0, as 64-row boxes.
-template <int HD>
+// Load rows [row0, row0 + 64 * n) of one head of a (b, s, heads, width)
+// tensor into a tile of `rows` rows x W columns at dst, row offset dst_row0,
+// as 64-row boxes.
+template <int W>
 __device__ __forceinline__ void load_rows(uint32_t dst, int rows, int dst_row0, const void* map,
                                           uint32_t bar, int head, int row0, int n, int b) {
 #pragma unroll
-  for (int hf = 0; hf < HD / 64; ++hf)
+  for (int hf = 0; hf < W / 64; ++hf)
     for (int i = 0; i < n; ++i)
       tma_load_4d(dst + (hf * rows + dst_row0 + i * 64) * kHalfRowBytes, map, bar, hf * 64, head,
                   row0 + i * 64, b);
 }
 
-// P (or P^T) from a 64 x 64 score accumulator of wgmma, as four bf16 A
+// P (or P^T) from a 64 x 16 N score accumulator of wgmma, as N bf16 A
 // fragments of 16 columns each (the accumulator's layout is the A operand's)
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N][4], const float (&x)[8 * N]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < N; ++kk) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
   }
@@ -285,7 +330,16 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]
 // dK, dV ("wgmma"): one block per (128-key tile, kv head, batch)
 // ---------------------------------------------------------------------------
 
-template <int HD>
+// The dK/dV consumer's schedule of a pair: with the accumulators of (HD, HDV)
+// and S^T and dP^T over the 240 registers less about 48 for addresses,
+// indices and statistics, never hold S^T and dP^T at once (see the header).
+// Below that the overlapped schedule is faster: at (128, 128) the serial one
+// took 2.874 ms against 2.565 at the training microbatch (B 4, S 4096, H 24,
+// Hkv 2; scripts/attn_bwd_ab.py in turns on an H100 80GB HBM3 at 700 W).
+template <int HD, int HDV>
+constexpr bool kSerialPairs = HD / 2 + HDV / 2 + 64 > kConsumerRegs - 48;
+
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -294,9 +348,9 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const float* __restrict__ stats, const int4* __restrict__ tinfo,
                            const int2* __restrict__ kinfo, const int* __restrict__ k_pos,
                            bf16* __restrict__ dk, bf16* __restrict__ dv, int b_count, int sq,
-                           int sk, int h, int hkv, int hd, float scale, float scale_log2,
-                           int causal, int window) {
-  using L = DkdvSmem<HD>;
+                           int sk, int h, int hkv, int hd, int hd_v, float scale,
+                           float scale_log2, int causal, int window) {
+  using L = DkdvSmem<HD, HDV>;
   extern __shared__ __align__(128) unsigned char smem_raw[];  // aligned to 1024 below
   const uint32_t base = align1024(smem_u32(smem_raw));
   unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -327,9 +381,9 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         kmax = max(kmax, r.y);
       }
       if (lane == 0) {
-        mbar_expect_tx(base + L::kv_bar, 2 * tile_bytes<HD>(kDkdvKeys));
+        mbar_expect_tx(base + L::kv_bar, tile_bytes<HD>(kDkdvKeys) + tile_bytes<HDV>(kDkdvKeys));
         load_rows<HD>(base + L::k, kDkdvKeys, 0, &map_k, base + L::kv_bar, kvh, kt0, 2, b);
-        load_rows<HD>(base + L::v, kDkdvKeys, 0, &map_v, base + L::kv_bar, kvh, kt0, 2, b);
+        load_rows<HDV>(base + L::v, kDkdvKeys, 0, &map_v, base + L::kv_bar, kvh, kt0, 2, b);
       }
       int stage = 0;
       uint32_t phase = 0;
@@ -361,8 +415,8 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             mbar_expect_tx(full, L::stage_bytes + kStatWords * 4);
             const uint32_t qs = base + L::stage + stage * L::stage_bytes;
             load_rows<HD>(qs, kRowTile, 0, &map_q, full, head, qt * kRowTile, 1, b);
-            load_rows<HD>(qs + tile_bytes<HD>(kRowTile), kRowTile, 0, &map_do, full, head,
-                          qt * kRowTile, 1, b);
+            load_rows<HDV>(qs + tile_bytes<HD>(kRowTile), kRowTile, 0, &map_do, full, head,
+                           qt * kRowTile, 1, b);
             bulk_load(base + L::stats + stage * kStatWords * 4,
                       stats + ((static_cast<long long>(b) * h + head) * nqt + qt) * kStatWords,
                       kStatWords * 4, full);
@@ -391,13 +445,16 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       kmax = r.y;
     }
     const int r0 = warp * 16 + (lane >> 2);  // this thread's keys: r0 and r0 + 8 of the 64
-    const int key[2] = {key_base + r0, key_base + r0 + 8};
-    const int kp[2] = {key[0] < sk ? __ldg(k_pos + key[0]) : 0,
-                       key[1] < sk ? __ldg(k_pos + key[1]) : 0};
-    const float inv_sk = 1.f / static_cast<float>(sk);
-    float dk_acc[HD / 2], dv_acc[HD / 2];
+    // this thread's keys key0 and key0 + 8; nothing held that can be recomputed (1/Sk is
+    // formed where a row sees no key): at (192, 128) one register more spills
+    const int key0 = key_base + r0;
+    const int kp[2] = {key0 < sk ? __ldg(k_pos + key0) : 0,
+                       key0 + 8 < sk ? __ldg(k_pos + key0 + 8) : 0};
+    float dk_acc[HD / 2], dv_acc[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < HDV / 2; ++i) dv_acc[i] = 0.f;
     mbar_wait(base + L::kv_bar, 0);
     const uint32_t k_rows = base + L::k + wg * kKeyTile * kHalfRowBytes;
     const uint32_t v_rows = base + L::v + wg * kKeyTile * kHalfRowBytes;
@@ -413,7 +470,37 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (has_keys && (state != 0 || info[3])) {
         const uint32_t qs = base + L::stage + stage * L::stage_bytes;
         const uint32_t dos = qs + tile_bytes<HD>(kRowTile);
-        float s[32], dp[32];
+        // the pair's statistics: lse in base 2, D, the queries' positions (int)
+        const float* st = reinterpret_cast<const float*>(gbase + L::stats) + stage * kStatWords;
+        const int* st_pos = reinterpret_cast<const int*>(st) + 2 * kRowTile;
+        // P^T from S^T in place.  A pair every key of which sees every row
+        // (state 2) holds no row that sees no key and needs no mask: its P
+        // and dS are plain arithmetic.  Otherwise each pair is masked by its
+        // positions.
+        auto softmax = [&](float (&s)[32]) {
+          if (state == 2) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[4 * j + e] = fast_exp2(s[4 * j + e] * scale_log2 - st[8 * j + 2 * tig + (e & 1)]);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = 8 * j + 2 * tig + (e & 1);
+                const float l2 = st[col];
+                const bool seen = state == 1 && visible(st_pos[col], kp[e >> 1], causal, window);
+                const float p = fast_exp2(s[4 * j + e] * scale_log2 - l2);
+                // a row that sees no key: uniform weights, no score gradient
+                s[4 * j + e] = l2 == -INFINITY ? __frcp_rn(static_cast<float>(sk)) : seen ? p : 0.f;
+              }
+            }
+          }
+        };
+        float s[32];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {  // S^T = K Q^T: keys x queries
@@ -422,71 +509,108 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        desc_kmajor(qs + (kk >> 2) * row_half + off), kk > 0);
         }
         wgmma_commit();
+        uint32_t pa[4][4];
+        if constexpr (!kSerialPairs<HD, HDV>) {
+          float dp[32];
+          uint32_t da[4][4];
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {  // dP^T = V dO^T
-          const uint32_t off = (kk & 3) * 32;
-          wgmma_ss_n64(dp, desc_kmajor(v_rows + (kk >> 2) * kv_half + off),
-                       desc_kmajor(dos + (kk >> 2) * row_half + off), kk > 0);
-        }
-        wgmma_commit();
-        // the pair's statistics: lse in base 2, D, the queries' positions (int)
-        const float* st = reinterpret_cast<const float*>(gbase + L::stats) + stage * kStatWords;
-        const int* st_pos = reinterpret_cast<const int*>(st) + 2 * kRowTile;
-        // A pair every key of which sees every row (state 2) holds no row
-        // that sees no key and needs no mask: its P and dS are plain
-        // arithmetic.  Otherwise each pair is masked by its positions.
-        wgmma_wait<1>();
-        fence_regs(s);
-        if (state == 2) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              s[4 * j + e] = fast_exp2(s[4 * j + e] * scale_log2 - st[8 * j + 2 * tig + (e & 1)]);
+          for (int kk = 0; kk < HDV / 16; ++kk) {  // dP^T = V dO^T
+            const uint32_t off = (kk & 3) * 32;
+            wgmma_ss_n64(dp, desc_kmajor(v_rows + (kk >> 2) * kv_half + off),
+                         desc_kmajor(dos + (kk >> 2) * row_half + off), kk > 0);
           }
-        } else {
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+          softmax(s);
+          wgmma_wait<0>();
+          fence_regs(dp);
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = 8 * j + 2 * tig + (e & 1);
-              const float l2 = st[col];
-              const bool seen = state == 1 && visible(st_pos[col], kp[e >> 1], causal, window);
-              const float p = fast_exp2(s[4 * j + e] * scale_log2 - l2);
-              // a row that sees no key: uniform weights, no score gradient
-              s[4 * j + e] = l2 == -INFINITY ? inv_sk : seen ? p : 0.f;
+              const float ds = s[4 * j + e] * (dp[4 * j + e] - st[kRowTile + col]);
+              dp[4 * j + e] = state != 2 && st[col] == -INFINITY ? 0.f : ds;
             }
           }
-        }
-        wgmma_wait<0>();
-        fence_regs(dp);
+          pack_a(pa, s);
+          pack_a(da, dp);
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+          wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+          for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO: 16 queries a step
+            wgmma_rs_tb<HDV>(dv_acc, pa[kk], desc_mnmajor(dos + kk * 16 * kHalfRowBytes, row_half));
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = 8 * j + 2 * tig + (e & 1);
-            const float ds = s[4 * j + e] * (dp[4 * j + e] - st[kRowTile + col]);
-            dp[4 * j + e] = state != 2 && st[col] == -INFINITY ? 0.f : ds;
+          for (int kk = 0; kk < 4; ++kk)  // dK += dS^T Q
+            wgmma_rs_tb<HD>(dk_acc, da[kk], desc_mnmajor(qs + kk * 16 * kHalfRowBytes, row_half));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+          fence_regs(pa);
+          fence_regs(da);
+        } else {
+          // S^T's registers go to bf16 P before any of dP^T is issued; P^T dO
+          // runs beside dP^T's first half.  dP^T, dS and dS^T Q go by halves
+          // of 32 queries (16 registers of dP^T, 8 of dS), dS from the bf16 P.
+          wgmma_wait<0>();
+          fence_regs(s);
+          softmax(s);
+          pack_a(pa, s);
+          fence_regs(dv_acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO: 16 queries a step
+            wgmma_rs_tb<HDV>(dv_acc, pa[kk], desc_mnmajor(dos + kk * 16 * kHalfRowBytes, row_half));
+          uint32_t dh[2][2][4];  // dS^T of each half: two A fragments of 16 queries
+#pragma unroll
+          for (int hq = 0; hq < 2; ++hq) {  // queries [32 hq, 32 hq + 32)
+            float dph[16];
+            const uint32_t dos_h = dos + hq * 32 * kHalfRowBytes;
+#pragma unroll
+            for (int kk = 0; kk < HDV / 16; ++kk) {  // dP^T = V dO^T, this half
+              const uint32_t off = (kk & 3) * 32;
+              wgmma_ss_n32(dph, desc_kmajor(v_rows + (kk >> 2) * kv_half + off),
+                           desc_kmajor(dos_h + (kk >> 2) * row_half + off), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();  // dP^T's half (and dV, and the previous half's dK)
+            fence_regs(dph);
+            if (hq == 0) {  // dV is done with all of P ...
+              fence_regs(dv_acc);
+              fence_regs(pa);
+            } else {  // ... and the first half's dK with its dS
+              fence_regs(dh[0]);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; e += 2) {
+                const int i = 16 * hq + 4 * j + e;  // P of entries i, i + 1: pa's pair i / 2
+                const float2 p = unpack_bf16(pa[i / 8][(i % 8) / 2]);
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                  const int col = 32 * hq + 8 * j + 2 * tig + u;
+                  const float ds = (u ? p.y : p.x) * (dph[4 * j + e + u] - st[kRowTile + col]);
+                  dph[4 * j + e + u] = state != 2 && st[col] == -INFINITY ? 0.f : ds;
+                }
+              }
+            }
+            pack_a(dh[hq], dph);
+            fence_regs(dk_acc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk)  // dK += dS^T Q, this half
+              wgmma_rs_tb<HD>(dk_acc, dh[hq][kk],
+                              desc_mnmajor(qs + (32 * hq + 16 * kk) * kHalfRowBytes, row_half));
+            wgmma_commit();
           }
+          wgmma_wait<0>();
+          fence_regs(dk_acc);
+          fence_regs(dh[1]);
         }
-        uint32_t pa[4][4], da[4][4];
-        pack_a(pa, s);
-        pack_a(da, dp);
-        fence_regs(dv_acc);
-        fence_regs(dk_acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO: 16 queries a step
-          wgmma_rs_tb<HD>(dv_acc, pa[kk], desc_mnmajor(dos + kk * 16 * kHalfRowBytes, row_half));
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // dK += dS^T Q
-          wgmma_rs_tb<HD>(dk_acc, da[kk], desc_mnmajor(qs + kk * 16 * kHalfRowBytes, row_half));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dv_acc);
-        fence_regs(dk_acc);
-        fence_regs(pa);
-        fence_regs(da);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(base + L::empty + 8 * stage);
@@ -494,17 +618,21 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      if (key[i] >= sk) continue;
-      const long long off = ((static_cast<long long>(b) * sk + key[i]) * hkv + kvh) * hd;
+      if (key0 + 8 * i >= sk) continue;
+      const long long row = (static_cast<long long>(b) * sk + key0 + 8 * i) * hkv + kvh;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
         const int d = 8 * j + 2 * tig;
-        if (d < hd) {
-          *reinterpret_cast<__nv_bfloat162*>(dk + off + d) = __floats2bfloat162_rn(
+        if (d < hd)
+          *reinterpret_cast<__nv_bfloat162*>(dk + row * hd + d) = __floats2bfloat162_rn(
               dk_acc[4 * j + 2 * i] * scale, dk_acc[4 * j + 2 * i + 1] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + off + d) =
+      }
+#pragma unroll
+      for (int j = 0; j < HDV / 8; ++j) {
+        const int d = 8 * j + 2 * tig;
+        if (d < hd_v)
+          *reinterpret_cast<__nv_bfloat162*>(dv + row * hd_v + d) =
               __floats2bfloat162_rn(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
-        }
       }
     }
   }
@@ -514,7 +642,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 // dQ ("wgmma"): one block per (128-query tile, head, batch)
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
@@ -525,7 +653,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                          const int* __restrict__ q_pos, bf16* __restrict__ dq, int b_count,
                          int sq, int sk, int h, int hkv, float scale, float scale_log2,
                          int causal, int window, int hd) {
-  using L = DqSmem<HD>;
+  using L = DqSmem<HD, HDV>;
   extern __shared__ __align__(128) unsigned char smem_raw[];  // aligned to 1024 below
   const uint32_t base = align1024(smem_u32(smem_raw));
   unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -537,7 +665,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int head = blockIdx.x % per % h, b = blockIdx.x % per / h, kvh = head / g;
   const int q0 = qb * kDqRows;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < L::stages; ++s) {
       mbar_init(base + L::full + 8 * s, 1);
       mbar_init(base + L::empty + 8 * s, 2 * kWgThreads / 32);
     }
@@ -557,9 +685,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         qmax = max(qmax, r.y);
       }
       if (lane == 0) {
-        mbar_expect_tx(base + L::qd_bar, 2 * tile_bytes<HD>(kDqRows));
+        mbar_expect_tx(base + L::qd_bar, tile_bytes<HD>(kDqRows) + tile_bytes<HDV>(kDqRows));
         load_rows<HD>(base + L::q, kDqRows, 0, &map_q, base + L::qd_bar, head, q0, 2, b);
-        load_rows<HD>(base + L::dout, kDqRows, 0, &map_do, base + L::qd_bar, head, q0, 2, b);
+        load_rows<HDV>(base + L::dout, kDqRows, 0, &map_do, base + L::qd_bar, head, q0, 2, b);
       }
       int stage = 0;
       uint32_t phase = 0;
@@ -588,13 +716,13 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             mbar_expect_tx(full, L::stage_bytes + kKeyTile * 4);
             const uint32_t ks = base + L::stage + stage * L::stage_bytes;
             load_rows<HD>(ks, kKeyTile, 0, &map_k, full, kvh, kt * kKeyTile, 1, b);
-            load_rows<HD>(ks + tile_bytes<HD>(kKeyTile), kKeyTile, 0, &map_v, full, kvh,
-                          kt * kKeyTile, 1, b);
+            load_rows<HDV>(ks + tile_bytes<HD>(kKeyTile), kKeyTile, 0, &map_v, full, kvh,
+                           kt * kKeyTile, 1, b);
             bulk_load(base + L::kpos + stage * kKeyTile * 4, kpos + kt * kKeyTile, kKeyTile * 4,
                       full);
           }
           __syncwarp();
-          if (++stage == kDqStages) stage = 0, phase ^= 1;
+          if (++stage == L::stages) stage = 0, phase ^= 1;
         }
       }
       if (lane == 0) {
@@ -637,7 +765,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
     int stage = 0;
     uint32_t phase = 0;
-    for (;; (++stage == kDqStages) ? (stage = 0, phase ^= 1) : 0) {
+    for (;; (++stage == L::stages) ? (stage = 0, phase ^= 1) : 0) {
       mbar_wait(base + L::full + 8 * stage, phase);
       const int* info = reinterpret_cast<const int*>(gbase + L::info) + 8 * stage;
       const int kt = info[0];
@@ -656,7 +784,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {  // dP = dO V^T
+        for (int kk = 0; kk < HDV / 16; ++kk) {  // dP = dO V^T
           const uint32_t off = (kk & 3) * 32;
           wgmma_ss_n64(dp, desc_kmajor(do_rows + (kk >> 2) * qd_half + off),
                        desc_kmajor(vs + (kk >> 2) * key_half + off), kk > 0);
@@ -727,7 +855,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
-// "mma" design (hd above 128): mma.sync tiles of 64 (query, head) rows
+// "mma" design (hd above 192, or hd_v above 128): mma.sync tiles of 64
+// (query, head) rows; V and dO rows at hd_v, zero-filled to HD in shared memory
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 64;  // keys per K/V tile, (query, head) rows per row tile
@@ -775,11 +904,11 @@ __device__ __forceinline__ void row_range(const int* __restrict__ q_pos, int row
   *qmax = hi;
 }
 
-// Address of (query, head) row `row` of kv head kvh in a (b, sq, h, hd) tensor
+// Address of (query, head) row `row` of kv head kvh in a (b, sq, h, width) tensor
 __device__ __forceinline__ long long row_offset(long long b, int row, int kvh, int sq, int h,
-                                                int hd, int g) {
+                                                int width, int g) {
   const int qi = row / g, head = kvh * g + (row - qi * g);
-  return ((b * sq + qi) * h + head) * hd;
+  return ((b * sq + qi) * h + head) * width;
 }
 
 // Index of (query, head) row `row` of kv head kvh in a (b, h, sq) statistic
@@ -805,7 +934,7 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int h, int hkv,
-                     int hd, float scale, float scale_log2, int causal, int window) {
+                     int hd, int hd_v, float scale, float scale_log2, int causal, int window) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr uint32_t kTileBytes = 2 * HD * kTile;
   const uint32_t ks = smem_u32(smem_raw);
@@ -822,14 +951,14 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
 
-  auto kv_src = [&](const bf16* base) {
+  auto kv_src = [&](const bf16* base, int width) {
     return [=](int r) -> const bf16* {
       const int j = kt0 + r;
-      return j < sk ? base + ((b * sk + j) * hkv + kvh) * hd : nullptr;
+      return j < sk ? base + ((b * sk + j) * hkv + kvh) * width : nullptr;
     };
   };
-  stage_rows<HD, kTile>(ks, hd, k, kv_src(k));
-  stage_rows<HD, kTile>(vs, hd, v, kv_src(v));
+  stage_rows<HD, kTile>(ks, hd, k, kv_src(k, hd));
+  stage_rows<HD, kTile>(vs, hd_v, v, kv_src(v, hd_v));
   cp_async_commit();
 
   int kmin, kmax;
@@ -858,14 +987,14 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (!__syncthreads_or(blind)) continue;
     }
     __syncthreads();  // the previous row tile is consumed
-    auto row_src = [&](const bf16* base) {
+    auto row_src = [&](const bf16* base, int width) {
       return [=](int r) -> const bf16* {
         const int row = r0 + r;
-        return row < rows ? base + row_offset(b, row, kvh, sq, h, hd, g) : nullptr;
+        return row < rows ? base + row_offset(b, row, kvh, sq, h, width, g) : nullptr;
       };
     };
-    stage_rows<HD, kTile>(qs, hd, q, row_src(q));
-    stage_rows<HD, kTile>(dos, hd, dout, row_src(dout));
+    stage_rows<HD, kTile>(qs, hd, q, row_src(q, hd));
+    stage_rows<HD, kTile>(dos, hd_v, dout, row_src(dout, hd_v));
     cp_async_commit();
     if (threadIdx.x < kTile) {
       const int row = r0 + threadIdx.x;
@@ -914,16 +1043,16 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (key[i] >= sk) continue;
-    const long long off = ((b * sk + key[i]) * hkv + kvh) * hd;
+    const long long row = (b * sk + key[i]) * hkv + kvh;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
       const int d = n * 8 + tig * 2;
-      if (d < hd) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + d) =
+      if (d < hd)
+        *reinterpret_cast<__nv_bfloat162*>(dk + row * hd + d) =
             __floats2bfloat162_rn(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + d) =
+      if (d < hd_v)
+        *reinterpret_cast<__nv_bfloat162*>(dv + row * hd_v + d) =
             __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
-      }
     }
   }
 }
@@ -938,8 +1067,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-                   bf16* __restrict__ dq, int sq, int sk, int h, int hkv, int hd, float scale,
-                   float scale_log2, int causal, int window) {
+                   bf16* __restrict__ dq, int sq, int sk, int h, int hkv, int hd, int hd_v,
+                   float scale, float scale_log2, int causal, int window) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr uint32_t kTileBytes = 2 * HD * kTile;
   const uint32_t qs = smem_u32(smem_raw);
@@ -953,14 +1082,14 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
 
-  auto row_src = [&](const bf16* base) {
+  auto row_src = [&](const bf16* base, int width) {
     return [=](int r) -> const bf16* {
       const int row = row0 + r;
-      return row < rows ? base + row_offset(b, row, kvh, sq, h, hd, g) : nullptr;
+      return row < rows ? base + row_offset(b, row, kvh, sq, h, width, g) : nullptr;
     };
   };
-  stage_rows<HD, kTile>(qs, hd, q, row_src(q));
-  stage_rows<HD, kTile>(dos, hd, dout, row_src(dout));
+  stage_rows<HD, kTile>(qs, hd, q, row_src(q, hd));
+  stage_rows<HD, kTile>(dos, hd_v, dout, row_src(dout, hd_v));
   cp_async_commit();
 
   int qmin, qmax;
@@ -995,14 +1124,14 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int state = tile_state_of(kmin, kmax, qmin, qmax, causal, window);  // same in every warp
     if (state == 0) continue;  // rows that see no key get no score gradient: nothing to add
     __syncthreads();  // the previous K/V tile is consumed
-    auto kv_src = [&](const bf16* base) {
+    auto kv_src = [&](const bf16* base, int width) {
       return [=](int r) -> const bf16* {
         const int j = t0 + r;
-        return j < sk ? base + ((b * sk + j) * hkv + kvh) * hd : nullptr;
+        return j < sk ? base + ((b * sk + j) * hkv + kvh) * width : nullptr;
       };
     };
-    stage_rows<HD, kTile>(ks, hd, k, kv_src(k));
-    stage_rows<HD, kTile>(vs, hd, v, kv_src(v));
+    stage_rows<HD, kTile>(ks, hd, k, kv_src(k, hd));
+    stage_rows<HD, kTile>(vs, hd_v, v, kv_src(v, hd_v));
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -1045,8 +1174,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 int mma_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const void* q_pos, const void* k_pos, void* dq, void* dk,
-               void* dv, int b, int sq, int sk, int h, int hkv, int hd, float scale, int causal,
-               int window, cudaStream_t stream) {
+               void* dv, int b, int sq, int sk, int h, int hkv, int hd, int hd_v, float scale,
+               int causal, int window, cudaStream_t stream) {
   static int smem_dkdv = 0, smem_dq = 0;
   constexpr size_t smem = bwd_smem_bytes<HD>();
   cudaError_t err = allow_smem(attn_bwd_dkdv_kernel<HD>, smem, &smem_dkdv);
@@ -1058,7 +1187,7 @@ int mma_launch(const void* q, const void* k, const void* v, const void* dout, co
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(q_pos),
       static_cast<const int*>(k_pos), static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, h,
-      hkv, hd, scale, scale_log2, causal, window);
+      hkv, hd, hd_v, scale, scale_log2, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(sq) * (h / hkv);
@@ -1067,7 +1196,7 @@ int mma_launch(const void* q, const void* k, const void* v, const void* dout, co
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(q_pos),
-      static_cast<const int*>(k_pos), static_cast<bf16*>(dq), sq, sk, h, hkv, hd, scale,
+      static_cast<const int*>(k_pos), static_cast<bf16*>(dq), sq, sk, h, hkv, hd, hd_v, scale,
       scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1103,14 +1232,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (batch, seq, heads, hd) bf16 tensor as a 4-D TMA map {hd, heads, seq, batch}
-// with boxes of 64 columns x 1 head x 64 rows, 128-byte swizzle, zeros out of bounds.
-int encode_rows(CUtensorMap* map, const void* base, int hd, int heads, int seq, int batch) {
+// A (batch, seq, heads, width) bf16 tensor as a 4-D TMA map {width, heads, seq,
+// batch} with boxes of 64 columns x 1 head x 64 rows, 128-byte swizzle, zeros
+// out of bounds (past the width too).
+int encode_rows(CUtensorMap* map, const void* base, int width, int heads, int seq, int batch) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return kErrNoEntryPoint;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row = 2ull * hd;
+  const cuuint64_t row = 2ull * width;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
   const cuuint32_t box[4] = {64, 1, kRowTile, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -1138,11 +1268,11 @@ struct Scratch {
 
 int prep_launch(const void* o, const void* dout, const void* lse, const void* q_pos,
                 const void* k_pos, float* delta, unsigned char* scratch, int b, int sq, int sk,
-                int h, int hd, cudaStream_t stream) {
+                int h, int hd_v, cudaStream_t stream) {
   const int nqt = (sq + kRowTile - 1) / kRowTile;
   const long long row_blocks = static_cast<long long>(b) * h * nqt;
   int lanes = 1;
-  while (lanes < hd / 8) lanes <<= 1;
+  while (lanes < hd_v / 8) lanes <<= 1;
   float* stats = nullptr;
   int4* tinfo = nullptr;
   int2* kinfo = nullptr;
@@ -1160,29 +1290,31 @@ int prep_launch(const void* o, const void* dout, const void* lse, const void* q_
   attn_bwd_prep_kernel<<<static_cast<unsigned>(blocks), kPrepThreads, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const int*>(q_pos),
-      static_cast<const int*>(k_pos), delta, stats, tinfo, kinfo, kpos, sq, sk, h, hd, nqt,
+      static_cast<const int*>(k_pos), delta, stats, tinfo, kinfo, kpos, sq, sk, h, hd_v, nqt,
       row_blocks, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, int HDV>
 int wgmma_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const void* lse, const void* q_pos, const void* k_pos, void* dq, void* dk,
-                 void* dv, void* scratch, int b, int sq, int sk, int h, int hkv, int hd,
+                 void* dv, void* scratch, int b, int sq, int sk, int h, int hkv, int hd, int hd_v,
                  float scale, int causal, int window, cudaStream_t stream) {
+  using Dkdv = DkdvSmem<HD, HDV>;
+  using Dq = DqSmem<HD, HDV>;
   static int smem_dkdv = 0, smem_dq = 0;
-  cudaError_t err = allow_smem(attn_bwd_dkdv_wgmma_kernel<HD>, DkdvSmem<HD>::bytes, &smem_dkdv);
+  cudaError_t err = allow_smem(attn_bwd_dkdv_wgmma_kernel<HD, HDV>, Dkdv::bytes, &smem_dkdv);
   if (err == cudaSuccess)
-    err = allow_smem(attn_bwd_dq_wgmma_kernel<HD>, DqSmem<HD>::bytes, &smem_dq);
+    err = allow_smem(attn_bwd_dq_wgmma_kernel<HD, HDV>, Dq::bytes, &smem_dq);
   if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap mq, mk, mv, mdo;
+  CUtensorMap mq, mk, mv, mdo;  // each at its tensor's own width
   int e = encode_rows(&mq, q, hd, h, sq, b);
-  if (!e) e = encode_rows(&mdo, dout, hd, h, sq, b);
+  if (!e) e = encode_rows(&mdo, dout, hd_v, h, sq, b);
   if (!e) e = encode_rows(&mk, k, hd, hkv, sk, b);
-  if (!e) e = encode_rows(&mv, v, hd, hkv, sk, b);
+  if (!e) e = encode_rows(&mv, v, hd_v, hkv, sk, b);
   if (e) return e;
   unsigned char* s = static_cast<unsigned char*>(scratch);
-  e = prep_launch(o, dout, lse, q_pos, k_pos, nullptr, s, b, sq, sk, h, hd, stream);
+  e = prep_launch(o, dout, lse, q_pos, k_pos, nullptr, s, b, sq, sk, h, hd_v, stream);
   if (e) return e;
   const Scratch sc(b, sq, sk, h);
   const float* stats = reinterpret_cast<const float*>(s + sc.stats);
@@ -1194,73 +1326,93 @@ int wgmma_launch(const void* q, const void* k, const void* v, const void* o, con
       static_cast<long long>((sk + kDkdvKeys - 1) / kDkdvKeys) * hkv * b;
   const long long dq_blocks = static_cast<long long>((sq + kDqRows - 1) / kDqRows) * h * b;
   if (dkdv_blocks > INT_MAX || dq_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_dkdv_wgmma_kernel<HD><<<static_cast<unsigned>(dkdv_blocks), kWgmmaThreads,
-                                   DkdvSmem<HD>::bytes, stream>>>(
+  attn_bwd_dkdv_wgmma_kernel<HD, HDV><<<static_cast<unsigned>(dkdv_blocks), kWgmmaThreads,
+                                        Dkdv::bytes, stream>>>(
       mq, mk, mv, mdo, stats, tinfo, kinfo, static_cast<const int*>(k_pos),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), b, sq, sk, h, hkv, hd, scale, scale_log2,
-      causal, window);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), b, sq, sk, h, hkv, hd, hd_v, scale,
+      scale_log2, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_wgmma_kernel<HD><<<static_cast<unsigned>(dq_blocks), kWgmmaThreads,
-                                 DqSmem<HD>::bytes, stream>>>(
+  attn_bwd_dq_wgmma_kernel<HD, HDV><<<static_cast<unsigned>(dq_blocks), kWgmmaThreads,
+                                      Dq::bytes, stream>>>(
       mq, mk, mv, mdo, stats, tinfo, kinfo, kpos, static_cast<const int*>(q_pos),
       static_cast<bf16*>(dq), b, sq, sk, h, hkv, scale, scale_log2, causal, window, hd);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The "wgmma" instance that takes (hd, hd_v): its HD, 64, 128 or 192 (HDV 64, 128, 128)
+int wgmma_instance(int hd, int hd_v) {
+  return hd <= 64 ? 64 : hd <= 128 && hd_v <= 128 ? 128 : 192;
+}
+
 }  // namespace
 
-// 0: the "wgmma" design takes head dim hd; 1: the "mma" design
-extern "C" int flash_attention_bwd_design(int hd) { return hd <= kWgmmaMaxHeadDim ? 0 : 1; }
+// 0: the "wgmma" design takes head dims (hd, hd_v); 1: the "mma" design
+extern "C" int flash_attention_bwd_design(int hd, int hd_v) {
+  return hd <= kWgmmaMaxHeadDim && hd_v <= kWgmmaMaxHeadDimV ? 0 : 1;
+}
 
 // Bytes of the scratch buffer flash_attention_bwd_launch needs (256-byte aligned)
-extern "C" long long flash_attention_bwd_scratch_bytes(int b, int sq, int sk, int h, int hd) {
-  if (flash_attention_bwd_design(hd) == 0) return Scratch(b, sq, sk, h).bytes;
+extern "C" long long flash_attention_bwd_scratch_bytes(int b, int sq, int sk, int h, int hd,
+                                                       int hd_v) {
+  if (flash_attention_bwd_design(hd, hd_v) == 0) return Scratch(b, sq, sk, h).bytes;
   return 4LL * b * h * sq;  // D (b, h, sq)
 }
 
-// The design's shape at head dim hd: {design, keys per dK/dV block, queries
-// per tile it walks, its stages, rows per dQ block, keys per tile it walks,
-// its stages, threads per block}
-extern "C" void flash_attention_bwd_config(int hd, int* out) {
-  if (flash_attention_bwd_design(hd) == 0) {
-    const int cfg[8] = {0, kDkdvKeys, kRowTile, kDkdvStages, kDqRows, kKeyTile, kDqStages,
-                        kWgmmaThreads};
-    for (int i = 0; i < 8; ++i) out[i] = cfg[i];
+// The design's shape at head dims (hd, hd_v): {design, keys per dK/dV block,
+// queries per tile it walks, its stages, rows per dQ block, keys per tile it
+// walks, its stages, threads per block, the instance's HD and HDV}
+extern "C" void flash_attention_bwd_config(int hd, int hd_v, int* out) {
+  if (flash_attention_bwd_design(hd, hd_v) == 0) {
+    const int inst = wgmma_instance(hd, hd_v);
+    const int stages = inst == 64    ? dq_stages<64, 64>()
+                       : inst == 128 ? dq_stages<128, 128>()
+                                     : dq_stages<192, 128>();
+    const int cfg[10] = {0,       kDkdvKeys, kRowTile,      kDkdvStages, kDqRows, kKeyTile,
+                         stages, kWgmmaThreads, inst, inst == 64 ? 64 : 128};
+    for (int i = 0; i < 10; ++i) out[i] = cfg[i];
   } else {
-    const int cfg[8] = {1, kTile, kTile, 1, kTile, kTile, 1, kTcThreads};
-    for (int i = 0; i < 8; ++i) out[i] = cfg[i];
+    const int cfg[10] = {1, kTile, kTile, 1, kTile, kTile, 1, kTcThreads, kMaxHeadDim, kMaxHeadDim};
+    for (int i = 0; i < 10; ++i) out[i] = cfg[i];
   }
 }
 
-// q, o, dout, dq: (b, sq, h, hd); k, v, dk, dv: (b, sk, hkv, hd); bf16,
-// contiguous, 16-byte aligned, on the current device; lse (b, h, sq) f32;
-// scratch: flash_attention_bwd_scratch_bytes(...) bytes, 256-byte aligned,
-// written here; q_pos (sq,) and k_pos (sk,) int32.  Launches the design's
-// three kernels on `stream`; returns 0, a cudaError_t of the launches, or
-// an error of the tensor maps (flash_attention_bwd_error_string).
+// q, dq: (b, sq, h, hd); o, dout: (b, sq, h, hd_v); k, dk: (b, sk, hkv, hd);
+// v, dv: (b, sk, hkv, hd_v); bf16, contiguous, 16-byte aligned, on the
+// current device; lse (b, h, sq) f32; scratch:
+// flash_attention_bwd_scratch_bytes(...) bytes, 256-byte aligned, written
+// here; q_pos (sq,) and k_pos (sk,) int32.  Launches the design's three
+// kernels on `stream`; returns 0, a cudaError_t of the launches, or an error
+// of the tensor maps (flash_attention_bwd_error_string).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           const void* q_pos, const void* k_pos, void* dq,
                                           void* dk, void* dv, void* scratch, int b, int sq,
-                                          int sk, int h, int hkv, int hd, float scale, int causal,
-                                          int window, void* stream) {
+                                          int sk, int h, int hkv, int hd, int hd_v, float scale,
+                                          int causal, int window, void* stream) {
   if (b < 1 || b > 65535 || sq < 1 || sk < 1 || hkv < 1 || hkv > 65535 || h < hkv || h % hkv ||
-      hd < 16 || hd > kMaxHeadDim || hd % 16 ||
+      hd > kMaxHeadDim || hd % 16 || hd_v < 16 || hd_v > hd || hd_v % 16 ||
       static_cast<long long>(sq) * (h / hkv) > (1LL << 31) - kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 64)
-    return wgmma_launch<64>(q, k, v, o, dout, lse, q_pos, k_pos, dq, dk, dv, scratch, b, sq, sk,
-                            h, hkv, hd, scale, causal, window, s);
-  if (hd <= kWgmmaMaxHeadDim)
-    return wgmma_launch<128>(q, k, v, o, dout, lse, q_pos, k_pos, dq, dk, dv, scratch, b, sq, sk,
-                             h, hkv, hd, scale, causal, window, s);
+  if (flash_attention_bwd_design(hd, hd_v) == 0) {
+    switch (wgmma_instance(hd, hd_v)) {
+      case 64:
+        return wgmma_launch<64, 64>(q, k, v, o, dout, lse, q_pos, k_pos, dq, dk, dv, scratch, b,
+                                    sq, sk, h, hkv, hd, hd_v, scale, causal, window, s);
+      case 128:
+        return wgmma_launch<128, 128>(q, k, v, o, dout, lse, q_pos, k_pos, dq, dk, dv, scratch, b,
+                                      sq, sk, h, hkv, hd, hd_v, scale, causal, window, s);
+      default:
+        return wgmma_launch<192, 128>(q, k, v, o, dout, lse, q_pos, k_pos, dq, dk, dv, scratch, b,
+                                      sq, sk, h, hkv, hd, hd_v, scale, causal, window, s);
+    }
+  }
   float* delta = static_cast<float*>(scratch);
-  const int err = prep_launch(o, dout, lse, q_pos, k_pos, delta, nullptr, b, sq, sk, h, hd, s);
+  const int err = prep_launch(o, dout, lse, q_pos, k_pos, delta, nullptr, b, sq, sk, h, hd_v, s);
   if (err) return err;
   return mma_launch<256>(q, k, v, dout, lse, delta, q_pos, k_pos, dq, dk, dv, b, sq, sk, h, hkv,
-                         hd, scale, causal, window, s);
+                         hd, hd_v, scale, causal, window, s);
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int err) {

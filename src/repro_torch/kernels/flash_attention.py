@@ -1,8 +1,11 @@
 """Fused attention with explicit positions: the Hopper kernel and its plain version.
 
-    o (B, Sq, H, hd) = softmax(scale * q k^T + mask) v,   k, v: (B, Sk, Hkv, hd)
+    o (B, Sq, H, hd_v) = softmax(scale * q k^T + mask) v,
+    q: (B, Sq, H, hd),  k: (B, Sk, Hkv, hd),  v: (B, Sk, Hkv, hd_v),  hd_v <= hd
 
-Query head ``h`` reads kv head ``h // (H // Hkv)`` (GQA).  Query ``i`` sees key
+V's head dim may be narrower than q's and k's (MLA: 192 and 128), as in the
+JAX package's ``layers.flash_attention``; every kernel takes it at its own
+width.  Query head ``h`` reads kv head ``h // (H // Hkv)`` (GQA).  Query ``i`` sees key
 ``j`` when ``(not causal or qpos[i] >= kpos[j])`` and, for ``window > 0``,
 ``qpos[i] - kpos[j] < window``; a hidden score is -1e30, as in the JAX
 package.  Positions default to ``arange``: then ``causal=True`` is the
@@ -70,9 +73,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype must be one of {DTYPES}, got {q.dtype}")
     b, _, h, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"flash_attention: shapes differ: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} (hd_v != hd is not supported)")
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if v.shape[3] > hd:
+        raise ValueError(f"flash_attention: hd_v {v.shape[3]} exceeds the q/k head dim {hd}")
     hkv = k.shape[2]
     if h % hkv:
         raise ValueError(f"flash_attention: {h} query heads are not a multiple of {hkv} kv heads")
@@ -90,19 +95,23 @@ MAX_TILES_PER_SPLIT = 4  # ... and at most this many tiles per block: one per wa
                          # states the split kernel works out up front (it refuses more)
 
 
-def tensor_cores_take(dtype: torch.dtype, hd: int, aligned: bool = True) -> bool:
+def tensor_cores_take(dtype: torch.dtype, hd: int, aligned: bool = True,
+                      hd_v: int | None = None) -> bool:
     """Whether the tensor-core kernels ("tile", "split") take such inputs:
-    bf16, head_dim a multiple of 16, 16-byte aligned tensors."""
-    return dtype == torch.bfloat16 and hd % 16 == 0 and hd <= MAX_HEAD_DIM and aligned
+    bf16, both head dims (``hd_v`` defaults to ``hd``) multiples of 16,
+    16-byte aligned tensors."""
+    hd_v = hd if hd_v is None else hd_v
+    return (dtype == torch.bfloat16 and hd % 16 == 0 == hd_v % 16 and hd <= MAX_HEAD_DIM
+            and aligned)
 
 
 def choose_variant(dtype: torch.dtype, sq: int, h: int, hkv: int, hd: int,
-                   aligned: bool = True) -> str:
+                   aligned: bool = True, hd_v: int | None = None) -> str:
     """Which kernel takes the call: ``"tile"`` (tensor cores, many queries),
     ``"split"`` (tensor cores, split over keys: fewer than ``TILE_ROWS``
     (query, head) rows per kv head, as in decode) or ``"general"`` (the
     CUDA-core kernel, for what the tensor-core kernels do not take)."""
-    if not tensor_cores_take(dtype, hd, aligned):
+    if not tensor_cores_take(dtype, hd, aligned, hd_v):
         return "general"
     return "split" if sq * (h // hkv) < TILE_ROWS else "tile"
 
@@ -129,7 +138,7 @@ def _sm_count(index: int) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    shape = [i, i, i, i, i, i, ctypes.c_float, i, i]  # b sq sk h hkv hd scale causal window
+    shape = [i] * 7 + [ctypes.c_float, i, i]  # b sq sk h hkv hd hd_v scale causal window
     lib.flash_attention_launch.argtypes = [p] * 7 + shape + [i, p]  # q k v qpos kpos o lse
     lib.flash_attention_tile_launch.argtypes = [p] * 7 + shape + [p]
     lib.flash_attention_split_launch.argtypes = [p] * 10 + shape + [i, i, p]  # ... acc lse
@@ -141,24 +150,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _variant(q: torch.Tensor, k: torch.Tensor, aligned: bool = True) -> str:
+def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, aligned: bool = True) -> str:
     """The kernel a call without a named variant takes (each writes lse when asked)."""
     b, sq, h, hd = q.shape
-    return choose_variant(q.dtype, sq, h, k.shape[2], hd, aligned)
+    return choose_variant(q.dtype, sq, h, k.shape[2], hd, aligned, v.shape[3])
 
 
-def _allocate(variant: str, q: torch.Tensor, k: torch.Tensor, q_positions, k_positions,
-              with_lse: bool, sms: int):
+def _allocate(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions,
+              k_positions, with_lse: bool, sms: int):
     """What a launch allocates, on the card and (for the dry-run) on the meta
-    device alike: the positions (int32), the output, the row log-sum-exp
+    device alike: the positions (int32), the output (B, Sq, H, hd_v), the row log-sum-exp
     (training) and, for a "split" call over more than one split, the (m, l)
     and accumulator partials of every split that the combine kernel merges.
     Returns (qpos, kpos, out, lse or None, (splits, tiles per split, ml, acc))."""
-    b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    b, sq, h, _ = q.shape
+    sk, hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     qp = _positions(q_positions, sq, q.device)
     kp = _positions(k_positions, sk, q.device)
-    out = torch.empty_like(q)
+    # empty_like where v is as wide as q (the aten op the dry-run's records count)
+    out = torch.empty_like(q) if hd_v == q.shape[3] else q.new_empty((b, sq, h, hd_v))
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     splits = per = 0
     ml = acc = None
@@ -167,7 +177,7 @@ def _allocate(variant: str, q: torch.Tensor, k: torch.Tensor, q_positions, k_pos
         splits, per = split_plan(sk, b, hkv, rows, sms)
         if splits > 1:  # (m, l, acc) of every split, merged by the combine kernel
             ml = torch.empty((2, b, hkv, splits, rows), dtype=torch.float32, device=q.device)
-            acc = torch.empty((b, hkv, splits, rows, hd), dtype=torch.float32, device=q.device)
+            acc = torch.empty((b, hkv, splits, rows, hd_v), dtype=torch.float32, device=q.device)
     return qp, kp, out, lse, (splits, per, ml, acc)
 
 
@@ -193,11 +203,12 @@ def _live_keys(qmin, qmax, sk: int, causal: bool, window: int, tile: int = KV_TI
 
 
 def flops(variant: str, b: int, sq: int, sk: int, h: int, hkv: int, hd: int, causal: bool,
-          window: int) -> float:
-    """The operations a forward launch performs: 4 * hd (Q K^T and P V) for
-    every (query, head) row and every key of each K/V tile the row's block
-    walks, with the queries at the last Sq of Sk positions and the keys at
-    0 .. Sk - 1 (training, prefill, and decode at the cache's last slot).
+          window: int, hd_v: int | None = None) -> float:
+    """The operations a forward launch performs: 2 * (hd + hd_v) (Q K^T at
+    hd, P V at hd_v, which defaults to hd) for every (query, head) row and
+    every key of each K/V tile the row's block walks, with the queries at
+    the last Sq of Sk positions and the keys at 0 .. Sk - 1 (training,
+    prefill, and decode at the cache's last slot).
     "tile" and "split" skip a tile that every pair of the block hides, as
     ``csrc/flash_attention.cu``'s ``next_live`` does; "general" walks every
     tile.  Masked pairs inside a walked tile count; rows a partial block
@@ -213,7 +224,8 @@ def flops(variant: str, b: int, sq: int, sk: int, h: int, hkv: int, hd: int, cau
         keys = np.full_like(r0, sk)
     else:
         keys = _live_keys(qmin, qmax, sk, causal, window)
-    return 4.0 * hd * b * hkv * float((n * keys).sum())
+    hd_v = hd if hd_v is None else hd_v
+    return 2.0 * (hd + hd_v) * b * hkv * float((n * keys).sum())
 
 
 def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -227,15 +239,17 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "meta":
         raise ValueError(f"flash_attention_meta takes meta tensors; got tensors on {q.device}")
     b, sq, h, hd = q.shape
-    variant = _variant(q, k)
-    _, _, out, lse, _ = _allocate(variant, q, k, q_positions, k_positions, with_lse, H100_SMS)
-    return out, lse, flops(variant, b, sq, k.shape[1], h, k.shape[2], hd, causal, window)
+    variant = _variant(q, k, v)
+    _, _, out, lse, _ = _allocate(variant, q, k, v, q_positions, k_positions, with_lse, H100_SMS)
+    return out, lse, flops(variant, b, sq, k.shape[1], h, k.shape[2], hd, causal, window,
+                           v.shape[3])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_positions=None, k_positions=None, causal: bool = True,
                     window: int = 0, scale: float | None = None) -> torch.Tensor:
-    """Attention on the card: contiguous bf16 or f32 CUDA tensors, any Sq and Sk.
+    """Attention on the card: contiguous bf16 or f32 CUDA tensors, any Sq and
+    Sk, v at its own head dim hd_v <= hd.
 
     Launches the kernel that :func:`choose_variant` names on the current
     stream without synchronising; raises on any input the kernels do not
@@ -274,21 +288,22 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
     b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     aligned = (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0
     if variant is None:
-        variant = _variant(q, k, aligned)
-    elif variant != "general" and not tensor_cores_take(q.dtype, hd, aligned):
+        variant = _variant(q, k, v, aligned)
+    elif variant != "general" and not tensor_cores_take(q.dtype, hd, aligned, hd_v):
         raise ValueError(f"flash_attention: the {variant!r} kernel takes 16-byte aligned bf16 "
-                         f"with head_dim a multiple of 16; got {q.dtype}, head_dim {hd}")
+                         f"with head dims multiples of 16; got {q.dtype}, head_dim {hd}, "
+                         f"hd_v {hd_v}")
     qp, kp, out, lse, (splits, per, ml, acc) = _allocate(
-        variant, q, k, q_positions, k_positions, with_lse, _sm_count(q.device.index or 0))
+        variant, q, k, v, q_positions, k_positions, with_lse, _sm_count(q.device.index or 0))
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
     lib = _lib()
     args = (*ptrs, qp.data_ptr(), kp.data_ptr(), out.data_ptr())
     lse_ptr = None if lse is None else lse.data_ptr()  # null: no lse (serving)
-    shape = (b, sq, sk, h, hkv, hd, scale, int(causal), int(window))
+    shape = (b, sq, sk, h, hkv, hd, hd_v, scale, int(causal), int(window))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if variant == "tile":
@@ -341,10 +356,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             q_positions=None, k_positions=None, causal: bool = True,
                             window: int = 0, scale: float | None = None):
-    """Plain PyTorch version of :func:`flash_attention_lse`: (o, lse)."""
+    """Plain PyTorch version of :func:`flash_attention_lse`: (o (B, Sq, H, hd_v), lse)."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     qp = _positions(q_positions, sq, q.device)
     kp = _positions(k_positions, sk, q.device)
@@ -355,4 +370,4 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     lse = torch.logsumexp(s, dim=-1).reshape(b, h, sq)  # -1e30 (rounded) where no key is seen
-    return o.reshape(b, sq, h, hd).to(q.dtype), lse
+    return o.reshape(b, sq, h, hd_v).to(q.dtype), lse

@@ -95,8 +95,9 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose gradient is the backward kernel: the forward saves
-    (q, k, v, o, lse); the backward computes (dq, dk, dv) from them and dO,
-    on the card by the kernels, on the CPU by the plain versions."""
+    (q, k, v, o, lse), v and o at v's own head dim; the backward computes
+    (dq, dk, dv) from them and dO, on the card by the kernels, on the CPU by
+    the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_positions, k_positions, causal, window, scale):

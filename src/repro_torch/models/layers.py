@@ -124,12 +124,12 @@ def flash_attention(q, k, v, *, mask: MaskSpec, q_positions=None, k_positions=No
     H % Hkv == 0 and hd_v <= hd -> (B, Sq, H, hd_v).
 
     Positions default to ``arange``; the scale to 1/sqrt(hd).  The kernels
-    take one head dim for q, k and v, and the tensor-core ones (and the
-    backward kernel) bf16 head dims that are multiples of ``HEAD_DIM_GRANULE``:
-    V is zero-padded to hd (MLA: hd 192, hd_v 128) and, in bf16, all three to
-    the next multiple of the granule (MLA-smoke's hd 24), then the output is
-    sliced back.  Zero columns change no score and give output columns of
-    P 0 = 0; under autograd the padding's gradient is dropped.
+    take V at its own head dim (MLA: hd 192, hd_v 128); the tensor-core ones
+    (and the backward kernel) take bf16 head dims that are multiples of
+    ``HEAD_DIM_GRANULE``, so in bf16 each head dim is zero-padded to the next
+    multiple of the granule (MLA-smoke's q/k 24 -> 32; its hd_v 16 stays 16)
+    and the output sliced back.  Zero columns change no score and give output
+    columns of P 0 = 0; under autograd the padding's gradient is dropped.
     Differentiable: under autograd the gradient is the backward kernel on the
     card (``kernels/ops.py::FlashAttention``), where the JAX package lets XLA
     differentiate its chunked attention.
@@ -137,14 +137,15 @@ def flash_attention(q, k, v, *, mask: MaskSpec, q_positions=None, k_positions=No
     hd, hd_v = q.shape[-1], v.shape[-1]
     if hd_v > hd:
         raise ValueError(f"flash_attention: hd_v {hd_v} exceeds the q/k head dim {hd}")
-    width = hd
+    width, width_v = hd, hd_v
     if q.dtype == torch.bfloat16:
         width = -(-hd // HEAD_DIM_GRANULE) * HEAD_DIM_GRANULE
+        width_v = -(-hd_v // HEAD_DIM_GRANULE) * HEAD_DIM_GRANULE
     if width != hd:
         q, k = F.pad(q, (0, width - hd)), F.pad(k, (0, width - hd))
         scale = 1.0 / math.sqrt(hd) if scale is None else scale
-    if width != hd_v:
-        v = F.pad(v, (0, width - hd_v))
+    if width_v != hd_v:
+        v = F.pad(v, (0, width_v - hd_v))
     o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             q_positions=q_positions, k_positions=k_positions,
                             causal=mask.causal, window=mask.window, scale=scale)

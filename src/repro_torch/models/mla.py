@@ -5,7 +5,7 @@ The KV cache holds only the low-rank latent ``c_kv`` (kv_lora_rank) and one
 shared RoPE key per position.  The expanded path builds per-head keys of
 ``qk_nope_head_dim + qk_rope_head_dim`` (192 at deepseek-v2-lite's widths)
 and values of ``v_head_dim`` (128) and runs ``layers.flash_attention``,
-which zero-pads V to the keys' head dim for the kernels.  Decode folds
+whose kernels take V at its own head dim.  Decode folds
 ``W_uk`` into the query and ``W_uv`` into the output, so its scores run over
 the latent cache directly; that is plain products and a softmax, as the JAX
 package's is plain JAX outside any Pallas kernel (its K would be

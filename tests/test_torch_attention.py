@@ -217,8 +217,8 @@ def test_wrapper_checks_and_never_runs_the_plain_version():
         fa.flash_attention_ref(q, kv, kv)
     with pytest.raises(TypeError):
         fa.flash_attention_ref(q.half(), kv.half()[:, :, :2], kv.half()[:, :, :2])
-    with pytest.raises(ValueError, match="hd_v"):
-        fa.flash_attention_ref(q, q, torch.zeros((1, 4, 4, 4)))
+    with pytest.raises(ValueError, match="hd_v"):  # v narrower than q/k is taken; wider is not
+        fa.flash_attention_ref(q, q, torch.zeros((1, 4, 4, 16)))
     with pytest.raises(ValueError, match="positions"):
         fa.flash_attention_ref(q, q, q, q_positions=torch.arange(3))
     launches = fa.flash_attention.launches

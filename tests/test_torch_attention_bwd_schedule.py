@@ -40,7 +40,7 @@ ROW_TILE = 64  # kRowTile: queries per tile of the statistics and of the dK/dV w
 KEY_TILE = 64  # kKeyTile: keys per consumer warpgroup of dK/dV and per dQ stage
 DKDV_KEYS = 128  # kDkdvKeys
 DQ_ROWS = 128  # kDqRows
-DKDV_STAGES, DQ_STAGES = 3, 4  # kDkdvStages, kDqStages
+DKDV_STAGES, DQ_STAGES = 3, 4  # kDkdvStages, kDqStages (fewer where 4 do not fit)
 WG_THREADS, THREADS = 128, 384  # kWgThreads, kWgmmaThreads
 PRODUCER_REGS, CONSUMER_REGS = 24, 240  # kProducerRegs, kConsumerRegs
 STAT_WORDS = 3 * ROW_TILE  # kStatWords: a query tile's lse in base 2, D and positions
@@ -230,33 +230,49 @@ def test_constants_match_the_source():
     assert {n: _constant(n) for n in (
         "kRowTile", "kKeyTile", "kDkdvKeys", "kDqRows", "kDkdvStages", "kDqStages",
         "kWgThreads", "kWgmmaThreads", "kProducerRegs", "kConsumerRegs", "kStatWords",
-        "kWgmmaMaxHeadDim")} == {
+        "kWgmmaMaxHeadDim", "kWgmmaMaxHeadDimV", "kMaxSmemBytes")} == {
         "kRowTile": ROW_TILE, "kKeyTile": KEY_TILE, "kDkdvKeys": DKDV_KEYS, "kDqRows": DQ_ROWS,
         "kDkdvStages": DKDV_STAGES, "kDqStages": DQ_STAGES, "kWgThreads": WG_THREADS,
         "kWgmmaThreads": THREADS, "kProducerRegs": PRODUCER_REGS,
         "kConsumerRegs": CONSUMER_REGS, "kStatWords": STAT_WORDS,
-        "kWgmmaMaxHeadDim": fab.WGMMA_MAX_HEAD_DIM}
+        "kWgmmaMaxHeadDim": fab.WGMMA_MAX_HEAD_DIM,
+        "kWgmmaMaxHeadDimV": fab.WGMMA_MAX_HEAD_DIM_V, "kMaxSmemBytes": SMEM_PER_BLOCK}
     # two consumer warpgroups of 64 rows each, the M of a wgmma
     assert DKDV_KEYS == 2 * KEY_TILE and DQ_ROWS == 2 * ROW_TILE and THREADS == 3 * WG_THREADS
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-def test_shared_memory_and_registers_fit_one_block_per_sm(hd):
-    """The layouts of DkdvSmem and DqSmem (tiles, stages, statistics or key
-    positions, mbarriers, stage info, 1 KB of alignment slack) and the
-    registers that setmaxnreg moves between the warpgroups."""
-    tile = lambda rows: rows * hd * 2  # noqa: E731
-    dkdv = (2 * tile(DKDV_KEYS) + DKDV_STAGES * (2 * tile(ROW_TILE) + STAT_WORDS * 4)
+@pytest.mark.parametrize("hd,hd_v,dq_stages", [(64, 64, 4), (128, 128, 4), (192, 128, 3)])
+def test_shared_memory_and_registers_fit_one_block_per_sm(hd, hd_v, dq_stages):
+    """The layouts of DkdvSmem and DqSmem of each "wgmma" instance (HD, HDV)
+    (tiles of Q and K at HD, of V and dO at HDV, stages, statistics or key
+    positions, mbarriers, stage info, 1 KB of alignment slack; the dQ ring
+    at ``DQ_STAGES`` where that fits and one stage fewer at a time where not,
+    as dq_stages<HD, HDV> rules) and the registers that setmaxnreg moves
+    between the warpgroups."""
+    def tile(rows, width):
+        return rows * width * 2
+
+    dkdv = (tile(DKDV_KEYS, hd) + tile(DKDV_KEYS, hd_v)
+            + DKDV_STAGES * (tile(ROW_TILE, hd) + tile(ROW_TILE, hd_v) + STAT_WORDS * 4)
             + 8 * (2 * DKDV_STAGES + 1) + 32 * DKDV_STAGES + 1024)
-    dq = (2 * tile(DQ_ROWS) + DQ_STAGES * (2 * tile(KEY_TILE) + KEY_TILE * 4)
-          + 8 * (2 * DQ_STAGES + 1) + 32 * DQ_STAGES + 1024)
-    assert dkdv <= SMEM_PER_BLOCK and dq <= SMEM_PER_BLOCK
+
+    def dq(stages):
+        return (tile(DQ_ROWS, hd) + tile(DQ_ROWS, hd_v)
+                + stages * (tile(KEY_TILE, hd) + tile(KEY_TILE, hd_v) + KEY_TILE * 4)
+                + 8 * (2 * stages + 1) + 32 * stages + 1024)
+
+    assert dkdv <= SMEM_PER_BLOCK and dq(dq_stages) <= SMEM_PER_BLOCK
+    assert dq_stages == DQ_STAGES or dq(dq_stages + 1) > SMEM_PER_BLOCK
+    # the accumulators, S^T and dP^T of a dK/dV consumer: over 192 registers (kSerialPairs)
+    # the pair's schedule holds P in bf16 and dP^T by halves instead
+    serial = hd // 2 + hd_v // 2 + 64 > CONSUMER_REGS - 48
+    assert serial == (hd + hd_v > 256)
     at_launch = REGS_PER_SM // THREADS // 8 * 8  # what __launch_bounds__(384, 1) allows
     assert PRODUCER_REGS % 8 == 0 == CONSUMER_REGS % 8 and 24 <= PRODUCER_REGS < CONSUMER_REGS <= 256
     assert WG_THREADS * PRODUCER_REGS + 2 * WG_THREADS * CONSUMER_REGS <= THREADS * at_launch
 
 
-@pytest.mark.parametrize("dtype,hd,takes,design", [
+@pytest.mark.parametrize("dtype,hd,takes,design", [  # hd_v = hd
     (torch.bfloat16, 16, True, "wgmma"), (torch.bfloat16, 64, True, "wgmma"),
     (torch.bfloat16, 80, True, "wgmma"), (torch.bfloat16, 128, True, "wgmma"),
     (torch.bfloat16, 144, True, "mma"), (torch.bfloat16, 256, True, "mma"),

@@ -649,9 +649,10 @@ def test_attention_backward_is_deterministic(cuda):
 
 
 @pytest.mark.parametrize("hd,design", [(16, "wgmma"), (64, "wgmma"), (96, "wgmma"),
-                                       (128, "wgmma"), (256, "mma")])
+                                       (128, "wgmma"), (192, "mma"), (256, "mma")])
 def test_attention_backward_design_by_head_dim(cuda, hd, design):
-    """The launcher's rule: hd <= 128 the wgmma kernels, above them the mma ones."""
+    """The launcher's rule at hd_v = hd: the wgmma kernels up to 128 (hd_v's
+    limit), the mma ones above."""
     q, k, v, do, kw = _bwd_inputs((1, 70, 70, 4, 2, hd, True, 0, 0), cuda)
     o, lse = fa.flash_attention_lse(q, k, v, **kw)
     before = dict(fab.flash_attention_bwd.design_launches)
@@ -660,6 +661,80 @@ def test_attention_backward_design_by_head_dim(cuda, hd, design):
     after = fab.flash_attention_bwd.design_launches
     assert {d: after[d] - before[d] for d in after} == {d: int(d == design) for d in after}
     assert fab.design(hd) == design == fab.kernel_config(hd)["design"]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,hd,hd_v,q_offset,variant", [
+    (1, 1024, 1024, 16, 16, 192, 128, 0, "tile"), (1, 256, 512, 8, 2, 192, 128, -128, "tile"),
+    (2, 200, 200, 4, 4, 32, 16, 0, "tile"), (1, 300, 300, 8, 2, 128, 64, 0, "tile"),
+    (1, 20, 300, 16, 16, 192, 128, 280, "split"), (1, 4, 512, 4, 4, 192, 128, -2, "split"),
+    (2, 10, 100, 4, 4, 32, 16, 90, "split"), (1, 3, 500, 8, 2, 128, 64, 497, "split"),
+])
+def test_forward_at_hd_v_below_hd_matches_plain_version(cuda, b, sq, sk, h, hkv, hd, hd_v,
+                                                        q_offset, variant):
+    """Every forward kernel with V at hd_v < hd, causal: "tile" on its (192,
+    128), (64, 64) and (128, 128) instances, "split" with one and several
+    splits (and rows that see no key), and "general" in f32; O at hd_v
+    within one rounding step (bf16; 1e-4 in f32) of the plain version, lse
+    within 1e-3, the launch without lse equal to the one with it."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + hd_v + sq)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda)
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda)
+    v = torch.randn((b, sk, hkv, hd_v), generator=gen, device=cuda)
+    kw = dict(q_positions=torch.arange(q_offset, q_offset + sq, device=cuda))
+    for dtype, want in ((torch.bfloat16, variant), (torch.float32, "general")):
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        before = dict(fa.flash_attention.variant_launches)
+        out, lse = fa.flash_attention_lse(qd, kd, vd, **kw)
+        again = fa.flash_attention(qd, kd, vd, **kw)
+        ran = {n: c - before[n] for n, c in fa.flash_attention.variant_launches.items()}
+        ref, lse_ref = fa.flash_attention_lse_ref(qd, kd, vd, **kw)
+        torch.cuda.synchronize()
+        assert ran == {n: 2 * int(n == want) for n in ran}
+        assert out.shape == (b, sq, h, hd_v) and torch.equal(out, again)
+        tol = 1e-4 if dtype == torch.float32 else 2**-7
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-5)
+
+
+# (b, sq, sk, h, hkv, hd, hd_v, causal, window, q_offset): the "wgmma" (192, 128) instance
+# MLA takes under a window with g = 4, at Sq != Sk with ragged tiles, with rows that see no
+# key, at g = 5 and at a runtime hd of 160; (48, 32) on (64, 64); "mma" at (256, 128)
+HDV_BWD_CASES = [
+    (2, 300, 300, 8, 2, 192, 128, True, 64, 0), (2, 100, 333, 8, 2, 192, 128, True, 0, 233),
+    (1, 16, 24, 4, 2, 192, 128, True, 0, -5), (1, 257, 257, 5, 1, 192, 128, True, 0, 0),
+    (1, 200, 200, 4, 2, 160, 128, False, 0, 0), (2, 150, 150, 4, 2, 48, 32, True, 0, 0),
+    (1, 130, 200, 4, 2, 256, 128, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", HDV_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_backward_at_hd_v_below_hd_matches_plain_version(cuda, case):
+    """V, O and dO at hd_v < hd: the gradients within 2^-6 of the plain
+    version's, two calls equal bit for bit, each counted as its design."""
+    b, sq, sk, h, hkv, hd, hd_v, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(map(abs, case)))
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, hkv, hd_v), generator=gen, device=cuda).bfloat16()
+    do = torch.randn((b, sq, h, hd_v), generator=gen, device=cuda).bfloat16()
+    kw = dict(q_positions=torch.arange(q_offset, q_offset + sq, device=cuda), causal=causal,
+              window=window)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    assert o.shape == (b, sq, h, hd_v)
+    before = dict(fab.flash_attention_bwd.design_launches)
+    first = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    second = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    design = fab.design(hd, hd_v)
+    assert design == ("mma" if hd > 192 else "wgmma") == fab.kernel_config(hd, hd_v)["design"]
+    assert {d: c - before[d] for d, c in fab.flash_attention_bwd.design_launches.items()} == {
+        d: 2 * int(d == design) for d in before}
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+    want = fab.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), first, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_REL * float(w.float().abs().max()), (name, err)
 
 
 def test_autograd_through_ops_launches_the_backward_kernel(cuda):
@@ -888,13 +963,16 @@ def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch):
 
 
 # -- MLA (deepseek-v2-lite) and the encoder-decoder (whisper-tiny) -------------------------
-@pytest.mark.parametrize("b,s,h,hd,hd_v", [(1, 1024, 16, 192, 128), (2, 200, 4, 24, 16)])
+@pytest.mark.parametrize("b,s,h,hd,hd_v", [(1, 1024, 16, 192, 128), (2, 200, 4, 24, 16),
+                                            (2, 200, 4, 32, 16)])
 def test_padded_v_attention_on_the_card_matches_the_plain_version(cuda, b, s, h, hd, hd_v):
-    """``layers.flash_attention`` at MLA's hd 192 / hd_v 128 (and MLA-smoke's
-    24 / 16, padded to 32), causal, MHA, bf16: forward ("tile") within one
-    rounding step of the plain version on the same inputs, and the gradients
-    through ``ops.FlashAttention`` (the backward kernel: "mma" above hd 128,
-    "wgmma" at 32) within 2^-6 of the CPU's f32 autograd of the plain version."""
+    """``layers.flash_attention`` at MLA's hd 192 / hd_v 128 and at (32, 16)
+    (MLA-smoke's 24 / 16 reaches the kernels as 32 / 16), causal, MHA, bf16,
+    V at its own width (nothing pads it any more; the name is the test's
+    first subject's): forward ("tile") within one rounding step of the plain
+    version on the same inputs, and the gradients through
+    ``ops.FlashAttention`` (the "wgmma" backward at (192, 128) and (32, 16))
+    within 2^-6 of the CPU's f32 autograd of the plain version."""
     from repro_torch.models import layers
 
     gen = torch.Generator(device=cuda).manual_seed(hd)
@@ -911,9 +989,9 @@ def test_padded_v_attention_on_the_card_matches_the_plain_version(cuda, b, s, h,
     torch.cuda.synchronize()
     assert out.shape == (b, s, h, hd_v)
     assert fa.flash_attention.variant_launches["tile"] == tile + 1
-    design = fab.design(-(-hd // 16) * 16)
+    assert fab.design(-(-hd // 16) * 16, hd_v) == "wgmma"
     assert {d: c - designs[d] for d, c in fab.flash_attention_bwd.design_launches.items()} == {
-        d: int(d == design) for d in designs}
+        d: int(d == "wgmma") for d in designs}
     ref = [t.detach().cpu().float().requires_grad_(True) for t in (q, k, v)]
     want = layers.flash_attention(*ref, mask=mask, scale=scale)
     want.backward(do.cpu().float())
@@ -1017,13 +1095,14 @@ def test_mla_and_encdec_train_step_on_the_card_matches_the_cpu(cuda, arch):
     assert float((g_card - g_cpu).norm()) <= 3 * noise + 0.01 * float(g_f32.norm())
 
 
-@pytest.mark.parametrize("b,sq,sk,h,hd", [(4, 4096, 4096, 24, 128), (2, 300, 700, 8, 64),
-                                          (1, 129, 260, 16, 192), (3, 64, 64, 5, 16)])
-def test_bwd_scratch_mirror_equals_the_launcher(cuda, b, sq, sk, h, hd):
+@pytest.mark.parametrize("b,sq,sk,h,hd,hd_v", [(4, 4096, 4096, 24, 128, 128),
+                                               (2, 300, 700, 8, 64, 64), (1, 129, 260, 16, 192, 128),
+                                               (1, 129, 260, 16, 192, 192), (3, 64, 64, 5, 16, 16)])
+def test_bwd_scratch_mirror_equals_the_launcher(cuda, b, sq, sk, h, hd, hd_v):
     """The dry-run's meta path sizes the backward's scratch by a Python mirror
     of the launcher's ``flash_attention_bwd_scratch_bytes``: equal."""
-    assert fab.scratch_bytes(b, sq, sk, h, hd) == \
-        fab._lib().flash_attention_bwd_scratch_bytes(b, sq, sk, h, hd)
+    assert fab.scratch_bytes(b, sq, sk, h, hd, hd_v) == \
+        fab._lib().flash_attention_bwd_scratch_bytes(b, sq, sk, h, hd, hd_v)
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])

@@ -7,8 +7,9 @@ architecture); an ``ok`` cell names 256 or 512 devices, fits one H100's
 memory (``launch/dryrun.py::H100_BUDGET_BYTES``) and carries the
 collectives its trace through ``MeshCtx`` made (bytes and calls of each
 kind, every kind the JAX package names, an all-reduce in every cell); and
-two cells traced again here give their committed records exactly, so the
-matrix cannot go stale.
+three cells traced again here give their committed records exactly, so the
+matrix cannot go stale (deepseek-v2-lite's train_4k holds MLA's attention at
+hd 192 / hd_v 128, forward and backward).
 """
 import json
 import pathlib
@@ -20,7 +21,8 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.launch import dryrun
 
 RESULTS = pathlib.Path(__file__).resolve().parent.parent / "results" / "dryrun_h100"
-RERUN = [("whisper-tiny", "train_4k", "single"), ("hymba-1.5b", "long_500k", "multi")]
+RERUN = [("whisper-tiny", "train_4k", "single"), ("hymba-1.5b", "long_500k", "multi"),
+         ("deepseek-v2-lite-16b", "train_4k", "single")]
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,7 @@
 (deepseek-v2-lite) held against the JAX package, on the CPU at smoke widths.
 
 Attention with a value head dim below the q/k head dim (``layers.
-flash_attention``, V zero-padded for the kernels) and its gradient through
+flash_attention``, V at its own width) and its gradient through
 ``ops.FlashAttention``'s plain path; ``apply_mla_full`` (the expanded path
 and its latent cache) and ``apply_mla_decode`` (the absorbed decode);
 parameter and cache trees with the leading dense layer (``dense0``); the
@@ -224,7 +224,7 @@ def test_flash_attention_hd_v_matches_reference(causal, sq, sk):
         out = TL.flash_attention(tq, tk, tv, mask=TL.MaskSpec(causal=causal), scale=float(scale))
         grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
     assert out.shape == (2, sq, 4, 16)
-    assert calls == [(2, sq, 4, 24)]  # one backward, at the padded head dim
+    assert calls == [(2, sq, 4, 24)]  # one backward, q at its head dim (v at its own, 16)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=ATTN_ATOL)
     for g, w in zip(grads, want_grads):
         assert tuple(g.shape) == w.shape
