@@ -659,15 +659,45 @@ def attention_bound_ms(q, k, vis) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def _launched_design(fn):
+    """(fn's result, the variant and the "tile" design, or None, that its one launch took)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    variants = dict(fa.flash_attention.variant_launches)
+    designs = dict(fa.flash_attention.design_launches)
+    out = fn()
+    ran = [n for n, c in fa.flash_attention.variant_launches.items() if c > variants[n]]
+    design = [n for n, c in fa.flash_attention.design_launches.items() if c > designs[n]]
+    assert len(ran) == 1 and len(design) == (ran == ["tile"]), (ran, design)
+    return out, ran[0], design[0] if design else None
+
+
+def check_flash_attention_ptxas() -> dict[str, dict]:
+    """The forward kernels' registers and spill bytes from ptxas; fails if a
+    "wgmma" kernel spills (or none is reported)."""
+    from repro_torch.kernels import _build
+
+    lines = _build.ptxas_report("flash_attention")
+    regs, spills = ptxas_registers(lines), ptxas_spills(lines)
+    if not any("wgmma" in k for k in spills) or any(n for k, n in spills.items() if "wgmma" in k):
+        raise SystemExit(f"flash_attention: a wgmma kernel spills (or no ptxas report): {spills}")
+    return {name: {"registers": regs.get(name), "spill_bytes": spills.get(name)} for name in regs}
+
+
 def check_flash_attention(cases, gen) -> list[dict]:
     """cases: (name, b, sq, sk, h, hkv, hd, causal, window, q_positions, k_positions).
 
-    Each case: the kernel the wrapper's rule picks against the plain version
-    within ``ATTN_TOL``; then timed in turns with the earlier CUDA-core
-    kernel (the "general" kernel, ``previous``) and with ``scaled_dot_product_attention``
-    (``library``): CUDA events around a loop of calls give the host-inclusive
-    time per call (``*host_ms``); a ``torch.profiler`` trace of the same calls
-    gives the device time per call (``ms``, ``previous_ms``, ``library_ms``)."""
+    Each case: the kernel the wrapper's rule picks (its variant, and for
+    "tile" its design, which must be the one ``tile_design`` names) against
+    the plain version within ``ATTN_TOL``, a second call equal bit for bit
+    and, for "tile", the row log-sum-exp within ``LSE_ATOL`` of the plain
+    version's with the output unchanged by asking for it; then timed in
+    turns with the kernel it replaced (``previous``: the "mma" design for a
+    row that "wgmma" takes, else the earlier CUDA-core "general" kernel) and
+    with ``scaled_dot_product_attention`` (``library``): CUDA events around
+    a loop of calls give the host-inclusive time per call (``*host_ms``); a
+    ``torch.profiler`` trace of the same calls gives the device time per
+    call (``ms``, ``previous_ms``, ``library_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -679,10 +709,16 @@ def check_flash_attention(cases, gen) -> list[dict]:
         k = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
         v = torch.randn((b, sk, hkv, hd), generator=gen, device="cuda").bfloat16()
         kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
-        before = dict(fa.flash_attention.variant_launches)
-        out = fa.flash_attention(q, k, v, **kw)
-        variant = next(n for n, c in fa.flash_attention.variant_launches.items() if c > before[n])
-        ref = fa.flash_attention_ref(q, k, v, **kw)
+        out, variant, design = _launched_design(lambda: fa.flash_attention(q, k, v, **kw))
+        same = torch.equal(out, fa.flash_attention(q, k, v, **kw))
+        ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+        lse_err, same_o = None, True
+        if variant == "tile":  # the training forward: the same O and its lse
+            o_lse, lse = fa.flash_attention_lse(q, k, v, **kw)
+            same_o = torch.equal(o_lse, out)
+            lse_err = float((lse - lse_ref).abs().max())
+            del o_lse, lse
+        del lse_ref
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
         atol, rtol = ATTN_TOL["bfloat16"]
@@ -701,7 +737,11 @@ def check_flash_attention(cases, gen) -> list[dict]:
         def kern():
             return fa.flash_attention(q, k, v, **kw)
 
+        previous = "mma" if design == "wgmma" else "general"
+
         def prev():
+            if previous == "mma":
+                return fa.flash_attention_variant("tile", q, k, v, design="mma", **kw)
             return fa.flash_attention_variant("general", q, k, v, **kw)
 
         iters = 20 if sq * sk < 10**6 else 5
@@ -717,16 +757,21 @@ def check_flash_attention(cases, gen) -> list[dict]:
             traces += tries
         bound, by = attention_bound_ms(q, k, vis)
         row = {"case": name, "shape": [b, sq, sk, h, hkv, hd], "causal": causal,
-               "window": window, "dtype": "bfloat16", "variant": variant, "violations": bad,
-               "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
-               "ms": dev["kernel"], "host_ms": min(host["kernel"]),
+               "window": window, "dtype": "bfloat16", "variant": variant, "design": design,
+               "violations": bad, "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err,
+               "deterministic": same, "forward_with_lse_equal": same_o,
+               "library_max_abs_err": lib_err, "ms": dev["kernel"],
+               "host_ms": min(host["kernel"]), "previous": previous,
                "previous_ms": dev["previous"], "previous_host_ms": min(host["previous"]),
                "library_ms": dev["library"], "library_host_ms": host["library"][0],
                "plain_ms": min(plain_a, plain_b), "bound_ms": bound, "bound_by": by,
                "faster_than_previous": dev["kernel"] < dev["previous"], "traces": traces}
         print(json.dumps({"flash_attention_check": row}), flush=True)
-        if bad:
-            raise SystemExit(f"flash_attention disagrees with its plain version in case {name}")
+        if bad or not same or not same_o or (lse_err is not None and lse_err > LSE_ATOL):
+            raise SystemExit(f"flash_attention disagrees with its plain version in case {name} "
+                             f"(or is not deterministic, or its lse is off)")
+        if variant == "tile" and design != fa.tile_design(q.dtype, hd, hd, sq):
+            raise SystemExit(f"flash_attention ran the {design!r} design in case {name}")
         rows.append(row)
         del q, k, v, out, ref
     # f32 inputs too, at one shape of each kind: the "general" kernel
@@ -758,12 +803,14 @@ def check_flash_attention(cases, gen) -> list[dict]:
 def check_mla_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int, gen) -> dict:
     """MLA's attention at q/k head dim ``hd`` and v head dim ``hd_v``, causal,
     MHA, bf16, through ``models/layers.py::flash_attention`` (V at its own
-    width, the "tile" kernel's (192, 128) instance, nothing padded): against
-    the plain version on the same inputs (``flash_attention_ref`` at hd_v)
-    within ``ATTN_TOL``.  Device ms of the layer's call (``ms``) and of the
-    kernel's wrapper alone (``kernel_ms``), beside SDPA at Ev = hd_v
-    (``library_ms``), the plain version and the bound (2 (hd + hd_v)
-    operations per visible pair and head; q, k, v and o moved once)."""
+    width, the "tile" kernel's "wgmma" (192, 128) instance, nothing padded):
+    against the plain version on the same inputs (``flash_attention_lse_ref``
+    at hd_v) within ``ATTN_TOL``, its lse within ``LSE_ATOL``, a second call
+    equal bit for bit.  Device ms of the layer's call (``ms``), of the
+    kernel's wrapper alone (``kernel_ms``) and of the "mma" design
+    (``previous_ms``), in turns, beside SDPA at Ev = hd_v (``library_ms``),
+    the plain version and the bound (2 (hd + hd_v) operations per visible
+    pair and head; q, k, v and o moved once)."""
     import torch
     import torch.nn.functional as F
 
@@ -774,10 +821,13 @@ def check_mla_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int, g
     k = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
     v = torch.randn((b, s, h, hd_v), generator=gen, device="cuda").bfloat16()
     mask, scale = layers.MaskSpec(causal=True), hd ** -0.5
-    before = dict(fa.flash_attention.variant_launches)
-    out = layers.flash_attention(q, k, v, mask=mask, scale=scale)
-    ran = [n for n, c in fa.flash_attention.variant_launches.items() if c > before[n]]
-    ref = fa.flash_attention_ref(q, k, v, scale=scale)
+    out, variant, design = _launched_design(
+        lambda: layers.flash_attention(q, k, v, mask=mask, scale=scale))
+    same = torch.equal(out, layers.flash_attention(q, k, v, mask=mask, scale=scale))
+    ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, scale=scale)
+    o_lse, lse = fa.flash_attention_lse(q, k, v, scale=scale)
+    same_o, lse_err = torch.equal(o_lse, out), float((lse - lse_ref).abs().max())
+    del o_lse, lse, lse_ref
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
     atol, rtol = ATTN_TOL["bfloat16"]
@@ -790,31 +840,41 @@ def check_mla_attention(name: str, b: int, s: int, h: int, hd: int, hd_v: int, g
     def kern():
         return fa.flash_attention(q, k, v, scale=scale)
 
+    def prev():  # the "mma" design at the same instance
+        return fa.flash_attention_variant("tile", q, k, v, scale=scale, design="mma")
+
     def lib():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
 
     lib_err = float((lib().transpose(1, 2).float() - ref.float()).abs().max())
-    host = {"call": [_time_ms(call, 5)], "library": [_time_ms(lib, 5)]}
+    host = {"call": [_time_ms(call, 5)], "previous": [_time_ms(prev, 5)],
+            "library": [_time_ms(lib, 5)]}
     host["library"].append(_time_ms(lib, 5))
+    host["previous"].append(_time_ms(prev, 5))
     host["call"].append(_time_ms(call, 5))
     dev = {what: _device_ms(fn, 5)[0] for what, fn in (("call", call), ("kernel", kern),
-                                                         ("library", lib))}
+                                                         ("previous", prev), ("library", lib))}
     pairs = s * (s + 1) // 2
     ops_ms = 2.0 * (hd + hd_v) * pairs * b * h / H100_BF16_FLOPS * 1e3
     nbytes = (2 * q.numel() + 2 * v.numel()) * q.element_size() + 8 * s  # q k v o, positions
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     bound, by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     row = {"case": name, "shape": [b, s, s, h, h, hd], "hd_v": hd_v, "causal": True, "window": 0,
-           "dtype": "bfloat16", "variant": ran[0] if len(ran) == 1 else ran, "violations": bad,
-           "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
+           "dtype": "bfloat16", "variant": variant, "design": design, "violations": bad,
+           "max_abs_err": float(err.max()), "lse_max_abs_err": lse_err, "deterministic": same,
+           "forward_with_lse_equal": same_o, "library_max_abs_err": lib_err,
            "ms": dev["call"], "kernel_ms": dev["kernel"], "host_ms": min(host["call"]),
-           "previous_ms": None, "library_ms": dev["library"],
+           "previous": "mma", "previous_ms": dev["previous"],
+           "previous_host_ms": min(host["previous"]), "library_ms": dev["library"],
            "library_host_ms": min(host["library"]),
            "plain_ms": _time_ms(lambda: fa.flash_attention_ref(q, k, v, scale=scale), 2),
-           "bound_ms": bound, "bound_by": by}
+           "bound_ms": bound, "bound_by": by,
+           "faster_than_previous": dev["kernel"] < dev["previous"]}
     print(json.dumps({"flash_attention_check": row}), flush=True)
-    if bad or ran != ["tile"] or out.shape[-1] != hd_v:
-        raise SystemExit(f"flash_attention at hd {hd} / hd_v {hd_v}: {bad} violations, ran {ran}")
+    if (bad or variant != "tile" or design != "wgmma" or out.shape[-1] != hd_v or not same
+            or not same_o or lse_err > LSE_ATOL):
+        raise SystemExit(f"flash_attention at hd {hd} / hd_v {hd_v}: {bad} violations, ran "
+                         f"{variant} {design}, deterministic {same}, lse error {lse_err}")
     del q, k, v, out, ref
     torch.cuda.synchronize()
     return row
@@ -866,9 +926,10 @@ def backward_cases() -> list[tuple]:
 
 
 def _ptxas_kernel(line: str) -> str | None:
-    """The backward kernel a ptxas "Compiling entry" line names, with its
-    template arguments (``attn_bwd_dkdv_wgmma_kernel<192,128>``)."""
-    m = re.search(r"(attn_bwd_\w+?_kernel)(?:I((?:Li\d+E)+)E)?", line)
+    """The attention kernel a ptxas "Compiling entry" line names, with its
+    template arguments (``attn_bwd_dkdv_wgmma_kernel<192,128>``,
+    ``attn_fwd_wgmma_kernel<128,128>``)."""
+    m = re.search(r"(attn_\w+?_kernel)(?:I((?:Li\d+E)+)E)?", line)
     if not m:
         return None
     args = re.findall(r"Li(\d+)E", m.group(2) or "")
@@ -1766,6 +1827,7 @@ def train_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
     import torch
 
     from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.train import loss_fell, train
     from repro_torch.models.model import build
 
@@ -1788,15 +1850,18 @@ def train_phase(seed: int, zero_counts, read_counts, variant_launches) -> dict:
                 device="cuda", seed=seed)
     torch.cuda.synchronize()
     counts = read_counts("train")
+    tile_designs = dict(fa.flash_attention.design_launches)
     steps_run = len(run.losses)
     backward = TRAIN_LAYERS * TRAIN_MICROBATCHES * steps_run
     if not all(np.isfinite(run.losses)):
         raise SystemExit(f"non-finite training loss: {run.losses}")
     if (counts["gf_matmul"] == 0 or counts["flash_attention_bwd"] != backward
             or counts["flash_attention"] != 2 * backward  # each forward again in its backward
-            or variant_launches["train"]["tile"] != counts["flash_attention"]):
+            or variant_launches["train"]["tile"] != counts["flash_attention"]
+            or tile_designs != {"wgmma": counts["flash_attention"], "mma": 0}):
         raise SystemExit(f"the training path's launches are off: {counts}, "
-                         f"attention {variant_launches['train']}, {backward} backward expected")
+                         f"attention {variant_launches['train']} (tile {tile_designs}), "
+                         f"{backward} backward expected, every forward on wgmma")
     if run.restored_step != TRAIN_CKPT_EVERY or not run.restored_equal:
         raise SystemExit(f"restored step {run.restored_step}: equal {run.restored_equal}")
     if not run.repairs or run.repair_failures or not all(r.verified for r in run.repairs):
@@ -1986,6 +2051,7 @@ def families_phase(seed: int, zero_counts, read_counts, variant_launches) -> dic
     step_fn = make_train_step(cfg)
     fwd0, bwd0 = fa.flash_attention.variant_launches["tile"], fab.flash_attention_bwd.launches
     wgmma0 = fab.flash_attention_bwd.design_launches["wgmma"]
+    fwd_wgmma0 = fa.flash_attention.design_launches["wgmma"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_s, losses = [], []
@@ -1997,16 +2063,19 @@ def families_phase(seed: int, zero_counts, read_counts, variant_launches) -> dic
     backward = fab.flash_attention_bwd.launches - bwd0
     forward = fa.flash_attention.variant_launches["tile"] - fwd0
     wgmma = fab.flash_attention_bwd.design_launches["wgmma"] - wgmma0
+    fwd_wgmma = fa.flash_attention.design_launches["wgmma"] - fwd_wgmma0
     row["train"] = {"batch": 1, "seq": FAMILY_TRAIN_SEQ, "losses": losses, "step_s": step_s,
                     "tokens/s": FAMILY_TRAIN_SEQ / step_s[-1],
                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
                     "attention_forward_launches": forward, "attention_backward_launches": backward,
-                    "backward_wgmma_launches": wgmma}
+                    "forward_wgmma_launches": fwd_wgmma, "backward_wgmma_launches": wgmma}
     print(json.dumps({"families_train": row["train"]}), flush=True)
     want = FAMILY_TRAIN_STEPS * cfg.num_layers
-    if not all(np.isfinite(losses)) or backward != want or wgmma != want or forward != 2 * want:
-        raise SystemExit(f"hymba training: losses {losses}, forward {forward}, backward "
-                         f"{backward} (wgmma {wgmma}); {want} backward expected")
+    if (not all(np.isfinite(losses)) or backward != want or wgmma != want
+            or forward != 2 * want or fwd_wgmma != forward):
+        raise SystemExit(f"hymba training: losses {losses}, forward {forward} (wgmma "
+                         f"{fwd_wgmma}), backward {backward} (wgmma {wgmma}); {want} backward "
+                         "expected, every launch on wgmma")
     trained = state["params"]
     del state, params, metrics
 
@@ -2014,14 +2083,19 @@ def families_phase(seed: int, zero_counts, read_counts, variant_launches) -> dic
     qparams = init_params(build(qcfg).param_specs(), gen_card, device="cuda")
     qtoks = torch.randint(0, qcfg.vocab, (1, FAMILY_MOE_SEQ), generator=gen_card, device="cuda")
     routes: list = []
+    designs0 = dict(fa.flash_attention.design_launches)
     with recorded_routes(routes):
         t = time.perf_counter()
         qlogits, qcache = make_prefill_step(qcfg)(qparams, {"tokens": qtoks})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t
+    prefill_designs = {d: c - designs0[d] for d, c in fa.flash_attention.design_launches.items()}
     row["moe"] = {"prefill_s": prefill_s, "cache_shape": list(qcache["k"].shape),
-                  "layers": expert_load(qcfg, routes)}
+                  "layers": expert_load(qcfg, routes), "attention_tile_designs": prefill_designs}
     print(json.dumps({"families_moe": row["moe"]}), flush=True)
+    if prefill_designs != {"wgmma": FAMILY_MOE_LAYERS, "mma": 0}:
+        raise SystemExit(f"qwen3-moe's prefill launched {prefill_designs}, not "
+                         f"{FAMILY_MOE_LAYERS} wgmma")
     del qcache, routes
 
     # 4. launch/train.py's flow on phi-3-vision-smoke: stub embeddings from the blob corpus
@@ -2095,8 +2169,9 @@ def families_phase(seed: int, zero_counts, read_counts, variant_launches) -> dic
 def train_steps(cfg, state, batch, design: str, attentions: int) -> tuple[dict, dict]:
     """Two ``make_train_step`` steps on ``batch`` (its peak memory from a
     reset): ``attentions`` attention calls a forward pass, each a "tile"
-    launch, run again in its backward under per-layer recomputation, and one
-    backward launch of ``design`` each.  Returns (row, the new state)."""
+    launch of the "wgmma" design, run again in its backward under per-layer
+    recomputation, and one backward launch of ``design`` each.  Returns
+    (row, the new state)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2106,6 +2181,7 @@ def train_steps(cfg, state, batch, design: str, attentions: int) -> tuple[dict, 
     step_fn = make_train_step(cfg)
     fwd0, bwd0 = fa.flash_attention.variant_launches["tile"], fab.flash_attention_bwd.launches
     design0 = fab.flash_attention_bwd.design_launches[design]
+    fwd_wgmma0 = fa.flash_attention.design_launches["wgmma"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_s, losses = [], []
@@ -2117,16 +2193,19 @@ def train_steps(cfg, state, batch, design: str, attentions: int) -> tuple[dict, 
     forward = fa.flash_attention.variant_launches["tile"] - fwd0
     backward = fab.flash_attention_bwd.launches - bwd0
     ran = fab.flash_attention_bwd.design_launches[design] - design0
+    fwd_wgmma = fa.flash_attention.design_launches["wgmma"] - fwd_wgmma0
     b, s = batch["labels"].shape
     row = {"arch": cfg.name, "batch": b, "seq": s, "losses": losses, "step_s": step_s,
            "tokens/s": b * s / step_s[-1], "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "attention_forward_launches": forward, "attention_backward_launches": backward,
-           f"backward_{design}_launches": ran}
+           "forward_wgmma_launches": fwd_wgmma, f"backward_{design}_launches": ran}
     print(json.dumps({"mla_encdec_train": row}), flush=True)
     want = 2 * attentions
-    if not all(np.isfinite(losses)) or backward != want or ran != want or forward != 2 * want:
-        raise SystemExit(f"{cfg.name} training: losses {losses}, forward {forward}, backward "
-                         f"{backward} ({design} {ran}); {want} backward expected")
+    if (not all(np.isfinite(losses)) or backward != want or ran != want or forward != 2 * want
+            or fwd_wgmma != forward):
+        raise SystemExit(f"{cfg.name} training: losses {losses}, forward {forward} (wgmma "
+                         f"{fwd_wgmma}), backward {backward} ({design} {ran}); {want} backward "
+                         "expected, every forward on wgmma")
     return row, state
 
 
@@ -2187,11 +2266,15 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
     def launched(before: dict) -> dict:
         return {n: c - before[n] for n, c in fa.flash_attention.variant_launches.items()}
 
+    def tile_designs(before: dict) -> dict:
+        return {n: c - before[n] for n, c in fa.flash_attention.design_launches.items()}
+
     # 1. whisper-tiny served from Shelby at its full size
     batch, prompt, gen = 4, 8, 16
     frames = np.random.default_rng(seed).standard_normal(
         (batch, wcfg.enc_seq, wcfg.d_model)).astype(np.float32)
     before = dict(fa.flash_attention.variant_launches)
+    before_designs = dict(fa.flash_attention.design_launches)
     run = serve(wcfg, batch=batch, prompt_len=prompt, gen=gen, kill_sp=True, device="cuda",
                 seed=seed, frames=frames)
     torch.cuda.synchronize()
@@ -2208,6 +2291,7 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
         if not np.array_equal(warm, run.outputs):
             raise SystemExit("whisper: a warm generation differs from the served tokens")
     serve_launches = launched(before)
+    serve_designs = tile_designs(before_designs)
     gens, steps = 1 + ENCDEC_WARM, prompt + gen - 1
     # per generation: the encoder's layers once ("tile"), then per step and decoder layer
     # self- and cross-attention ("split" at Sq = 1)
@@ -2219,10 +2303,12 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
         "restore_s": run.restore_s, "restore_GB/s": run.record.total_bytes / run.restore_s / 1e9,
         "restored_equal": True, "first_generation_s": run.decode_s, "warm_generation_s": warm_s,
         "decode_tok/s": run.decoded_tokens / sorted(warm_s)[ENCDEC_WARM // 2],
-        "attention_launches": serve_launches}
+        "attention_launches": serve_launches, "attention_tile_designs": serve_designs}
     print(json.dumps({"mla_encdec_serve": row["serve"]}), flush=True)
-    if serve_launches != want:
-        raise SystemExit(f"whisper serving launched {serve_launches}, not {want}")
+    # the encoder over 1,500 frames: every "tile" launch on "wgmma"
+    if serve_launches != want or serve_designs != {"wgmma": want["tile"], "mma": 0}:
+        raise SystemExit(f"whisper serving launched {serve_launches} (tile {serve_designs}), "
+                         f"not {want}, every tile on wgmma")
     del engine
 
     # 2. whisper's training steps at ENCDEC_TRAIN_BATCH x ENCDEC_TRAIN_SEQ over zero frames
@@ -2240,19 +2326,23 @@ def mla_encdec_phase(seed: int, zero_counts, read_counts, variant_launches) -> d
     dtoks = torch.randint(0, dcfg.vocab, (1, MLA_SEQ + 1), generator=gen_card, device="cuda")
     routes: list = []
     before = dict(fa.flash_attention.variant_launches)
+    before_designs = dict(fa.flash_attention.design_launches)
     with recorded_routes(routes):
         t = time.perf_counter()
         _, dcache = make_prefill_step(dcfg)(dparams, {"tokens": dtoks[:, :MLA_SEQ]})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t
     prefill_launches = launched(before)
+    prefill_designs = tile_designs(before_designs)
     row["mla_prefill"] = {"seq": MLA_SEQ, "prefill_s": prefill_s,
                           "cache_shapes": {k: list(v.shape) for k, v in dcache.items()},
                           "attention_launches": prefill_launches,
+                          "attention_tile_designs": prefill_designs,
                           "layers": expert_load(dcfg, routes)}
     print(json.dumps({"mla_encdec_mla_prefill": row["mla_prefill"]}), flush=True)
-    if prefill_launches != {"tile": MLA_LAYERS, "split": 0, "general": 0}:
-        raise SystemExit(f"deepseek prefill launched {prefill_launches}")
+    if (prefill_launches != {"tile": MLA_LAYERS, "split": 0, "general": 0}
+            or prefill_designs != {"wgmma": MLA_LAYERS, "mma": 0}):
+        raise SystemExit(f"deepseek prefill launched {prefill_launches} (tile {prefill_designs})")
     del dcache, routes
     prompts = np.random.default_rng(seed).integers(0, dcfg.vocab, (batch, prompt)).astype(np.int32)
     engine = ServeEngine(dcfg, dparams, max_len=prompt + gen + 1)
@@ -2932,7 +3022,9 @@ def _zero_counts() -> None:
 
 
 def _read_counts() -> dict:
-    """This process's launch counts since :func:`_zero_counts`."""
+    """This process's launch counts since :func:`_zero_counts`: by kernel,
+    attention's by variant and its "tile" launches by design, the backward's
+    by design."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import gf_matmul as gk
@@ -2943,6 +3035,7 @@ def _read_counts() -> dict:
                          "flash_attention_bwd": fab.flash_attention_bwd.launches,
                          "sample_hash": sh.sample_hash.launches},
             "variants": dict(fa.flash_attention.variant_launches),
+            "tile_designs": dict(fa.flash_attention.design_launches),
             "designs": dict(fab.flash_attention_bwd.design_launches)}
 
 
@@ -2950,7 +3043,7 @@ def _sum_counts(counts) -> dict:
     """The sum of :func:`_read_counts` results, key by key."""
     counts = list(counts)
     return {part: {k: sum(c[part][k] for c in counts) for k in counts[0][part]}
-            for part in ("launches", "variants", "designs")}
+            for part in ("launches", "variants", "tile_designs", "designs")}
 
 
 @contextlib.contextmanager
@@ -3433,14 +3526,18 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
             raise SystemExit(f"mesh rank {r['rank']} ran on {r['device']}")
         granite = r["segments"]["granite"]
         want = {"tile": tiles, "split": splits, "general": 0}
-        if granite["variants"] != want or granite["designs"].get("wgmma") != wgmma:
-            raise SystemExit(f"mesh rank {r['rank']} launched {granite['variants']}, "
-                             f"backward {granite['designs']}; want {want} and {wgmma} wgmma")
+        # every "tile" launch (4,096-token training and prefill, hd 128) on "wgmma"
+        if (granite["variants"] != want or granite["designs"].get("wgmma") != wgmma
+                or granite["tile_designs"] != {"wgmma": tiles, "mma": 0}):
+            raise SystemExit(f"mesh rank {r['rank']} launched {granite['variants']} (tile "
+                             f"{granite['tile_designs']}), backward {granite['designs']}; want "
+                             f"{want}, every tile on wgmma, and {wgmma} wgmma backward")
         hymba = r["segments"][r["hymba"]["arch"]]
         if (hymba["variants"]["split"] != hymba_splits or not hymba["variants"]["tile"]
-                or not hymba["designs"]["wgmma"] or hymba["variants"]["general"]):
+                or not hymba["designs"]["wgmma"] or hymba["variants"]["general"]
+                or hymba["tile_designs"] != {"wgmma": hymba["variants"]["tile"], "mma": 0}):
             raise SystemExit(f"mesh rank {r['rank']}: hymba launched {hymba}; want "
-                             f"{hymba_splits} split")
+                             f"{hymba_splits} split, every tile on wgmma")
         for key in families:
             seg = r["segments"][r[key]["arch"]]
             if r[key]["arch"] != "falcon-mamba-smoke" and not (
@@ -3464,8 +3561,8 @@ def mesh_phase(seed: int, layers: int = MESH_LAYERS) -> dict:
             or ck["reports"][1][1] == 0):
         raise SystemExit(f"mesh: the sharded train state's checkpoint is off: {ck}")
     # the path's counts: each rank's, summed (the parent launches nothing in this phase)
-    read = _sum_counts([{part: r[part] for part in ("launches", "variants", "designs")}
-                        for r in ranks])
+    read = _sum_counts([{part: r[part] for part in ("launches", "variants", "tile_designs",
+                                                    "designs")} for r in ranks])
     gen_s = root["generation_s"][-1]
     tokens = MESH_BATCH * steps
     train_tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
@@ -3844,12 +3941,15 @@ def pod_phase(seed: int, card: str, layers: int = MESH_LAYERS) -> dict:
             raise SystemExit(f"pod rank {r['rank']}: its (pod, data) axis is {r['pod_data_axis']}")
         seg = r["segments"]
         if (any(seg[k]["variants"] != v for k, v in want.items())
+                or any(seg[k]["tile_designs"] != {"wgmma": v["tile"], "mma": 0}
+                       for k, v in want.items())
                 or seg["train"]["designs"].get("wgmma") != MESH_MICROBATCHES * layers):
-            raise SystemExit(f"pod rank {r['rank']} launched {seg}; want {want}")
+            raise SystemExit(f"pod rank {r['rank']} launched {seg}; want {want}, every tile on "
+                             "wgmma")
         if not np.array_equal(r["tokens"], root["tokens"]) or r["loss"] != root["loss"]:
             raise SystemExit(f"pod rank {r['rank']}'s tokens or loss differ from rank 0's")
-    read = _sum_counts([{part: r[part] for part in ("launches", "variants", "designs")}
-                        for r in ranks])
+    read = _sum_counts([{part: r[part] for part in ("launches", "variants", "tile_designs",
+                                                    "designs")} for r in ranks])
     failed, planted = _mesh_failures(root), _mesh_failures(root, "fault_")
     trace = _pod_traced_collectives(layers)
     row = {
@@ -3999,6 +4099,7 @@ def main(argv=None) -> int:
     path_launches: dict[str, dict[str, int]] = {}  # path -> kernel -> launches
 
     variant_launches: dict[str, dict[str, int]] = {}  # path -> attention kernel -> launches
+    tile_designs: dict[str, dict[str, int]] = {}  # path -> "tile" design -> launches
     design_launches: dict[str, dict[str, int]] = {}  # path -> backward design -> launches
 
     zero_counts = _zero_counts
@@ -4006,9 +4107,11 @@ def main(argv=None) -> int:
     def read_counts(path: str) -> dict[str, int]:
         path_launches[path] = {name: fn.launches for name, fn in wrappers.items()}
         variant_launches[path] = dict(fa.flash_attention.variant_launches)
+        tile_designs[path] = dict(fa.flash_attention.design_launches)
         design_launches[path] = dict(fab.flash_attention_bwd.design_launches)
         print(json.dumps({"path": path, "launches": path_launches[path],
                           "flash_attention_variants": variant_launches[path],
+                          "flash_attention_tile_designs": tile_designs[path],
                           "flash_attention_bwd_designs": fab.flash_attention_bwd.design_launches}),
               flush=True)
         return path_launches[path]
@@ -4106,6 +4209,14 @@ def main(argv=None) -> int:
         ("decode_4096_pos1000", 16, 1, 4096, 32, 4, 128, True, 0, ar(1, 1000), ar(4096)),
         # queries -128..127: the first 128 see no key while tiles past 127 are skipped
         ("row_sees_no_key", 1, 256, 512, 32, 4, 128, True, 0, ar(256, -128), ar(512)),
+        # a window over ragged tiles: a "wgmma" warpgroup skips a tile after one it computed
+        # (its ring holds two stages at hd 128)
+        ("window_skips_after_computing", 3, 200, 260, 8, 2, 128, True, 33, ar(200, 60),
+         ar(260)),
+        # a prefill of the serving batch's 8-token prompts at yi-9b's GQA group of 8: 64
+        # (query, head) rows of a kv head but fewer than 64 queries, the "mma" design's
+        ("serve_prompt_prefill", serve_batch, serve_prompt, serve_prompt, 32, 4, 128, True, 0,
+         ar(serve_prompt), ar(serve_prompt)),
         # phase 15's forward: a microbatch of starcoder2-3b (H 24, Hkv 2) at train_4k
         ("train_microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, 24, 2, 128,
          True, 0, ar(TRAIN_SEQ), ar(TRAIN_SEQ)),
@@ -4136,7 +4247,11 @@ def main(argv=None) -> int:
          32 // MESH_MODEL, 8 // MESH_MODEL, 128, True, 0, ar(MESH_PREFILL_SEQ),
          ar(MESH_PREFILL_SEQ)),
     ]
+    print(json.dumps({"flash_attention_kernels_ptxas": check_flash_attention_ptxas()}),
+          flush=True)
     attn_checks = check_flash_attention(attn_cases, gen)
+    if next(r for r in attn_checks if r["case"] == "serve_prompt_prefill")["design"] != "mma":
+        raise SystemExit("the 8-token prompts' prefill did not take the mma design")
     # phase 17's deepseek: MLA at hd 192 / hd_v 128 (V at its own width), H 16 = Hkv, 1 x 4096
     attn_checks.append(check_mla_attention("mla_train", 1, MLA_SEQ, 16, 192, 128, gen))
     # phase 19's decode: a rank's rows (2 of 4) over its 2,048 of 4,096 slots at granite-8b's
@@ -4458,8 +4573,10 @@ def main(argv=None) -> int:
     mesh = mesh_phase(args.seed, layers=args.mesh_layers)
     path_launches["mesh"] = mesh["launches"]
     variant_launches["mesh"], design_launches["mesh"] = mesh["variants"], mesh["designs"]
+    tile_designs["mesh"] = mesh["tile_designs"]
     print(json.dumps({"path": "mesh", "launches": mesh["launches"],
                       "flash_attention_variants": mesh["variants"],
+                      "flash_attention_tile_designs": mesh["tile_designs"],
                       "flash_attention_bwd_designs": mesh["designs"]}), flush=True)
     _phase(f"mesh_pod: {' x '.join(map(str, POD_WORLD))} (pod, data, model) ranks on the card "
            f"over Gloo; {MESH_ARCH} at published widths, {args.mesh_layers} layers: serve, "
@@ -4468,8 +4585,10 @@ def main(argv=None) -> int:
     pod = pod_phase(args.seed, card, layers=args.mesh_layers)
     path_launches["mesh_pod"] = pod["launches"]
     variant_launches["mesh_pod"], design_launches["mesh_pod"] = pod["variants"], pod["designs"]
+    tile_designs["mesh_pod"] = pod["tile_designs"]
     print(json.dumps({"path": "mesh_pod", "launches": pod["launches"],
                       "flash_attention_variants": pod["variants"],
+                      "flash_attention_tile_designs": pod["tile_designs"],
                       "flash_attention_bwd_designs": pod["designs"]}), flush=True)
 
     # -- 20. the port's six examples, on the card and on the CPU ------------------------------
@@ -4503,9 +4622,13 @@ def main(argv=None) -> int:
                 previous_host_ms=row["previous_host_ms"],
                 library_host_ms=row["library_host_ms"], variant=row["variant"],
                 variant_launches_by_path=variant_launches,
-                cases={r["case"]: {key: r[key] for key in (
-                    "variant", "ms", "host_ms", "previous_ms", "library_ms", "bound_ms",
-                    "bound_by")} for r in attn_checks})
+                tile_design_launches_by_path=tile_designs,
+                tile_design_launches={d: sum(c.get(d, 0) for c in tile_designs.values())
+                                      for d in fa.DESIGNS},
+                cases={r["case"]: {key: r.get(key) for key in (
+                    "variant", "design", "ms", "host_ms", "previous", "previous_ms",
+                    "previous_host_ms", "library_ms", "bound_ms", "bound_by")}
+                    for r in attn_checks})
         if name == "flash_attention_bwd":  # device ms above; host ms and the other cases
             line[-1].update(
                 host_ms=row["host_ms"], library_host_ms=row["library_host_ms"],

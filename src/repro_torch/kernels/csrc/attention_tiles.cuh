@@ -2,15 +2,19 @@
 // and flash_attention_bwd.cu (the gradient): XOR-swizzled bf16 tiles in
 // shared memory staged by 16-byte cp.async, ldmatrix (also transposed),
 // mma.sync.m16n8k16 with f32 accumulation, the visibility of a tile of keys
-// from its positions, and the two tile products every kernel is built from;
-// then the Hopper pieces of the backward's wgmma kernels: mbarriers, TMA
-// loads, setmaxnreg, wgmma with its shared-memory descriptors.
+// from its positions, and the two tile products the "mma" kernels are built
+// from; then the Hopper pieces of both files' "wgmma" kernels: mbarriers, TMA
+// loads with the tensor maps' encoder, setmaxnreg, wgmma with its
+// shared-memory descriptors, the bf16 A fragments of a score accumulator.
 // Each .cu builds alone (kernels/_build.py hashes this header with it).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstdio>
 
 namespace {
 
@@ -172,8 +176,33 @@ __device__ __forceinline__ void pv(float (&acc)[HD / 8][4], const float (&p)[NT]
 
 // ---------------------------------------------------------------------------
 // Hopper (sm_90a): mbarriers, TMA, warpgroup register hand-off and wgmma,
-// used by the backward's redesigned kernels (flash_attention_bwd.cu)
+// used by the "wgmma" kernels of the forward (flash_attention.cu) and of
+// the backward (flash_attention_bwd.cu)
 // ---------------------------------------------------------------------------
+
+// 2^x by the MUFU unit (flushes results below 2^-126 to zero)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ bool visible(int qp, int kp, int causal, int window) {
+  return (!causal || qp >= kp) && (window <= 0 || static_cast<long long>(qp) - kp < window);
+}
+
+constexpr int kBoxRows = 64;             // rows of a TMA box
+constexpr uint32_t kHalfRowBytes = 128;  // a row of a 64-column box, bf16
+
+// A TMA'd tile of `rows` rows x W columns: W / 64 blocks of rows x 128
+// bytes ("halves" at W 128), each 1024-byte aligned; row r of block hf at
+// hf * rows * 128 + r * 128.
+template <int W>
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) {
+  return static_cast<uint32_t>(rows) * W * 2;
+}
+
+__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023u) & ~1023u; }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -300,6 +329,17 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(acc));
 }
+// d (64 x 128, f32) = A (64 x 16) . B (128 x 16)^T (+ d if acc): both from shared memory,
+// K-major, by descriptor
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
 // d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 64): B from
 // shared memory by descriptor, MN-major (its 64 columns contiguous: the transpose bit)
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -345,6 +385,95 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
     wgmma_rs_n128_tb(d, a, b);
   else
     wgmma_rs_n192_tb(d, a, b);
+}
+
+// Load rows [row0, row0 + 64 * n) of one head of a (b, s, heads, width)
+// tensor into a tile of `rows` rows x W columns at dst, row offset dst_row0,
+// as 64-row boxes.
+template <int W>
+__device__ __forceinline__ void load_rows(uint32_t dst, int rows, int dst_row0, const void* map,
+                                          uint32_t bar, int head, int row0, int n, int b) {
+#pragma unroll
+  for (int hf = 0; hf < W / 64; ++hf)
+    for (int i = 0; i < n; ++i)
+      tma_load_4d(dst + (hf * rows + dst_row0 + i * kBoxRows) * kHalfRowBytes, map, bar, hf * 64,
+                  head, row0 + i * kBoxRows, b);
+}
+
+// P (or P^T) from a 64 x 16 N score accumulator of wgmma, as N bf16 A
+// fragments of 16 columns each (the accumulator's layout is the A operand's)
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N][4], const float (&x)[8 * N]) {
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor maps (host): encoded on each call from the tensors' pointers and
+// shapes by cuTensorMapEncodeTiled, looked up at run time through the CUDA
+// runtime (no -lcuda), and passed to the kernels as __grid_constant__
+// ---------------------------------------------------------------------------
+
+constexpr int kErrTensorMap = 1 << 20;  // + the CUresult of cuTensorMapEncodeTiled
+constexpr int kErrNoEntryPoint = (1 << 20) - 1;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime: no -lcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (batch, seq, heads, width) bf16 tensor as a 4-D TMA map {width, heads, seq,
+// batch} with boxes of 64 columns x 1 head x 64 rows, 128-byte swizzle, zeros
+// out of bounds (past the width too).
+inline int encode_rows(CUtensorMap* map, const void* base, int width, int heads, int seq,
+                       int batch) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return kErrNoEntryPoint;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = 2ull * width;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
+  const cuuint32_t box[4] = {64, 1, kBoxRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
+}
+
+// The message of a launcher's error: a cudaError_t or a tensor map's
+inline const char* launch_error_string(int err) {
+  static char msg[96];
+  if (err == kErrNoEntryPoint) return "cuTensorMapEncodeTiled is not available";
+  if (err >= kErrTensorMap) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             err - kErrTensorMap);
+    return msg;
+  }
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // namespace

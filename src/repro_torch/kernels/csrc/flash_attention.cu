@@ -16,28 +16,59 @@
 // row that sees no key averages v over all Sk keys there and here alike.
 // Keys past Sk are left out entirely (score -inf): no padding of Sk.
 //
-// Rows are (query, head-in-group) pairs of one kv head, row = qi * g + gi,
-// so the g query heads that share a kv head share every K/V tile staged.
 // The work is 2 * (hd + hd_v) operations per visible (query, key) pair and
-// head; the bytes are Q, O, and K/V of the slots some query sees.  Three kernels, chosen
-// by the wrapper (kernels/flash_attention.py::choose_variant) from dtype and
-// shape, plus the split's combine:
+// head; the bytes are Q, O, and K/V of the slots some query sees.  Three
+// kernels, chosen by the wrapper (kernels/flash_attention.py::choose_variant)
+// from dtype and shape, plus the split's combine; "tile" has two designs,
+// chosen by flash_attention_tile_design from (dtype, hd, hd_v, Sq):
 //
-//  * attn_tile_kernel ("tile": bf16, hd % 16 == 0, Sq * g >= 64 rows).
-//    Bound by operations (989 TFLOP/s bf16 dense).  A block owns 64 rows of
-//    one (batch, kv head), 16 per warp; S = Q K^T and O += P V run on the
-//    tensor cores with mma.sync.m16n8k16 (bf16 in, f32 accumulate), operands
-//    from shared memory by ldmatrix (V transposed), P from the S registers as
-//    the A operand.  The online softmax stays in f32 registers (base 2, scale
-//    folded in).  K/V tiles of 64 keys stay bf16 and go in by 16-byte
-//    cp.async into XOR-swizzled rows (conflict-free ldmatrix), two stages:
-//    the next live tile loads while this one is computed.  Templated on the
-//    (q/k, v) head dims of shared memory, (64, 64), (128, 128), (192, 128)
-//    and (256, 256): Q K^T runs over the first, P V over the second, and
-//    the runtime hd and hd_v are zero-padded to them (cp.async zero-fill).
-//    MLA's (192, 128) does 640 operations per pair, where V padded to 192
-//    on the (256, 256) instance did 1,024.  The heaviest row tiles (latest
-//    queries) are scheduled first.
+//  * "tile" (bf16, hd % 16 == 0, Sq * g >= 64 (query, head) rows of a kv
+//    head).  Bound by operations (989 TFLOP/s bf16 dense).
+//    - attn_fwd_wgmma_kernel, the "wgmma" design (hd <= 192, hd_v <= 128,
+//      Sq >= 64: every training and prefill shape of the repo).  One block
+//      per (128-query tile, head, batch) on a 1-D grid, the latest queries
+//      (most keys) first; 384 threads.  The producer warpgroup drops to 24
+//      registers (setmaxnreg); its first warp loads the block's Q once by TMA
+//      (4-D tensor maps {width, heads, seq, batch}, 64 x 64 boxes, 128-byte
+//      swizzle, zeros past Sq and the width), then walks the key tiles of
+//      kFwdKeys (128): each tile's position range from k_pos (four ints a
+//      lane, a shuffle reduction), the tiles some pair of the block may see
+//      kept, each streamed into a ring of fwd_stages() stages (4 at (64, 64),
+//      2 at (128, 128) and (192, 128), all that fit in 227 KB) whose K and V
+//      halves have full and empty mbarriers of their own: K with the tile's
+//      positions (stored by the warp) and V by TMA at their own widths.  The
+//      two consumer warpgroups (240 registers) own 64 rows each, the M of
+//      wgmma: S = Q K^T by ss-wgmma m64n128 from K-major descriptors, the
+//      online softmax in f32 registers (base 2, the scale folded into one
+//      FFMA, ex2.approx), P rounded to bf16 A fragments in registers and O +=
+//      P V by rs-wgmma m64nHDVk16 with V through the descriptor's transpose
+//      bit.  Tile t's S is issued before tile t-1's P V, so the tensor cores
+//      run P V while tile t's softmax runs; a stage's K half is freed after
+//      the tile's softmax, its V half after the tile's P V, so the next
+//      tile's K loads during this one's softmax even with two stages.  A
+//      warpgroup skips a tile its rows cannot see (first finishing the P V it
+//      holds, so the ring never waits on a stage it holds); a tile all of
+//      whose pairs are visible and inside Sk takes the softmax without
+//      masks.  Instances
+//      (HD, HDV) (64, 64), (128, 128), (192, 128) take any runtime hd <= HD,
+//      hd_v <= HDV (the tensor maps zero-fill past them): hd 160 runs on
+//      (192, 128).  No atomics and no split over keys: the same bits on
+//      every run.  scripts/attn_fwd_ab.py --variant times, in turns, two
+//      alternatives it writes as text patches of this source: keys64 (m64n64
+//      S, 64-key tiles, four stages everywhere) and pingpong (the two
+//      warpgroups take turns on named barriers to issue their products).
+//    - attn_tile_kernel, the "mma" design (hd 256, hd_v above 128, or
+//      Sq < 64: a prefill of short prompts at a large GQA group).  Rows are
+//      (query, head-in-group) pairs of one kv head, row = qi * g + gi, so the
+//      g query heads that share a kv head share every K/V tile staged; a
+//      block owns 64 rows, 16 per warp; S = Q K^T and O += P V run with
+//      mma.sync.m16n8k16 (bf16 in, f32 accumulate), operands from shared
+//      memory by ldmatrix (V transposed), P from the S registers as the A
+//      operand.  K/V tiles of 64 keys go in by 16-byte cp.async into
+//      XOR-swizzled rows (conflict-free ldmatrix), two stages.  Templated on
+//      (64, 64), (128, 128), (192, 128) and (256, 256), the runtime widths
+//      zero-padded to them (cp.async zero-fill).  The heaviest row tiles
+//      (latest queries) are scheduled first.
 //  * attn_split_kernel ("split": bf16, hd % 16 == 0, Sq * g < 64: decode).
 //    Bound by the bytes of the cache (about 8 flop per K/V byte at g = 8).
 //    Flash-decoding: grid (kv head, split, batch x 16-row group); each block
@@ -77,18 +108,19 @@
 // combine's with several: a rank's partial attention over its shard of a
 // sequence-sharded cache combines across ranks by it.
 //
-// Not yet Hopper-specific: wgmma and TMA (with mbarriers) would lift the tile
-// kernel toward the bf16 peak; mma.sync and cp.async are the first step.
-//
 // ptxas (-Xptxas -v, sm_90a; chip_smoke.py prints these at build) on an H100:
+//   attn_fwd_wgmma_kernel<64,64 / 128,128 / 192,128>  168 registers at launch (the
+//                                   consumers raise theirs to 240), no spills
 //   attn_tile_kernel<64,64 / 128,128 / 192,128 / 256,256>  174 / 213 / 218 / 255 registers,
 //                                   no spills
 //   attn_split_kernel<64/128/256>   96 / 126 / 200 registers, no spills, 128 B static shared
 //   attn_combine_kernel             48 registers, 1 KiB static shared memory
 //   flash_attention_kernel<f32/bf16> 126 registers, no spills
-// Dynamic shared memory: tile 2 (64 HD + 128 (HD + HDV)) bytes (80 KiB at
-// (128, 128), 104 KiB at (192, 128): two blocks per SM), split 544 * HD
-// bytes (68 KiB at hd 128: three blocks per SM).
+// Dynamic shared memory: "wgmma" fwd_smem_bytes (Q, the stages of K, V and
+// positions, barriers, the mean of V): 147.8 / 163.1 / 211.1 KiB at (64, 64)
+// / (128, 128) / (192, 128), one block per SM; "mma" 2 (64 HD + 128 (HD +
+// HDV)) bytes (80 KiB at (128, 128), 104 KiB at (192, 128): two blocks per
+// SM), split 544 * HD bytes (68 KiB at hd 128: three blocks per SM).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -283,7 +315,7 @@ int general_launch(const void* q, const void* k, const void* v, const void* q_po
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core tiles: shared by "tile" and "split"
+// tensor-core tiles: shared by "tile" ("mma") and "split"
 // ---------------------------------------------------------------------------
 
 constexpr int kKeys = 64;   // keys per K/V tile
@@ -430,12 +462,14 @@ struct RowState {
 };
 
 // The mean of V (head dim hd_v) over all sk keys of (b, kvh), feature by
-// feature, into meanv[hd_v] (f32, shared): the output of a row that sees no key.
+// feature, into meanv[hd_v] (f32, shared): the output of a row that sees no
+// key.  Thread `tid` of the `nthreads` that compute it takes features tid,
+// tid + nthreads, ...
 __device__ void mean_v(const bf16* __restrict__ v, long long b, int sk, int hkv, int kvh, int hd_v,
-                       float* meanv) {
+                       float* meanv, int tid, int nthreads) {
   constexpr int kLanes = 8;  // independent sums: eight loads in flight, added in a fixed order
   const long long stride = static_cast<long long>(hkv) * hd_v;
-  for (int d = threadIdx.x; d < hd_v; d += blockDim.x) {
+  for (int d = tid; d < hd_v; d += nthreads) {
     const bf16* p = v + (b * sk * hkv + kvh) * hd_v + d;
     float sum[kLanes] = {};
     int j = 0;
@@ -459,7 +493,7 @@ __device__ __forceinline__ bf16* out_row(bf16* o, long long b, int row, int kvh,
 }
 
 // ---------------------------------------------------------------------------
-// "tile": many queries
+// "tile", "mma" design: many (query, head) rows of a kv head
 // ---------------------------------------------------------------------------
 
 constexpr int kTileRows = 16 * kTcWarps;  // rows of a "tile" block
@@ -548,7 +582,7 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool blind[2] = {rs.m[0] == kMasked, rs.m[1] == kMasked};  // rows that see no key
   float* meanv = reinterpret_cast<float*>(smem_raw);  // Q's room, no longer read
   if (__syncthreads_or((ra < rows && blind[0]) || (rb < rows && blind[1]))) {
-    mean_v(v, b, sk, hkv, kvh, hd_v, meanv);
+    mean_v(v, b, sk, hkv, kvh, hd_v, meanv, threadIdx.x, blockDim.x);
     __syncthreads();
   }
   const int tig = lane & 3;
@@ -589,6 +623,394 @@ int tile_launch(const void* q, const void* k, const void* v, const void* q_pos, 
       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<bf16*>(o),
       static_cast<float*>(lse), sq, sk, h, hkv, hd, hd_v, scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// "tile", "wgmma" design: one block per (128-query tile, head, batch)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgmmaMaxHeadDim = 192;   // up to here (and hd_v up to the next) "wgmma" ...
+constexpr int kWgmmaMaxHeadDimV = 128;
+constexpr int kWgmmaMinQueries = 64;    // ... at Sq of a warpgroup's rows or more; else "mma"
+constexpr int kFwdRows = 128;           // queries per block: two consumer warpgroups of 64
+constexpr int kFwdKeys = 128;           // keys per K/V tile and stage: the N of S's wgmma
+constexpr int kFwdStages = 4;  // ring of K / V tiles, where it fits (fwd_stages)
+constexpr int kWgThreads = 128;         // a warpgroup
+constexpr int kWgmmaThreads = 3 * kWgThreads;  // two consumer warpgroups, one producer
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr uint32_t kMaxSmemBytes = 232448;  // dynamic shared memory a block may use on an H100
+
+// Bytes of the block's shared memory with a ring of `stages` K / V stages:
+// Q, the stages (K, V, their kFwdKeys positions, full and empty mbarriers of
+// K and of V, the stage's info), Q's mbarrier, each consumer warpgroup's mean
+// of V, 1 KB of alignment slack
+template <int HD, int HDV>
+constexpr uint32_t fwd_smem_bytes(int stages) {
+  return tile_bytes<HD>(kFwdRows) +
+         stages * (tile_bytes<HD>(kFwdKeys) + tile_bytes<HDV>(kFwdKeys) + kFwdKeys * 4 + 32 + 32) +
+         8 + 2 * HDV * 4 + 1024;
+}
+// The ring's stages: kFwdStages where they fit, fewer where not
+template <int HD, int HDV>
+constexpr int fwd_stages() {
+  int s = kFwdStages;
+  while (s > 1 && fwd_smem_bytes<HD, HDV>(s) > kMaxSmemBytes) --s;
+  return s;
+}
+
+template <int HD, int HDV>
+struct FwdSmem {
+  static constexpr int stages = fwd_stages<HD, HDV>();
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t stage = q + tile_bytes<HD>(kFwdRows);  // K then V, per stage
+  static constexpr uint32_t stage_bytes = tile_bytes<HD>(kFwdKeys) + tile_bytes<HDV>(kFwdKeys);
+  static constexpr uint32_t kpos = stage + stages * stage_bytes;  // the stage's key positions
+  static constexpr uint32_t full_k = kpos + stages * kFwdKeys * 4;  // K, positions, info
+  static constexpr uint32_t full_v = full_k + 8 * stages;
+  static constexpr uint32_t empty_k = full_v + 8 * stages;
+  static constexpr uint32_t empty_v = empty_k + 8 * stages;
+  static constexpr uint32_t q_bar = empty_v + 8 * stages;
+  static constexpr uint32_t info = q_bar + 8;  // int[8] per stage: kt, kmin, kmax
+  static constexpr uint32_t meanv = info + 32 * stages;  // float[2][HDV]
+  static constexpr uint32_t bytes = meanv + 2 * HDV * 4 + 1024;
+  static_assert(bytes == fwd_smem_bytes<HD, HDV>(stages) && bytes <= kMaxSmemBytes, "fwd block");
+  static_assert(stages >= 2, "a consumer holds a stage until the next tile arrives");
+};
+
+// Whether any of the warpgroup's 128 threads passes `pred` (named barrier `id`)
+__device__ __forceinline__ bool warpgroup_any(int id, bool pred) {
+  uint32_t out;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\nbar.red.or.pred p, %2, 128, q;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(out)
+      : "r"(static_cast<uint32_t>(pred)), "r"(id)
+      : "memory");
+  return out != 0;
+}
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// HD: the width of the Q and K tiles, HDV: of V (and O); hd <= HD and hd_v <=
+// HDV at run time, the tensor maps zero-fill past them.  Warpgroups 0 and 1
+// consume (64 rows each: the M of wgmma), warpgroup 2's first warp produces.
+template <int HD, int HDV>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v, const bf16* __restrict__ v,
+                      const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                      bf16* __restrict__ o, float* __restrict__ lse, int b_count, int sq, int sk,
+                      int h, int hkv, int hd_v, float scale_log2, int causal, int window) {
+  using L = FwdSmem<HD, HDV>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];  // aligned to 1024 below
+  const uint32_t base = align1024(smem_u32(smem_raw));
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const int g = h / hkv, nkt = (sk + kFwdKeys - 1) / kFwdKeys;
+  const int nqb = (sq + kFwdRows - 1) / kFwdRows;
+  // 1-D grid, the query tile slowest: the latest queries (most keys) first
+  const int per = h * b_count;
+  const int qb = nqb - 1 - static_cast<int>(blockIdx.x / per);
+  const int head = blockIdx.x % per % h, b = blockIdx.x % per / h, kvh = head / g;
+  const int q0 = qb * kFwdRows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::stages; ++s) {
+      mbar_init(base + L::full_k + 8 * s, 32);  // every producer lane (its positions)
+      mbar_init(base + L::full_v + 8 * s, 1);
+      mbar_init(base + L::empty_k + 8 * s, 2 * kWgThreads / 32);  // one arrival per consumer warp
+      mbar_init(base + L::empty_v + 8 * s, 2 * kWgThreads / 32);
+    }
+    mbar_init(base + L::q_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * kWgThreads) {  // ---- producer warpgroup ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 2 * kWgThreads + 32) {  // one warp
+      const int lane = threadIdx.x & 31;
+      int qmin, qmax;  // the block's queries
+      q_range(q_pos, q0, kFwdRows, sq, 1, &qmin, &qmax);
+      if (lane == 0) {
+        mbar_expect_tx(base + L::q_bar, tile_bytes<HD>(kFwdRows));
+        load_rows<HD>(base + L::q, kFwdRows, 0, &map_q, base + L::q_bar, head, q0, 2, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < nkt; ++t) {  // keep the tiles some pair of the block sees
+        constexpr int kPer = kFwdKeys / 32;  // positions a lane
+        int p[kPer], kmin = INT_MAX, kmax = INT_MIN;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int j = t * kFwdKeys + 32 * i + lane;
+          p[i] = j < sk ? __ldg(k_pos + j) : 0;
+          if (j < sk) kmin = min(kmin, p[i]), kmax = max(kmax, p[i]);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          kmin = min(kmin, __shfl_xor_sync(0xffffffffu, kmin, o));
+          kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, o));
+        }
+        if (tile_state_of(kmin, kmax, qmin, qmax, causal, window) == 0) continue;
+        // K with its positions and info, then V, each into its half of the stage once
+        // the consumers freed it (K after the tile's softmax, V after its P V)
+        const uint32_t ks = base + L::stage + stage * L::stage_bytes;
+        const int n = kFwdKeys / kBoxRows;
+        mbar_wait(base + L::empty_k + 8 * stage, phase ^ 1);
+        int* kp = reinterpret_cast<int*>(gbase + L::kpos) + stage * kFwdKeys;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) kp[32 * i + lane] = p[i];
+        const uint32_t full_k = base + L::full_k + 8 * stage;
+        if (lane == 0) {
+          int* info = reinterpret_cast<int*>(gbase + L::info) + 8 * stage;
+          info[0] = t;
+          info[1] = kmin;
+          info[2] = kmax;
+          mbar_expect_tx(full_k, tile_bytes<HD>(kFwdKeys));
+          load_rows<HD>(ks, kFwdKeys, 0, &map_k, full_k, kvh, t * kFwdKeys, n, b);
+        } else {
+          mbar_arrive(full_k);
+        }
+        mbar_wait(base + L::empty_v + 8 * stage, phase ^ 1);
+        if (lane == 0) {
+          const uint32_t full_v = base + L::full_v + 8 * stage;
+          mbar_expect_tx(full_v, tile_bytes<HDV>(kFwdKeys));
+          load_rows<HDV>(ks + tile_bytes<HD>(kFwdKeys), kFwdKeys, 0, &map_v, full_v, kvh,
+                         t * kFwdKeys, n, b);
+        }
+        if (++stage == L::stages) stage = 0, phase ^= 1;
+      }
+      // the end of the walk
+      mbar_wait(base + L::empty_k + 8 * stage, phase ^ 1);
+      if (lane == 0) reinterpret_cast<int*>(gbase + L::info)[8 * stage] = -1;
+      mbar_arrive(base + L::full_k + 8 * stage);
+    }
+  } else {
+    // ---- consumer warpgroups: 64 rows each ----
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+    const int warp = tid >> 5, lane = tid & 31, tig = lane & 3;
+    const int row0 = q0 + wg * 64;
+    const bool has_rows = row0 < sq;
+    const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8 of the 64
+    const int row[2] = {row0 + r0, row0 + r0 + 8};
+    const int qp[2] = {row[0] < sq ? __ldg(q_pos + row[0]) : 0,
+                       row[1] < sq ? __ldg(q_pos + row[1]) : 0};
+    int qmin, qmax;  // the warpgroup's queries (every warp alike)
+    q_range(q_pos, row0, 64, sq, 1, &qmin, &qmax);
+    float acc[HDV / 2];  // O: 64 rows x HDV, f32
+#pragma unroll
+    for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // running max (base 2, scaled), sum
+    uint32_t pa[kFwdKeys / 16][4] = {};  // P of the previous tile, bf16, until its P V is issued
+    mbar_wait(base + L::q_bar, 0);
+    const uint32_t q_rows = base + L::q + wg * 64 * kHalfRowBytes;
+    constexpr uint32_t q_half = kFwdRows * kHalfRowBytes, key_half = kFwdKeys * kHalfRowBytes;
+    auto v_tile = [&](int st) {
+      return base + L::stage + st * L::stage_bytes + tile_bytes<HD>(kFwdKeys);
+    };
+    auto release = [&](uint32_t empty, int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(base + empty + 8 * st);
+    };
+
+    // Tile t's S = Q K^T is issued before tile t-1's O += P V, so that the
+    // tensor cores run P V while the softmax of tile t runs on the CUDA cores.
+    // A stage's K half (and its positions) is released after the tile's
+    // softmax, its V half once the tile's P V is done, before the next wait
+    // on the ring: a tile this warpgroup skips flushes the held P V first, so
+    // the held V is always the previous entry's and the ring never waits on
+    // it (with two stages, or after a run of skipped tiles).
+    int pend = -1;  // the stage whose P (in pa) still has to go through P V
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;; (++stage == L::stages) ? (stage = 0, phase ^= 1) : 0) {
+      mbar_wait(base + L::full_k + 8 * stage, phase);
+      const int* info = reinterpret_cast<const int*>(gbase + L::info) + 8 * stage;
+      const int kt = info[0];
+      if (kt < 0) break;
+      // whether some pair of this warpgroup's rows sees the tile
+      const int state = has_rows ? tile_state_of(info[1], info[2], qmin, qmax, causal, window) : 0;
+      const uint32_t ks = base + L::stage + stage * L::stage_bytes;
+      float s[kFwdKeys / 2];
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+      if (state != 0) {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {  // S = Q K^T: rows x keys
+          const uint32_t off = (kk & 3) * 32;
+          wgmma_ss_n128(s, desc_kmajor(q_rows + (kk >> 2) * q_half + off),
+                        desc_kmajor(ks + (kk >> 2) * key_half + off), kk > 0);
+        }
+        wgmma_commit();
+      }
+      if (pend >= 0) {
+#pragma unroll
+        for (int kk = 0; kk < kFwdKeys / 16; ++kk)  // O += P V of the previous tile: 16 keys a step
+          wgmma_rs_tb<HDV>(acc, pa[kk], desc_mnmajor(v_tile(pend) + kk * 16 * kHalfRowBytes,
+                                                     key_half));
+        wgmma_commit();
+      }
+      if (state == 0) {  // a skipped tile: the previous tile's P V done, both stages free
+        release(L::empty_k, stage);
+        if (pend >= 0) {
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(pa);
+          release(L::empty_v, pend);
+          pend = -1;
+        }
+        mbar_wait(base + L::full_v + 8 * stage, phase);  // V's copy is done before it is freed
+        release(L::empty_v, stage);
+        continue;
+      }
+      if (pend >= 0)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence_regs(s);
+      // mask and fold the scores into the running max and sum; P in s.  A tile
+      // whose pairs are all visible and inside Sk keeps s unscaled (max and
+      // exp2's argument by one FFMA each); the others scale it and mask
+      const int t0 = kt * kFwdKeys;
+      const bool plain = state == 2 && t0 + kFwdKeys <= sk && scale_log2 > 0.f;
+      if (!plain) {
+        const int* kp = reinterpret_cast<const int*>(gbase + L::kpos) + stage * kFwdKeys;
+#pragma unroll
+        for (int j = 0; j < kFwdKeys / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * tig + (e & 1);
+            float x = s[4 * j + e] * scale_log2;
+            if (t0 + col >= sk)
+              x = -INFINITY;  // past Sk: not a key at all
+            else if (state != 2 && !visible(qp[e >> 1], kp[col], causal, window))
+              x = kMasked;
+            s[4 * j + e] = x;
+          }
+        }
+      }
+      const float sc = plain ? scale_log2 : 1.f;  // s * sc is the scaled score
+      float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};  // two chains a row
+#pragma unroll
+      for (int j = 0; j < kFwdKeys / 8; ++j) {
+        mx[0][j & 1] = fmaxf(mx[0][j & 1], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1][j & 1] = fmaxf(mx[1][j & 1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x = fmaxf(mx[i][0], mx[i][1]);
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        x = fmaxf(m[i], x * sc);
+        corr[i] = fast_exp2(m[i] - x);
+        m[i] = x;
+      }
+      float sum[2][2] = {};
+#pragma unroll
+      for (int i = 0; i < kFwdKeys / 2; ++i) {
+        s[i] = fast_exp2(fmaf(s[i], sc, -m[(i >> 1) & 1]));
+        sum[(i >> 1) & 1][(i >> 2) & 1] += s[i];
+      }
+      release(L::empty_k, stage);  // K and the positions are read
+      l[0] = l[0] * corr[0] + (sum[0][0] + sum[0][1]);
+      l[1] = l[1] * corr[1] + (sum[1][0] + sum[1][1]);
+      if (pend >= 0) {  // the previous tile's P V is done: its V is free
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+        release(L::empty_v, pend);
+      }
+#pragma unroll
+      for (int i = 0; i < HDV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      pack_a(pa, s);
+      mbar_wait(base + L::full_v + 8 * stage, phase);  // V's copy, before its P V is issued
+      pend = stage;
+    }
+    if (pend >= 0) {  // the last tile's P V
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+        wgmma_rs_tb<HDV>(acc, pa[kk], desc_mnmajor(v_tile(pend) + kk * 16 * kHalfRowBytes,
+                                                   key_half));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      release(L::empty_v, pend);
+    }
+
+    if (has_rows) {  // the epilogue (a warpgroup's rows all past Sq write nothing)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the row sums over the quad that shares the row
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      }
+      const bool blind[2] = {m[0] == kMasked, m[1] == kMasked};  // rows that see no key
+      float* meanv = reinterpret_cast<float*>(gbase + L::meanv) + wg * HDV;
+      if (warpgroup_any(1 + wg, (row[0] < sq && blind[0]) || (row[1] < sq && blind[1]))) {
+        mean_v(v, b, sk, hkv, kvh, hd_v, meanv, tid, kWgThreads);
+        warpgroup_sync(1 + wg);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (row[i] >= sq) continue;
+        const long long r = (static_cast<long long>(b) * sq + row[i]) * h + head;
+        if (lse != nullptr && tig == 0)  // the quad shares m and (reduced) l: one writes
+          lse[(static_cast<long long>(b) * h + head) * sq + row[i]] =
+              blind[i] ? kMasked : (m[i] + log2f(l[i])) * kLn2;
+        const float inv = blind[i] ? 0.f : 1.f / l[i];
+        bf16* orow = o + r * hd_v;
+#pragma unroll
+        for (int j = 0; j < HDV / 8; ++j) {
+          const int d = 8 * j + 2 * tig;
+          if (d < hd_v) {
+            const float x0 = blind[i] ? meanv[d] : acc[4 * j + 2 * i] * inv;
+            const float x1 = blind[i] ? meanv[d + 1] : acc[4 * j + 2 * i + 1] * inv;
+            *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(x0, x1);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int HD, int HDV>
+int fwd_wgmma_launch(const void* q, const void* k, const void* v, const void* q_pos,
+                     const void* k_pos, void* o, void* lse, int b, int sq, int sk, int h, int hkv,
+                     int hd, int hd_v, float scale, int causal, int window, cudaStream_t stream) {
+  using L = FwdSmem<HD, HDV>;
+  static int smem_set = 0;
+  cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<HD, HDV>, L::bytes, &smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap mq, mk, mv;  // each at its tensor's own width
+  int e = encode_rows(&mq, q, hd, h, sq, b);
+  if (!e) e = encode_rows(&mk, k, hd, hkv, sk, b);
+  if (!e) e = encode_rows(&mv, v, hd_v, hkv, sk, b);
+  if (e) return e;
+  const long long blocks = static_cast<long long>((sq + kFwdRows - 1) / kFwdRows) * h * b;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  attn_fwd_wgmma_kernel<HD, HDV><<<static_cast<unsigned>(blocks), kWgmmaThreads, L::bytes,
+                                   stream>>>(
+      mq, mk, mv, static_cast<const bf16*>(v), static_cast<const int*>(q_pos),
+      static_cast<const int*>(k_pos), static_cast<bf16*>(o), static_cast<float*>(lse), b, sq, sk,
+      h, hkv, hd_v, scale * kLog2e, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 0: the "wgmma" design takes a "tile" call of this dtype (bf16 nonzero),
+// head dims and Sq; 1: the "mma" design
+int tile_design(int bf16, int hd, int hd_v, int sq) {
+  return bf16 && hd % 16 == 0 && hd_v % 16 == 0 && hd <= kWgmmaMaxHeadDim &&
+                 hd_v <= kWgmmaMaxHeadDimV && sq >= kWgmmaMinQueries
+             ? 0
+             : 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -756,7 +1178,7 @@ attn_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bool empty = false;  // the same in every thread
   for (int r = 0; r < kSplitRows; ++r) empty |= row0 + r < rows && bm[r] == kMasked;
   if (single && empty) {  // a row that sees no key: the mean of V
-    mean_v(v, b, sk, hkv, kvh, hd_v, meanv);
+    mean_v(v, b, sk, hkv, kvh, hd_v, meanv, threadIdx.x, blockDim.x);
     __syncthreads();
   }
   for (int e = threadIdx.x; e < kSplitRows * hd_v; e += kTcThreads) {
@@ -803,7 +1225,7 @@ attn_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ 
   float* lse_row = lse == nullptr ? nullptr : lse + (b * h + kvh * g + (row - qi * g)) * sq + qi;
   if (mx == kMasked) {
     if (lse_row != nullptr && threadIdx.x == 0) *lse_row = kMasked;
-    mean_v(v, b, sk, hkv, kvh, hd_v, meanv);
+    mean_v(v, b, sk, hkv, kvh, hd_v, meanv, threadIdx.x, blockDim.x);
     for (int d = threadIdx.x; d < hd_v; d += blockDim.x) orow[d] = __float2bfloat16(meanv[d]);
     return;
   }
@@ -887,16 +1309,39 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                causal, window, s);
 }
 
-// "tile": bf16, hd and hd_v multiples of 8, 16-byte aligned rows; the instance
-// (64, 64), (128, 128), (192, 128) or (256, 256) that holds (hd, hd_v).
+// The design of a "tile" call (flash_attention_tile_launch takes bf16 only):
+// 0 "wgmma" for bf16 with hd <= 192, hd_v <= 128, both multiples of 16, and
+// Sq >= 64; 1 "mma" otherwise (hd 256; fewer than 64 queries of a head, but
+// 64 or more (query, head) rows of a kv head).
+extern "C" int flash_attention_tile_design(int bf16, int hd, int hd_v, int sq) {
+  return tile_design(bf16, hd, hd_v, sq);
+}
+
+// "tile": bf16, hd and hd_v multiples of 8, 16-byte aligned rows.  `design`
+// -1: the one flash_attention_tile_design names; 0 "wgmma" (an error where
+// it does not take the call) on the instance (64, 64), (128, 128) or (192,
+// 128) that holds (hd, hd_v); 1 "mma" on (64, 64), (128, 128), (192, 128)
+// or (256, 256).
 extern "C" int flash_attention_tile_launch(const void* q, const void* k, const void* v,
                                            const void* q_pos, const void* k_pos, void* o,
                                            void* lse, int b, int sq, int sk, int h, int hkv,
                                            int hd, int hd_v, float scale, int causal, int window,
-                                           void* stream) {
-  if (!shape_ok(b, sq, sk, h, hkv, hd, hd_v) || hd % 8 || hd_v % 8)
+                                           int design, void* stream) {
+  const int rule = tile_design(1, hd, hd_v, sq);
+  if (!shape_ok(b, sq, sk, h, hkv, hd, hd_v) || hd % 8 || hd_v % 8 || design < -1 ||
+      design > 1 || (design == 0 && rule != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((design < 0 ? rule : design) == 0) {
+    if (hd <= 64)
+      return fwd_wgmma_launch<64, 64>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, hd_v,
+                                      scale, causal, window, s);
+    if (hd <= 128)
+      return fwd_wgmma_launch<128, 128>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd,
+                                        hd_v, scale, causal, window, s);
+    return fwd_wgmma_launch<192, 128>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, hd_v,
+                                      scale, causal, window, s);
+  }
   if (hd <= 64)
     return tile_launch<64, 64>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, hkv, hd, hd_v, scale,
                                causal, window, s);
@@ -941,6 +1386,4 @@ extern "C" int flash_attention_split_launch(const void* q, const void* k, const 
                            hkv, hd, hd_v, scale, causal, window, nsplit, tiles_per_split, s);
 }
 
-extern "C" const char* flash_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* flash_attention_error_string(int err) { return launch_error_string(err); }

@@ -65,9 +65,8 @@
 //    stages (kDqStages, 3 at (192, 128) where 4 would not fit), each
 //    warpgroup owns 64 rows: S = Q K^T, dP = dO V^T, dQ += dS K.
 //
-// The tensor maps are encoded on each call from the tensors' pointers and
-// shapes by cuTensorMapEncodeTiled, looked up at run time through the CUDA
-// runtime (no -lcuda), and passed as __grid_constant__ parameters.
+// The tensor maps are encoded on each call (attention_tiles.cuh::encode_rows)
+// and passed as __grid_constant__ parameters.
 //
 // Tiles, stages and registers: the dK/dV accumulators (64 keys x HD and 64 x
 // HDV, f32) take (HD + HDV) / 2 registers a thread, S^T and dP^T 32 each; at
@@ -104,13 +103,11 @@
 //
 // Takes bf16 with hd and hd_v multiples of 16, 16 <= hd_v <= hd <= 256,
 // 16-byte aligned tensors; the wrapper raises on anything else.
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
-#include <cstdio>
 
 #include "attention_tiles.cuh"
 
@@ -129,19 +126,7 @@ constexpr int kWgmmaThreads = 3 * kWgThreads;  // two consumer warpgroups, one p
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kStatWords = 3 * kRowTile;  // a query tile's lse in base 2, D, positions
-constexpr uint32_t kHalfRowBytes = 128;    // a row of a 64-column box, bf16
 constexpr uint32_t kMaxSmemBytes = 232448;  // dynamic shared memory a block may use on an H100
-
-// 2^x by the MUFU unit (flushes results below 2^-126 to zero)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ bool visible(int qp, int kp, int causal, int window) {
-  return (!causal || qp >= kp) && (window <= 0 || static_cast<long long>(qp) - kp < window);
-}
 
 // ---------------------------------------------------------------------------
 // The pass before the products: D = rowsum(dO * O) and the tiles' statistics
@@ -245,14 +230,6 @@ attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 // "wgmma" design: shared memory layouts
 // ---------------------------------------------------------------------------
 
-// A TMA'd tile of `rows` rows x W columns: W / 64 blocks of rows x 128
-// bytes ("halves" at W 128), each 1024-byte aligned; row r of block hf at
-// hf * rows * 128 + r * 128.
-template <int W>
-__host__ __device__ constexpr uint32_t tile_bytes(int rows) {
-  return static_cast<uint32_t>(rows) * W * 2;
-}
-
 // HD: the width of Q, K (and dQ, dK) tiles; HDV: of V and dO (and dV)
 template <int HD, int HDV>
 struct DkdvSmem {
@@ -299,32 +276,6 @@ struct DqSmem {
   static constexpr uint32_t bytes = info + 32 * stages + 1024;
   static_assert(bytes == dq_smem_bytes<HD, HDV>(stages) && bytes <= kMaxSmemBytes, "dQ block");
 };
-
-__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023u) & ~1023u; }
-
-// Load rows [row0, row0 + 64 * n) of one head of a (b, s, heads, width)
-// tensor into a tile of `rows` rows x W columns at dst, row offset dst_row0,
-// as 64-row boxes.
-template <int W>
-__device__ __forceinline__ void load_rows(uint32_t dst, int rows, int dst_row0, const void* map,
-                                          uint32_t bar, int head, int row0, int n, int b) {
-#pragma unroll
-  for (int hf = 0; hf < W / 64; ++hf)
-    for (int i = 0; i < n; ++i)
-      tma_load_4d(dst + (hf * rows + dst_row0 + i * 64) * kHalfRowBytes, map, bar, hf * 64, head,
-                  row0 + i * 64, b);
-}
-
-// P (or P^T) from a 64 x 16 N score accumulator of wgmma, as N bf16 A
-// fragments of 16 columns each (the accumulator's layout is the A operand's)
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[N][4], const float (&x)[8 * N]) {
-#pragma unroll
-  for (int kk = 0; kk < N; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // dK, dV ("wgmma"): one block per (128-key tile, kv head, batch)
@@ -1205,52 +1156,6 @@ int mma_launch(const void* q, const void* k, const void* v, const void* dout, co
 // Launchers
 // ---------------------------------------------------------------------------
 
-constexpr int kErrTensorMap = 1 << 20;  // + the CUresult of cuTensorMapEncodeTiled
-constexpr int kErrNoEntryPoint = (1 << 20) - 1;
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime: no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (batch, seq, heads, width) bf16 tensor as a 4-D TMA map {width, heads, seq,
-// batch} with boxes of 64 columns x 1 head x 64 rows, 128-byte swizzle, zeros
-// out of bounds (past the width too).
-int encode_rows(CUtensorMap* map, const void* base, int width, int heads, int seq, int batch) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return kErrNoEntryPoint;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row = 2ull * width;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  const cuuint32_t box[4] = {64, 1, kRowTile, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
-}
-
 // Byte offsets of the "wgmma" design's scratch: query tiles' statistics and
 // info, key tiles' positions and ranges (each 16-byte aligned).
 struct Scratch {
@@ -1416,12 +1321,5 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int err) {
-  static char msg[96];
-  if (err == kErrNoEntryPoint) return "cuTensorMapEncodeTiled is not available";
-  if (err >= kErrTensorMap) {
-    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
-             err - kErrTensorMap);
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return launch_error_string(err);
 }

@@ -15,9 +15,15 @@ Pallas kernel's causal mask, and a one-token decode against a cache is
 ``flash_attention`` launches one of the kernels of ``csrc/flash_attention.cu``
 (CUDA C++ for ``sm_90a``, built by ``kernels/_build.py`` and bound with
 ``ctypes``) on PyTorch's current stream, as :func:`choose_variant` rules:
-``"tile"`` (tensor-core tiles of 64 (query, head) rows: prefill-shaped
-calls), ``"split"`` (split over keys with a combine: decode) or
-``"general"`` (the CUDA-core kernel: f32, other head dims).  It replaces
+``"tile"`` (tensor cores, prefill-shaped calls), ``"split"`` (split over
+keys with a combine: decode) or ``"general"`` (the CUDA-core kernel: f32,
+other head dims).  A "tile" call runs one of two designs, as
+:func:`tile_design` rules: ``"wgmma"`` (warpgroup products fed by TMA
+through an mbarrier ring, blocks of 128 queries of one head: bf16 with hd
+<= 192, hd_v <= 128 and Sq >= 64, every training and prefill shape of the
+repo) or ``"mma"`` (``mma.sync`` tiles of 64 (query, head) rows of a kv
+head: hd 256, and fewer than 64 queries with 64 or more (query, head)
+rows); each is counted in ``flash_attention.design_launches``.  It replaces
 the JAX package's Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention_fused`` and computes the
 attention of ``repro/models/layers.py::flash_attention`` and
@@ -88,7 +94,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 # The dispatch rule between the hand-written kernels (csrc/flash_attention.cu)
 VARIANTS = ("tile", "split", "general")
 KV_TILE = 64      # keys per K/V tile of "tile" and "split"
-TILE_ROWS = 64    # (query, head) rows of a "tile" block; fewer rows per kv head go to "split"
+TILE_ROWS = 64    # (query, head) rows per kv head a "tile" call needs; fewer go to "split"
 SPLIT_ROWS = 16   # rows of a "split" block
 BLOCKS_PER_SM = 2  # "split" aims at this many blocks on each SM ...
 MAX_TILES_PER_SPLIT = 4  # ... and at most this many tiles per block: one per warp, whose skip
@@ -116,6 +122,23 @@ def choose_variant(dtype: torch.dtype, sq: int, h: int, hkv: int, hd: int,
     return "split" if sq * (h // hkv) < TILE_ROWS else "tile"
 
 
+DESIGNS = ("wgmma", "mma")  # csrc/flash_attention.cu's flash_attention_tile_design
+WGMMA_MAX_HEAD_DIM = 192  # the launcher's kWgmmaMaxHeadDim ...
+WGMMA_MAX_HEAD_DIM_V = 128  # ... kWgmmaMaxHeadDimV ...
+WGMMA_MIN_QUERIES = 64  # ... and kWgmmaMinQueries
+
+
+def tile_design(dtype: torch.dtype, hd: int, hd_v: int | None, sq: int) -> str:
+    """The design a "tile" call takes (``flash_attention_tile_design``):
+    ``"wgmma"`` for bf16 with both head dims multiples of 16, hd up to
+    ``WGMMA_MAX_HEAD_DIM``, hd_v (``None``: hd) up to ``WGMMA_MAX_HEAD_DIM_V``
+    and at least ``WGMMA_MIN_QUERIES`` queries; ``"mma"`` otherwise."""
+    hd_v = hd if hd_v is None else hd_v
+    wgmma = (dtype == torch.bfloat16 and hd % 16 == 0 == hd_v % 16 and hd <= WGMMA_MAX_HEAD_DIM
+             and hd_v <= WGMMA_MAX_HEAD_DIM_V and sq >= WGMMA_MIN_QUERIES)
+    return DESIGNS[0] if wgmma else DESIGNS[1]
+
+
 def split_plan(sk: int, b: int, hkv: int, rows: int, sms: int) -> tuple[int, int]:
     """(splits, tiles per split) of a "split" call: enough splits that the
     grid puts ``BLOCKS_PER_SM`` blocks on every SM and no block walks more
@@ -140,10 +163,11 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     shape = [i] * 7 + [ctypes.c_float, i, i]  # b sq sk h hkv hd hd_v scale causal window
     lib.flash_attention_launch.argtypes = [p] * 7 + shape + [i, p]  # q k v qpos kpos o lse
-    lib.flash_attention_tile_launch.argtypes = [p] * 7 + shape + [p]
+    lib.flash_attention_tile_launch.argtypes = [p] * 7 + shape + [i, p]  # ... design stream
     lib.flash_attention_split_launch.argtypes = [p] * 10 + shape + [i, i, p]  # ... acc lse
+    lib.flash_attention_tile_design.argtypes = [i] * 4  # bf16 hd hd_v sq
     for fn in (lib.flash_attention_launch, lib.flash_attention_tile_launch,
-               lib.flash_attention_split_launch):
+               lib.flash_attention_split_launch, lib.flash_attention_tile_design):
         fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -212,7 +236,10 @@ def flops(variant: str, b: int, sq: int, sk: int, h: int, hkv: int, hd: int, cau
     "tile" and "split" skip a tile that every pair of the block hides, as
     ``csrc/flash_attention.cu``'s ``next_live`` does; "general" walks every
     tile.  Masked pairs inside a walked tile count; rows a partial block
-    pads with do not."""
+    pads with do not.  "tile" is counted as its "mma" design walks it (64
+    (query, head) rows a block); the "wgmma" design's blocks of 128 queries
+    of one head and 128-key tiles walk a few more masked pairs (~1.5% at a
+    causal 4,096²)."""
     g = h // hkv
     rows = sq * g
     per = BLOCK_ROWS[variant]
@@ -260,12 +287,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_variant(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             q_positions=None, k_positions=None, causal: bool = True,
-                            window: int = 0, scale: float | None = None) -> torch.Tensor:
-    """:func:`flash_attention` through the named kernel, one of ``VARIANTS``;
-    raises if that kernel does not take the input."""
+                            window: int = 0, scale: float | None = None,
+                            design: str | None = None) -> torch.Tensor:
+    """:func:`flash_attention` through the named kernel, one of ``VARIANTS``,
+    and for ``"tile"`` the named design, one of ``DESIGNS`` (``None``: the one
+    :func:`tile_design` names); raises if that kernel does not take the input."""
     if variant not in VARIANTS:
         raise ValueError(f"flash_attention: variant must be one of {VARIANTS}, got {variant!r}")
-    return _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale)
+    if design is not None and (variant != "tile" or design not in DESIGNS):
+        raise ValueError(f"flash_attention: design must be one of {DESIGNS} of the 'tile' "
+                         f"variant, got {design!r} of {variant!r}")
+    return _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
+                   design=design)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -280,7 +313,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
-            with_lse: bool = False):
+            with_lse: bool = False, design: str | None = None):
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention launches a CUDA kernel; got tensors on {q.device}")
@@ -297,6 +330,10 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
         raise ValueError(f"flash_attention: the {variant!r} kernel takes 16-byte aligned bf16 "
                          f"with head dims multiples of 16; got {q.dtype}, head_dim {hd}, "
                          f"hd_v {hd_v}")
+    if design == "wgmma" and tile_design(q.dtype, hd, hd_v, sq) != "wgmma":
+        raise ValueError(f"flash_attention: the 'wgmma' design takes hd <= {WGMMA_MAX_HEAD_DIM}, "
+                         f"hd_v <= {WGMMA_MAX_HEAD_DIM_V} and Sq >= {WGMMA_MIN_QUERIES}; got "
+                         f"head_dim {hd}, hd_v {hd_v}, Sq {sq}")
     qp, kp, out, lse, (splits, per, ml, acc) = _allocate(
         variant, q, k, v, q_positions, k_positions, with_lse, _sm_count(q.device.index or 0))
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
@@ -307,7 +344,10 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if variant == "tile":
-            err = lib.flash_attention_tile_launch(*args, lse_ptr, *shape, stream)
+            if design is None:
+                design = DESIGNS[lib.flash_attention_tile_design(1, hd, hd_v, sq)]
+            err = lib.flash_attention_tile_launch(*args, lse_ptr, *shape, DESIGNS.index(design),
+                                                  stream)
         elif variant == "split":
             part = (0, 0, 0)
             if ml is not None:
@@ -322,17 +362,21 @@ def _launch(variant, q, k, v, q_positions, k_positions, causal, window, scale,
             f"flash_attention launch failed: {lib.flash_attention_error_string(err).decode()}")
     flash_attention.launches += 1
     flash_attention.variant_launches[variant] += 1
+    if design is not None:
+        flash_attention.design_launches[design] += 1
     return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0  # every launch; the sum of variant_launches
 flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+flash_attention.design_launches = dict.fromkeys(DESIGNS, 0)  # "tile"'s, by design
 
 
 def reset_launches() -> None:
     """Set every launch count of the attention kernels to 0."""
     flash_attention.launches = 0
     flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+    flash_attention.design_launches = dict.fromkeys(DESIGNS, 0)
 
 
 def visible(q_positions: torch.Tensor, k_positions: torch.Tensor, causal: bool,

@@ -1451,3 +1451,89 @@ def test_mesh_prefill_on_one_card_matches_the_cpu(cuda):
         for k, want in cache.items():
             want = want.float().numpy()
             assert np.abs(r["cache"][k] - want).max() <= 2**-4 * np.abs(want).max(), k
+
+
+# The forward's "tile" designs: (b, sq, sk, h, hkv, hd, hd_v, causal, window, q_offset,
+# k_order) with k_order "arange" or "perm" (a ring buffer's permuted positions)
+WGMMA_FWD_CASES = [
+    (2, 256, 256, 8, 2, 64, 64, True, 0, 0, "arange"),  # (64, 64)
+    (1, 300, 300, 6, 2, 128, 128, True, 0, 0, "arange"),  # (128, 128), ragged Sq and Sk
+    (1, 513, 513, 4, 4, 192, 128, True, 0, 0, "arange"),  # (192, 128): MLA's widths
+    (2, 200, 333, 8, 2, 160, 128, True, 0, 133, "arange"),  # hd 160 on (192, 128)
+    (1, 400, 400, 8, 2, 128, 128, True, 100, 0, "arange"),  # a sliding window
+    # a window over ragged tiles at two stages: a warpgroup skips a tile after one it computed
+    (3, 200, 260, 8, 2, 96, 96, True, 33, 60, "arange"),
+    (2, 448, 1500, 6, 6, 64, 64, False, 0, 0, "arange"),  # non-causal, Sk = 1500: a tail tile
+    (1, 300, 512, 8, 2, 128, 128, True, 200, 300, "perm"),  # permuted keys under a window
+    (1, 256, 512, 8, 2, 128, 128, True, 0, -200, "arange"),  # a block that sees no key
+    (1, 64, 64, 2, 2, 16, 16, True, 0, 0, "arange"),  # Sq at the rule's 64, hd 16
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_FWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_wgmma_forward_design_matches_plain_version(cuda, case):
+    """The "wgmma" design of "tile" against ``flash_attention_lse_ref``: O
+    within one bf16 rounding step (2^-7), the row log-sum-exp within 1e-3,
+    a row that sees no key the mean of V and lse -1e30; two calls equal bit
+    for bit; each launch counted as "wgmma"."""
+    b, sq, sk, h, hkv, hd, hd_v, causal, window, q_offset, k_order = case
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, hkv, hd_v), generator=gen, device=cuda).bfloat16()
+    qpos = torch.arange(q_offset, q_offset + sq, dtype=torch.int32, device=cuda)
+    kpos = (torch.randperm(sk, generator=gen, device=cuda).int() if k_order == "perm"
+            else torch.arange(sk, dtype=torch.int32, device=cuda))
+    kw = dict(q_positions=qpos, k_positions=kpos, causal=causal, window=window)
+    assert fa.choose_variant(q.dtype, sq, h, hkv, hd, hd_v=hd_v) == "tile"
+    assert fa.tile_design(q.dtype, hd, hd_v, sq) == "wgmma"
+    before = dict(fa.flash_attention.design_launches)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    o2, lse2 = fa.flash_attention_lse(q, k, v, **kw)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {d: c - before[d] for d, c in fa.flash_attention.design_launches.items()} == {
+        "wgmma": 3, "mma": 0}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(o, out)
+    o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(o, o_ref, atol=2**-7, rtol=2**-7)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    blind = ~fa.visible(qpos, kpos, causal, window).any(1)
+    if blind.any():
+        assert bool((lse[:, :, blind] == fa.NEG_INF).all())
+        mean = v.float().mean(1).repeat_interleave(h // hkv, dim=1)  # (b, h, hd_v)
+        torch.testing.assert_close(o[:, blind].float(),
+                                   mean[:, None].expand(b, int(blind.sum()), h, hd_v),
+                                   atol=2**-7, rtol=2**-7)
+
+
+@pytest.mark.parametrize("case,design", [
+    ((1, 300, 300, 4, 2, 256, 256), "mma"),  # hd 256: no "wgmma" instance
+    ((4, 8, 8, 32, 4, 128, 128), "mma"),  # 8-token prompts at a GQA group of 8
+    ((2, 63, 100, 8, 1, 128, 128), "mma"),  # one query short of a warpgroup's rows
+    ((2, 64, 100, 8, 1, 128, 128), "wgmma"),
+])
+def test_tile_design_rule_on_the_card(cuda, case, design):
+    """Each "tile" call goes to the design ``tile_design`` names and is
+    counted there, within 2^-7 of the plain version; the "mma" design takes
+    any "tile" call it is asked for, "wgmma" raises where it does not fit."""
+    b, sq, sk, h, hkv, hd, hd_v = case
+    gen = torch.Generator(device=cuda).manual_seed(sq + hd)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, hkv, hd_v), generator=gen, device=cuda).bfloat16()
+    qpos = torch.arange(sk - sq, sk, device=cuda)
+    assert fa.choose_variant(q.dtype, sq, h, hkv, hd, hd_v=hd_v) == "tile"
+    assert fa.tile_design(q.dtype, hd, hd_v, sq) == design
+    before = dict(fa.flash_attention.design_launches)
+    out = ops.flash_attention(q, k, v, q_positions=qpos)
+    forced = fa.flash_attention_variant("tile", q, k, v, q_positions=qpos, design="mma")
+    torch.cuda.synchronize()
+    assert {d: c - before[d] for d, c in fa.flash_attention.design_launches.items()} == {
+        d: int(d == design) + int(d == "mma") for d in fa.DESIGNS}
+    ref = fa.flash_attention_ref(q, k, v, q_positions=qpos)
+    for got in (out, forced):
+        torch.testing.assert_close(got, ref, atol=2**-7, rtol=2**-7)
+    if design == "mma":
+        with pytest.raises(ValueError, match="wgmma"):
+            fa.flash_attention_variant("tile", q, k, v, q_positions=qpos, design="wgmma")
