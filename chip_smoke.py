@@ -493,7 +493,9 @@ def _traced(fn) -> tuple[float, list[dict]]:
     its wall seconds and the card's activities as trace-style events
     (``cat`` kernel, gpu_memcpy or gpu_memset; ``ts`` and ``dur`` in
     microseconds), read from the profiler's own kineto events: no
-    chrome-trace file is written and parsed."""
+    chrome-trace file is written and parsed.  The program's span marks
+    (``trace_mark_kernel<N>``, launched while a profiler records) are left
+    out, so that no device time or busy share here counts them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -508,6 +510,8 @@ def _traced(fn) -> tuple[float, list[dict]]:
         if e.device_type() != DeviceType.CUDA or getattr(e, "is_user_annotation", bool)():
             continue
         name = e.name()
+        if "trace_mark_kernel" in name:
+            continue
         cat = ("gpu_memcpy" if name.startswith("Memcpy")
                else "gpu_memset" if name.startswith("Memset") else "kernel")
         events.append({"ph": "X", "cat": cat, "name": name, "ts": e.start_ns() / 1e3,

@@ -21,10 +21,12 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.storage.sdk import ShelbyClient
 
 
@@ -57,6 +59,7 @@ class BlobTokenDataset:
         self._stop = threading.Event()
 
     def _next_batch(self) -> tuple[np.ndarray, np.ndarray]:
+        t0 = time.perf_counter()
         ranges = []
         for _ in range(self.batch):
             if self._cursor >= self.num_examples:
@@ -68,6 +71,9 @@ class BlobTokenDataset:
         # one fleet pass for the whole batch: cross-request batched decode
         receipts = self.client.get_many(ranges)
         arr = np.stack([np.frombuffer(r.data, dtype=np.int32) for r in receipts])
+        # the host seconds spent making batches (on the prefetch thread when
+        # in the background), counted while a profiler records
+        trace.count("data.batch_s", time.perf_counter() - t0)
         return arr[:, :-1], arr[:, 1:]
 
     def _put(self, item) -> bool:

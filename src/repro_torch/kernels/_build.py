@@ -45,23 +45,56 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Load kernel ``name``'s shared library, compiling it first if needed."""
+MARKS = "trace_mark"  # the spans' device marks (repro_torch/trace.py)
+
+
+def _start(name: str):
+    """Start ``nvcc`` on kernel ``name`` unless its library is built: the
+    library's path, the build's temporary file and the process, or None."""
     out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        # -Xptxas -v: each kernel's registers, spills and shared memory, kept beside the library
-        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
-        out.with_suffix(".log").write_text(proc.stdout)
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return ctypes.CDLL(str(out))
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    # -Xptxas -v: each kernel's registers, spills and shared memory, kept beside the library
+    cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(CSRC / f"{name}.cu")]
+    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+
+
+def _finish(name: str, build) -> None:
+    """Wait for :func:`_start`'s build of ``name``; raise if it failed."""
+    if build is None:
+        return
+    out, tmp, proc = build
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Load kernel ``name``'s shared library, compiling it first if needed.
+
+    A kernel built here has the marks' library (:data:`MARKS`) built beside
+    it, at the same time, if it is not yet: so a traced window never waits on
+    ``nvcc`` for a mark, and a process that tracing never turns on does not
+    load it.  A failed build of the marks is left for their own load to
+    report; the kernel asked for does not depend on it."""
+    build = _start(name)
+    marks = _start(MARKS) if build is not None and name != MARKS else None
+    try:
+        _finish(name, build)
+    finally:
+        if marks is not None:
+            try:
+                _finish(MARKS, marks)
+            except RuntimeError:
+                pass  # trace.mark_library() builds again and raises with the log
+    return ctypes.CDLL(str(library_path(name)))
 
 
 def ptxas_report(name: str) -> list[str]:

@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels import ops
 from repro_torch.sharding import ParamSpec
 
@@ -98,17 +99,19 @@ def mlp_specs(d: int, f: int, kind: str, layers: int | None = None,
 
 
 def apply_mlp(params, x: torch.Tensor, kind: str, ctx=None) -> torch.Tensor:
-    if kind == "swiglu":
-        h = F.silu(linear(x, params["gate"], "gate", ctx)) * linear(x, params["up"], "up", ctx)
-    else:
-        h = linear(x, params["up"], "up", ctx)
-        if "up_b" in params:
-            h = h + cast(params["up_b"])
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    out = linear(h, params["down"], "down", ctx)
-    if "down_b" in params:
-        out = out + cast(params["down_b"])
-    return out
+    with trace.span("mlp", x) as sp:
+        x = sp.inputs(x)
+        if kind == "swiglu":
+            h = F.silu(linear(x, params["gate"], "gate", ctx)) * linear(x, params["up"], "up", ctx)
+        else:
+            h = linear(x, params["up"], "up", ctx)
+            if "up_b" in params:
+                h = h + cast(params["up_b"])
+            h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+        out = linear(h, params["down"], "down", ctx)
+        if "down_b" in params:
+            out = out + cast(params["down_b"])
+        return sp.outputs(out)
 
 
 # -- attention ----------------------------------------------------------------------
@@ -146,10 +149,11 @@ def flash_attention(q, k, v, *, mask: MaskSpec, q_positions=None, k_positions=No
         scale = 1.0 / math.sqrt(hd) if scale is None else scale
     if width_v != hd_v:
         v = F.pad(v, (0, width_v - hd_v))
-    o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            q_positions=q_positions, k_positions=k_positions,
-                            causal=mask.causal, window=mask.window, scale=scale)
-    return o[..., :hd_v]
+    with trace.span("attn.kernel", q) as sp:
+        q, k, v = sp.inputs(q.contiguous(), k.contiguous(), v.contiguous())
+        o = ops.flash_attention(q, k, v, q_positions=q_positions, k_positions=k_positions,
+                                causal=mask.causal, window=mask.window, scale=scale)
+        return sp.outputs(o)[..., :hd_v]
 
 
 def decode_attention(q, k_cache, v_cache, k_positions, cur_pos: int, *, window: int = 0,

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models.attention import cache_update, combine_partials
 from repro_torch.models.layers import MaskSpec, apply_norm, apply_rope, flash_attention, linear
 from repro_torch.sharding import ParamSpec
@@ -79,16 +80,18 @@ def apply_mla_full(p, x: torch.Tensor, cfg, positions=None, ctx=None):
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    c_kv, k_rope = _latents(p, x, cfg, ctx)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # (B, S, 1, rope)
-    q_nope, q_rope = _queries(p, x, cfg, positions, ctx)
-    k_nope = linear(c_kv, p["w_uk"], "w_uk", ctx, "bsr,rhk->bshk")
-    v = linear(c_kv, p["w_uv"], "w_uv", ctx, "bsr,rhk->bshk")
-    k_shared = k_rope if ctx is None else ctx.split_read(k_rope, "heads", cfg.num_heads)
-    k = torch.cat([k_nope, k_shared.expand(-1, -1, k_nope.shape[2], -1)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    o = flash_attention(q, k, v, mask=MaskSpec(causal=True), scale=_scale(cfg))
-    out = linear(o, p["wo"], "wo", ctx, "bshk,hkd->bsd")
+    with trace.span("attn.mla", x) as sp:
+        x = sp.inputs(x)
+        c_kv, k_rope = _latents(p, x, cfg, ctx)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # (B, S, 1, rope)
+        q_nope, q_rope = _queries(p, x, cfg, positions, ctx)
+        k_nope = linear(c_kv, p["w_uk"], "w_uk", ctx, "bsr,rhk->bshk")
+        v = linear(c_kv, p["w_uv"], "w_uv", ctx, "bsr,rhk->bshk")
+        k_shared = k_rope if ctx is None else ctx.split_read(k_rope, "heads", cfg.num_heads)
+        k = torch.cat([k_nope, k_shared.expand(-1, -1, k_nope.shape[2], -1)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        o = flash_attention(q, k, v, mask=MaskSpec(causal=True), scale=_scale(cfg))
+        out = sp.outputs(linear(o, p["wo"], "wo", ctx, "bshk,hkd->bsd"))
     return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]}
 
 

@@ -46,7 +46,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import distributed
+from repro_torch import distributed, trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm_mod
@@ -85,28 +85,33 @@ def _lookup(params, tokens: torch.Tensor, ctx=None, cast_first: bool = False) ->
     vocab-parallel: each rank its own ids' rows, zeros for the others, summed
     over the axis ("g")."""
     table = _weight(params, "embed", ctx)
-    shard = None if ctx is None else ctx.vocab_shard("embed")
-    if shard is None:
-        return cast(table)[tokens] if cast_first else cast(table[tokens])
-    local = tokens - shard.start
-    mine = (local >= 0) & (local < shard.stop - shard.start)
-    rows = cast(table)[torch.where(mine, local, 0)]
-    return distributed.reduce_g(torch.where(mine[..., None], rows, 0.0), shard.axis)
+    with trace.span("model.embed", table) as sp:
+        table = sp.inputs(table)
+        shard = None if ctx is None else ctx.vocab_shard("embed")
+        if shard is None:
+            return sp.outputs(cast(table)[tokens] if cast_first else cast(table[tokens]))
+        local = tokens - shard.start
+        mine = (local >= 0) & (local < shard.stop - shard.start)
+        rows = cast(table)[torch.where(mine, local, 0)]
+        return sp.outputs(distributed.reduce_g(torch.where(mine[..., None], rows, 0.0),
+                                               shard.axis))
 
 
 def _logits(params, h: torch.Tensor, cfg: ArchConfig, ctx=None) -> torch.Tensor:
     """The logits over this rank's ids of the vocab (all of them off a mesh)."""
     name = _head(cfg)
-    logits = linear(h, _weight(params, name, ctx), name, ctx, "bsd,vd->bsv")
-    if cfg.padded_vocab != cfg.vocab:  # mask padding ids out of the softmax
-        # the ids of the logits' columns: from this rank's first id over a
-        # mesh, from 0 in the dry-run's per-device trace (the first rank's)
-        ids = torch.arange(logits.shape[-1], device=logits.device)
-        shard = None if ctx is None else ctx.vocab_shard(name)
-        if shard is not None:
-            ids = ids + shard.start
-        logits = logits.masked_fill(ids >= cfg.vocab, -1e30)
-    return logits
+    weight = _weight(params, name, ctx)
+    with trace.span("model.head", h) as sp:
+        logits = linear(sp.inputs(h), weight, name, ctx, "bsd,vd->bsv")
+        if cfg.padded_vocab != cfg.vocab:  # mask padding ids out of the softmax
+            # the ids of the logits' columns: from this rank's first id over a
+            # mesh, from 0 in the dry-run's per-device trace (the first rank's)
+            ids = torch.arange(logits.shape[-1], device=logits.device)
+            shard = None if ctx is None else ctx.vocab_shard(name)
+            if shard is not None:
+                ids = ids + shard.start
+            logits = logits.masked_fill(ids >= cfg.vocab, -1e30)
+        return sp.outputs(logits)
 
 
 def _whole_logits(logits: torch.Tensor, cfg: ArchConfig, ctx=None) -> torch.Tensor:
@@ -126,18 +131,20 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig | None = N
     mesh whose ``model`` axis splits the vocab, vocab-parallel: each rank's
     log-sum-exp over its ids and its gold logit combine over the axis, so the
     (B, S, V) logits are never gathered."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    shard = None if ctx is None else ctx.vocab_shard(_head(cfg))
-    if shard is None:
-        gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
-        return (lse - gold).mean()
-    lse = torch.logsumexp(distributed.gather_out(lse[..., None], shard.axis, -1), dim=-1)
-    local = labels.long() - shard.start
-    mine = (local >= 0) & (local < shard.stop - shard.start)
-    gold = torch.take_along_dim(logits, torch.where(mine, local, 0)[..., None], dim=-1)[..., 0]
-    gold = distributed.reduce_g(torch.where(mine, gold, 0.0), shard.axis)
-    return (lse - gold).mean()
+    with trace.span("model.xent", logits) as sp:
+        logits = sp.inputs(logits).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        shard = None if ctx is None else ctx.vocab_shard(_head(cfg))
+        if shard is None:
+            gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+            return sp.outputs((lse - gold).mean())
+        lse = torch.logsumexp(distributed.gather_out(lse[..., None], shard.axis, -1), dim=-1)
+        local = labels.long() - shard.start
+        mine = (local >= 0) & (local < shard.stop - shard.start)
+        gold = torch.take_along_dim(logits, torch.where(mine, local, 0)[..., None],
+                                    dim=-1)[..., 0]
+        gold = distributed.reduce_g(torch.where(mine, gold, 0.0), shard.axis)
+        return sp.outputs((lse - gold).mean())
 
 
 def _local_batch(batch: dict, ctx) -> dict:
@@ -292,9 +299,10 @@ class DecoderLM(_Model):
         return self._mix(block, a_out, s_out), kv if cache else {}
 
     def _block_full(self, block, h: torch.Tensor, mask: MaskSpec, ctx, dense: bool = False):
-        x = apply_norm(block["ln1"], h, self.cfg.norm)
-        mixed, _ = self._mixer_full(block, x, mask, cache=False, ctx=ctx)
-        return self._second_half(block, h, x, mixed, ctx, dense)
+        with trace.span("model.block", h):  # also its recomputation in the backward pass
+            x = apply_norm(block["ln1"], h, self.cfg.norm)
+            mixed, _ = self._mixer_full(block, x, mask, cache=False, ctx=ctx)
+            return self._second_half(block, h, x, mixed, ctx, dense)
 
     def _block_at(self, stack, prefix: str, i: int, h: torch.Tensor, mask: MaskSpec, ctx,
                   dense: bool = False):

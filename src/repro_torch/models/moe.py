@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch import distributed
+from repro_torch import distributed, trace
 from repro_torch.models.layers import cast, linear
 from repro_torch.sharding import ParamSpec, require_mesh_ctx
 
@@ -55,7 +55,8 @@ def moe_specs(cfg, layers: int) -> dict[str, ParamSpec]:
 
 
 def _route(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
-    """(T, D) -> (idx (T, k), weights (T, k), aux_loss scalar).
+    """(T, D) -> (idx (T, k), weights (T, k), aux_loss scalar, counts (E,):
+    the assignments each expert received).
 
     The top k by a stable descending sort: of equal probabilities the lower
     expert id comes first, as ``jax.lax.top_k`` orders them."""
@@ -71,7 +72,25 @@ def _route(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
         0, flat, torch.ones_like(flat))
     frac = counts.float() / idx.numel()
     aux = e * torch.sum(frac * probs.mean(0))
-    return idx, weights.to(x_flat.dtype), aux
+    return idx, weights.to(x_flat.dtype), aux, counts
+
+
+def _routed(x_flat: torch.Tensor, router_w: torch.Tensor, cfg, lo: int, hi: int,
+            capacity: int):
+    """:func:`_route` (idx, weights, aux) under its span; while a profiler
+    records, experts [lo, hi)'s assignments, the slots they fill and those
+    dropped past ``capacity`` are counted on the device."""
+    with trace.span("moe.route", x_flat) as sp:
+        idx, weights, aux, counts = _route(sp.inputs(x_flat), router_w, cfg.moe.top_k)
+        weights, aux = sp.outputs(weights, aux)
+        if trace.counting():
+            mine = counts[lo:hi]
+            assigned, filled = mine.sum(), mine.clamp(max=capacity).sum()
+            trace.count("moe.assignments", assigned)
+            trace.count("moe.slots_filled", filled)
+            trace.count("moe.dropped", assigned - filled)
+            trace.count("moe.slots", (hi - lo) * capacity)
+    return idx, weights, aux
 
 
 def _dispatch_indices(idx: torch.Tensor, num_experts: int, capacity: int, lo: int, hi: int):
@@ -107,7 +126,7 @@ def _expert_ffn(buf: torch.Tensor, gate_w, up_w, down_w) -> torch.Tensor:
 def _moe_local(x_flat: torch.Tensor, params_l, cfg, lo: int, hi: int, capacity: int):
     """Token dispatch + expert FFN for experts [lo, hi) of those ``params_l`` holds."""
     experts = tuple(params_l[name][lo:hi] for name in ("gate", "up", "down"))
-    idx, weights, aux = _route(x_flat, params_l["router"], cfg.moe.top_k)
+    idx, weights, aux = _routed(x_flat, params_l["router"], cfg, lo, hi, capacity)
     return _experts(x_flat, idx, weights, cfg, lo, hi, capacity, experts), aux
 
 
@@ -115,20 +134,24 @@ def _experts(x_flat: torch.Tensor, idx, weights, cfg, lo: int, hi: int, capacity
              experts) -> torch.Tensor:
     """The routed tokens' outputs of experts [lo, hi): dispatch, FFN, combine."""
     m = cfg.moe
-    d = x_flat.shape[-1]
-    dest, src = _dispatch_indices(idx, m.num_experts, capacity, lo, hi)
+    t, d = x_flat.shape
     e_loc = hi - lo
     size = e_loc * capacity
-    # row `size` is the drop slot: every dropped assignment lands there (which
-    # write wins is unspecified) and it is cut off before anything reads it
-    buf = x_flat.new_zeros((size + 1, d)).index_put((dest,), x_flat[src])
-    buf = buf[:size].reshape(e_loc, capacity, d)
-    out_buf = _expert_ffn(buf, *experts)
-    padded = torch.cat([out_buf.reshape(size, d), x_flat.new_zeros((1, d))])
-    vals = padded[torch.clamp(dest, max=size)]
-    vals = torch.where((dest < size)[:, None], vals, 0.0)
-    t = x_flat.shape[0]
-    return (vals.reshape(t, m.top_k, d) * weights[..., None]).sum(1)
+    with trace.span("moe.dispatch", x_flat) as sp:
+        xs = sp.inputs(x_flat)
+        dest, src = _dispatch_indices(idx, m.num_experts, capacity, lo, hi)
+        # row `size` is the drop slot: every dropped assignment lands there (which
+        # write wins is unspecified) and it is cut off before anything reads it
+        buf = xs.new_zeros((size + 1, d)).index_put((dest,), xs[src])
+        buf = sp.outputs(buf[:size].reshape(e_loc, capacity, d))
+    with trace.span("moe.experts", buf) as sp:
+        out_buf = sp.outputs(_expert_ffn(sp.inputs(buf), *experts))
+    with trace.span("moe.combine", out_buf) as sp:
+        out_buf, weights = sp.inputs(out_buf, weights)
+        padded = torch.cat([out_buf.reshape(size, d), x_flat.new_zeros((1, d))])
+        vals = padded[torch.clamp(dest, max=size)]
+        vals = torch.where((dest < size)[:, None], vals, 0.0)
+        return sp.outputs((vals.reshape(t, m.top_k, d) * weights[..., None]).sum(1))
 
 
 def capacity_of(tokens: int, cfg) -> int:
@@ -149,10 +172,11 @@ def _moe_ep(x_flat: torch.Tensor, params_l, cfg, ctx):
     ax = ctx.mesh.axis("model")
     e_loc = cfg.moe.num_experts // ax.size
     lo = ax.index * e_loc
-    idx, weights, aux = _route(x_flat, params_l["router"], cfg.moe.top_k)
+    capacity = capacity_of(x_flat.shape[0], cfg)
+    idx, weights, aux = _routed(x_flat, params_l["router"], cfg, lo, lo + e_loc, capacity)
     experts = tuple(params_l[name] for name in ("gate", "up", "down"))
     y = _experts(distributed.copy_f(x_flat, ax), idx, distributed.copy_f(weights, ax), cfg,
-                 lo, lo + e_loc, capacity_of(x_flat.shape[0], cfg), experts)
+                 lo, lo + e_loc, capacity, experts)
     return distributed.reduce_g(y, ax), ctx.pmean(aux, tuple(ctx.mesh.shape))
 
 
@@ -174,7 +198,11 @@ def apply_moe(params_l, x: torch.Tensor, cfg, ctx=None):
     out = y.reshape(b, s, d)
     # shared experts (DeepSeek): a dense SwiGLU alongside the routed path
     if m.num_shared:
-        g = linear(x, params_l["shared_gate"], "shared_gate", ctx)
-        u = linear(x, params_l["shared_up"], "shared_up", ctx)
-        out = out + linear(F.silu(g) * u, params_l["shared_down"], "shared_down", ctx)
+        with trace.span("moe.shared", x) as sp:
+            xs = sp.inputs(x)
+            g = linear(xs, params_l["shared_gate"], "shared_gate", ctx)
+            u = linear(xs, params_l["shared_up"], "shared_up", ctx)
+            shared = sp.outputs(linear(F.silu(g) * u, params_l["shared_down"], "shared_down",
+                                       ctx))
+        out = out + shared
     return out, aux

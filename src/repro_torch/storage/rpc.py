@@ -51,6 +51,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import commitments as cm
 from repro_torch.core import extend2d
 from repro_torch.core.contract import BlobState, ShelbyContract
@@ -448,7 +449,8 @@ class RPCNode:
             return data
 
         def verify(ck: int, data) -> bool:
-            commit, _ = cm.commit_chunk(data)
+            with trace.span("rpc.verify"):
+                commit, _ = cm.commit_chunk(data)
             if commit.root != meta.chunk_roots[(chunkset, ck)]:
                 self.stats.chunks_bad += 1  # §2.3: tampering detected
                 return False
@@ -706,15 +708,16 @@ class RPCNode:
             raise first_err
         if fetched:
             order = sorted(fetched)
-            if self.batch_decode and len(order) > 1:
-                decoded = self.layout.code.reconstruct_data_batch(
-                    [fetched[key].shards for key in order]
-                )
-            else:
-                decoded = [
-                    self.layout.code.reconstruct_data(fetched[key].shards)
-                    for key in order
-                ]
+            with trace.span("rpc.decode", self.layout.device):
+                if self.batch_decode and len(order) > 1:
+                    decoded = self.layout.code.reconstruct_data_batch(
+                        [fetched[key].shards for key in order]
+                    )
+                else:
+                    decoded = [
+                        self.layout.code.reconstruct_data(fetched[key].shards)
+                        for key in order
+                    ]
             for key, dec in zip(order, decoded):
                 out[key] = dec
                 self._cache_put(key, dec, loop.now)

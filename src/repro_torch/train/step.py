@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import build
 from repro_torch.sharding import require_mesh_ctx
@@ -47,35 +48,47 @@ def make_train_step(cfg: ArchConfig, ctx=None, adamw: opt.AdamWConfig | None = N
 
     def grad_fn(params, batch):
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+        on = next(iter(leaves.values()))
         with torch.enable_grad():
-            loss, _ = loss_fn(leaves, batch)
+            with trace.span("train.forward", on):
+                loss, _ = loss_fn(leaves, batch)
             # a parameter the loss never reads (an embedding-input model's
             # table, read by decode only) gets zeros, as jax.grad gives it
-            grads = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
+            with trace.span("train.backward", on):
+                grads = torch.autograd.grad(loss, list(leaves.values()), materialize_grads=True)
         return loss.detach(), dict(zip(leaves, grads))
 
     def train_step(state, batch):
         params = state["params"]
-        if num_microbatches == 1:
-            loss, grads = grad_fn(params, batch)
-            grads = reduce(grads)
-        else:
-            def split(x):
-                return x.reshape((num_microbatches, x.shape[0] // num_microbatches) + x.shape[1:])
+        on = next(iter(params.values()))
+        trace.count("train.steps", 1)
+        with trace.span("train.step", on):
+            if num_microbatches == 1:
+                loss, grads = grad_fn(params, batch)
+                with trace.span("train.accumulate", on):
+                    grads = reduce(grads)
+            else:
+                def split(x):
+                    return x.reshape((num_microbatches, x.shape[0] // num_microbatches)
+                                     + x.shape[1:])
 
-            mbs = {k: split(x) for k, x in batch.items()}
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for k, p in params.items()}
-            losses = []
-            for i in range(num_microbatches):
-                loss_i, g = grad_fn(params, {k: x[i] for k, x in mbs.items()})
-                for k, acc in grads.items():
-                    acc.add_(g[k])  # in place: one f32 accumulator per parameter
-                losses.append(loss_i)
-            grads = reduce(grads)
-            grads = {k: g / num_microbatches for k, g in grads.items()}
-            loss = torch.stack(losses).mean()
-        new_state, opt_metrics = opt.update(state, grads, adamw, ctx)
+                with trace.span("train.accumulate", on):
+                    mbs = {k: split(x) for k, x in batch.items()}
+                    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                             for k, p in params.items()}
+                losses = []
+                for i in range(num_microbatches):
+                    loss_i, g = grad_fn(params, {k: x[i] for k, x in mbs.items()})
+                    with trace.span("train.accumulate", on):
+                        for k, acc in grads.items():
+                            acc.add_(g[k])  # in place: one f32 accumulator per parameter
+                    losses.append(loss_i)
+                with trace.span("train.accumulate", on):
+                    grads = reduce(grads)
+                    grads = {k: g / num_microbatches for k, g in grads.items()}
+                    loss = torch.stack(losses).mean()
+            with trace.span("train.optimizer", on):
+                new_state, opt_metrics = opt.update(state, grads, adamw, ctx)
         return new_state, {"loss": loss, **opt_metrics}
 
     return train_step

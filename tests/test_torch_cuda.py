@@ -1537,3 +1537,49 @@ def test_tile_design_rule_on_the_card(cuda, case, design):
     if design == "mma":
         with pytest.raises(ValueError, match="wgmma"):
             fa.flash_attention_variant("tile", q, k, v, q_positions=qpos, design="wgmma")
+
+
+def test_a_marked_train_step_on_the_card_equals_an_unmarked_one(cuda):
+    """Two steps of a small MLA + MoE model under a profiler, its spans
+    marked on the stream and its backward intervals marked from the autograd
+    graph, leave the loss and the state bit for bit as two unmarked steps."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import build
+    from repro_torch.sharding import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_smoke("deepseek-v2-lite-16b"), num_layers=2)
+    step = make_train_step(cfg, num_microbatches=2)
+    toks = torch.randint(0, cfg.vocab, (2, 4, 65), generator=torch.Generator().manual_seed(3))
+
+    def run(prof):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        state = opt.init_state(init_params(build(cfg).param_specs(), gen, device=cuda))
+        if prof is not None:
+            prof.__enter__()
+        for t in toks.to(cuda):
+            state, metrics = step(state, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        return metrics["loss"], state
+
+    trace.mark_library()
+    loss0, state0 = run(None)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    loss1, state1 = run(prof)
+    assert torch.equal(loss0, loss1)
+    for part in ("params", "m", "v"):
+        for k in state0[part]:
+            assert torch.equal(state0[part][k], state1[part][k]), (part, k)
+    marks = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and "trace_mark_kernel" in e.name()]
+    bwd = 2 * trace.NUMBER["moe.combine.bwd"]
+    assert sum(f"trace_mark_kernel<{bwd}>" in n for n in marks) == 2 * 2  # 2 steps x 2 microbatches

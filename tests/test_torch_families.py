@@ -473,7 +473,7 @@ def test_routing_and_dispatch_match_reference():
     cfg, x, router = _router_inputs("qwen3-moe-30b-a3b")
     m = cfg.moe
     jidx, jw, jaux = jax.jit(JMoE._route, static_argnums=2)(x, router, m.top_k)
-    idx, w, aux = TMoE._route(torch.from_numpy(x), torch.from_numpy(router), m.top_k)
+    idx, w, aux, _ = TMoE._route(torch.from_numpy(x), torch.from_numpy(router), m.top_k)
     dispatch = jax.jit(JMoE._dispatch_indices, static_argnums=(1, 2, 3, 4))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=ROUTE_ATOL)
@@ -492,7 +492,7 @@ def test_top_k_ties_keep_the_lower_expert_first():
     x = np.zeros((5, cfg.d_model), np.float32)  # every logit 0: all experts tie
     router = np.ones((cfg.d_model, cfg.moe.num_experts), np.float32)
     jidx, _, _ = jax.jit(JMoE._route, static_argnums=2)(x, router, cfg.moe.top_k)
-    idx, _, _ = TMoE._route(torch.from_numpy(x), torch.from_numpy(router), cfg.moe.top_k)
+    idx, _, _, _ = TMoE._route(torch.from_numpy(x), torch.from_numpy(router), cfg.moe.top_k)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     assert idx.tolist() == [list(range(cfg.moe.top_k))] * 5
 
@@ -510,8 +510,8 @@ def test_moe_capacity_drops_overflow():
     t = B * S
     capacity = TMoE.capacity_of(t, tcfg)
     assert capacity == jcfg.moe.top_k  # ceil(48 * 2 / 8 * 0.1) = 2 = top_k
-    idx, _, _ = TMoE._route(torch.from_numpy(x.reshape(t, -1)), torch.from_numpy(layer["router"]),
-                            tcfg.moe.top_k)
+    idx, _, _, _ = TMoE._route(torch.from_numpy(x.reshape(t, -1)),
+                               torch.from_numpy(layer["router"]), tcfg.moe.top_k)
     dest, _ = TMoE._dispatch_indices(idx, tcfg.moe.num_experts, capacity, 0, tcfg.moe.num_experts)
     size = tcfg.moe.num_experts * capacity
     assert int((dest == size).sum()) > t  # most of the 96 assignments are dropped
